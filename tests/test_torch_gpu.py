@@ -1,6 +1,7 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions, and
-the serving slice on the card through both.  Every test here needs CUDA and
-skips without it.  The card has no JAX and tests/conftest.py imports it, so
+"""Kernels K1-K5 on the card against their plain PyTorch versions, the
+serving slice through K1 and K2, and from_file + full over block-quantized
+files through K1, K3 and K4 or K5.  Every test here needs CUDA and skips
+without it.  The card has no JAX and tests/conftest.py imports it, so
 run this file there without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py -q
@@ -14,20 +15,32 @@ torch.set_num_threads(2)
 
 from whisper_tpu_torch import (BatchTranscriber, WhisperContext,  # noqa: E402
                                full_default_params)
+from whisper_tpu_torch.audio.filters import mel_filterbank  # noqa: E402
+from whisper_tpu_torch.audio.mel import full_f32_matmuls  # noqa: E402
 from whisper_tpu_torch.ops import cross_attention as xa  # noqa: E402
 from whisper_tpu_torch.ops import encoder_attention as ea  # noqa: E402
+from whisper_tpu_torch.ops import quantized as qm  # noqa: E402
+from whisper_tpu_torch.weights import ggml_writer  # noqa: E402
+from whisper_tpu_torch.weights.vocab import synthetic_vocab  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
 # bf16 operands on both sides, rounded at different points: the bound the
 # Pallas tests use
 TOL = 2e-2
+# K3 and its plain version make the same bf16 roundings; only the order of
+# the f32 sums differs (chip_smoke.KERNEL_TOL gives the readings)
+TOL_K3 = 1e-5
+# K4/K5 and theirs likewise, but a softmax weight within an f32 rounding
+# of a bf16 tie may round the other way
+TOL_K45 = 5e-4
 
 
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    full_f32_matmuls()     # the plain versions' f32 matmuls, not TF32
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     return g
@@ -115,3 +128,123 @@ def test_batch_transcriber_on_card_runs_both_kernels(gen):
     for segs in result:
         assert segs
         assert np.isfinite([t.p for s in segs for t in s.tokens]).all()
+
+
+def _packed(gen, K, N, mins):
+    codes = torch.randint(-16, 16, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scales = (torch.rand(K // 32, N, generator=gen, device="cuda") * 2e-3
+              + 1e-4)
+    offs = (-16 * scales * torch.rand(K // 32, N, generator=gen,
+                                      device="cuda")) if mins else None
+    return codes, scales, offs
+
+
+@pytest.mark.parametrize("mins", [False, True])
+@pytest.mark.parametrize("M", [1, 4, 232])
+@pytest.mark.parametrize("K,N", [(1280, 1280), (1280, 5120), (5120, 1280),
+                                 (768, 768), (768, 3072), (3072, 768),
+                                 (128, 384)])
+def test_k3_matches_plain_on_card(gen, K, N, M, mins):
+    """large-v3's and small's decoder shapes (one K split and several) and
+    a micro one; M = 1 and 4 as in decode, 232 as in the carried-prompt
+    pass."""
+    codes, scales, offs = _packed(gen, K, N, mins)
+    x = torch.randn(M, K, generator=gen, device="cuda")
+    n = qm.quantized_matmul.launches
+    got = qm.quantized_matmul(x, codes, scales, offs)
+    torch.cuda.synchronize()
+    assert qm.quantized_matmul.launches == n + 1
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    ref = qm.quantized_matmul_ref(x, codes, scales, offs)
+    assert _rel_err(got, ref) <= TOL_K3
+
+
+def _bhtd(gen, B, H, Ta, Dh=64):
+    return [(torch.randn(B, H, n, Dh, generator=gen, device="cuda") * 0.3
+             ).to(torch.bfloat16) for n in (1, Ta, Ta)]
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 37), (2, 4, 256), (1, 12, 1500),
+                                   (1, 20, 1500), (4, 20, 1500)])
+def test_k4_k5_match_plain_on_card(gen, shape):
+    """Ta = 37 is not a multiple of the 32 rows a block reads per step."""
+    q, k, v = _bhtd(gen, *shape)
+    n4 = xa.cross_attention_decode.launches
+    got = xa.cross_attention_decode(q, k, v)
+    torch.cuda.synchronize()
+    assert xa.cross_attention_decode.launches == n4 + 1
+    assert got.shape == q.shape and got.dtype == torch.float32
+    assert _rel_err(got, xa.cross_attention_decode_ref(q, k, v)) <= TOL_K45
+
+    kq, ks = xa.quantize_kv(k.float())
+    vq, vs = xa.quantize_kv(v.float())
+    n5 = xa.cross_attention_decode_q8.launches
+    got = xa.cross_attention_decode_q8(q, kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    assert xa.cross_attention_decode_q8.launches == n5 + 1
+    ref = xa.cross_attention_decode_q8_ref(q, kq, ks, vq, vs)
+    assert _rel_err(got, ref) <= TOL_K45
+
+
+def test_new_wrappers_refuse_on_card(gen):
+    codes, scales, offs = _packed(gen, 256, 256, True)
+    x = torch.randn(2, 256, device="cuda")
+    with pytest.raises(ValueError):          # f16 scales
+        qm.quantized_matmul(x, codes, scales.half())
+    with pytest.raises(ValueError):          # (N, K) codes
+        qm.quantized_matmul(x, codes[:, :128].contiguous(), scales)
+    with pytest.raises(ValueError):          # not contiguous
+        qm.quantized_matmul(x, codes.t().contiguous().t(), scales, offs)
+    with pytest.raises(ValueError):          # N not a multiple of 128
+        qm.quantized_matmul(x, codes[:, :96].contiguous(),
+                            scales[:, :96].contiguous())
+    q, k, v = _bhtd(gen, 1, 2, 40)
+    with pytest.raises(ValueError):          # f32 query
+        xa.cross_attention_decode(q.float(), k, v)
+    with pytest.raises(ValueError):          # (B, H, Dh, Ta) layout
+        xa.cross_attention_decode(q, k.transpose(-1, -2), v)
+    with pytest.raises(ValueError):          # head dim 32
+        xa.cross_attention_decode(q[..., :32].contiguous(),
+                                  k[..., :32].contiguous(),
+                                  v[..., :32].contiguous())
+    kq, ks = xa.quantize_kv(k.float())
+    with pytest.raises(ValueError):          # scales without the last axis
+        xa.cross_attention_decode_q8(q, kq, ks[..., 0], kq, ks[..., 0])
+
+
+@pytest.mark.parametrize("kind,cross_mode,audio_ctx", [
+    ("q5_0", "pallas_q8", 0), ("q5_1", "pallas", 0),
+    ("q5_0", "pallas_q8", 37)])
+def test_full_from_file_on_card(gen, tmp_path, kind, cross_mode, audio_ctx):
+    """whisper_full at small widths (head dim 64) in bf16 over a
+    block-quantized file: K1, K3 (with mins for q5_1) and K4 or K5.
+    audio_ctx=37 shrinks Ta to an odd length, so each layer's K5 scales
+    start at an address that is a multiple of 4 bytes only."""
+    dims = (51865, 64, 128, 2, 2, 48, 128, 2, 3, 80)
+    hp = dict(zip(ggml_writer.HPARAM_KEYS, dims))
+    path = str(tmp_path / f"{kind}.bin")
+    ggml_writer.write_random_model(
+        path, hp, mel_filterbank(80), synthetic_vocab(dims[0]).id_to_token[
+            :50257], kind, seed=1)
+    ctx = WhisperContext.from_file(path, device="cuda",
+                                   cross_mode=cross_mode)
+    p = full_default_params()
+    p.print_progress = False
+    p.temperature_inc = 0.0
+    p.max_tokens = 16
+    p.audio_ctx = audio_ctx
+    pcm = (np.random.RandomState(0).randn(16000 * 5) * 0.1).astype(
+        np.float32)
+    kernel = (xa.cross_attention_decode_q8 if cross_mode == "pallas_q8"
+              else xa.cross_attention_decode)
+    for fn in (ea.self_attention, qm.quantized_matmul, kernel):
+        fn.launches = 0
+    assert ctx.full(p, pcm) == 0
+    torch.cuda.synchronize()
+    assert ea.self_attention.launches > 0
+    assert qm.quantized_matmul.launches > 0
+    assert kernel.launches > 0
+    segs = ctx.result_all
+    assert segs
+    assert np.isfinite([t.p for s in segs for t in s.tokens]).all()

@@ -33,4 +33,15 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 17, proc.stdout
+    assert n_modules >= 26, proc.stdout
+
+
+def test_port_has_the_whisper_full_modules():
+    """The modules whisper_full over a ggml file needs are the port's own
+    copies, importable without JAX (checked above)."""
+    import importlib
+    for name in ("weights.quant", "weights.ggml_reader", "weights.ggml_writer",
+                 "ops.quantized", "tokenizer", "utils.timings",
+                 "utils.logging"):
+        mod = importlib.import_module(f"whisper_tpu_torch.{name}")
+        assert mod.__name__ == f"whisper_tpu_torch.{name}"

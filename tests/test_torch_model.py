@@ -1,6 +1,7 @@
-"""whisper_tpu_torch model forward, mel and logit filters against
-whisper_tpu on the same weights and inputs (CPU; kernels run as their
-plain versions)."""
+"""whisper_tpu_torch model forward, mel, tokenizer and logit filters
+against whisper_tpu on the same weights and inputs (CPU; kernels run as
+their plain versions), with dense and with block-quantized decoder
+weights."""
 
 import itertools
 
@@ -12,6 +13,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from whisper_tpu.audio.filters import mel_filterbank  # noqa: E402
 from whisper_tpu.audio.mel import (log_mel_spectrogram_jax,  # noqa: E402
@@ -234,3 +236,179 @@ def test_filter_chain_matches_jax(no_timestamps):
         for g, r in zip(got_td[1:], ref_td[1:]):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
                                        atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# block-quantized decoder weights (K3) and the dense, "bhtd" (K4) and
+# {"q", "s"} (K5) cross-KV, from a q5_1 file (so K3 runs with mins)
+# ---------------------------------------------------------------------------
+
+# widths multiples of 128, so both sides keep the decoder packed
+QDIMS = (256, 32, 128, 2, 2, 32, 128, 2, 2, 80)
+STRICT = {"xla_allow_excess_precision": False}
+# K3 rounds its input activations to bf16 on both sides.  Where the two
+# frameworks' f32 activations (equal to ~1e-7) straddle a bf16 rounding
+# boundary, that rounding goes different ways: one bf16 step (2^-8) of one
+# input, which moves the logits by up to ~1e-3 of their scale and carries
+# into every later position (seen at 2 of 3 input seeds).  So in float32
+# the packed paths are held to 2e-3, not the dense paths' 1e-4; bf16 keeps
+# its 2e-2.
+TOL_PACKED = {"float32": 2e-3, "bfloat16": 2e-2}
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def qmodel(request, tmp_path_factory):
+    from test_torch_ggml import write_model
+    from whisper_tpu.weights.convert import params_from_ggml
+    from whisper_tpu.weights.ggml_reader import read_ggml_file
+    from whisper_tpu_torch.weights.convert import params_from_ggml as tpfg
+    from whisper_tpu_torch.weights.ggml_reader import read_ggml_file as tread
+
+    dtype = request.param
+    path = write_model(tmp_path_factory.mktemp("qmodel") / "q5_1.bin",
+                       "q5_1", dims=QDIMS, seed=4)
+    jp, _ = params_from_ggml(read_ggml_file(path), dtype=getattr(jnp, dtype),
+                             keep_quantized=True)
+    tp, _ = tpfg(tread(path), dtype=getattr(torch, dtype))
+    assert isinstance(tp["decoder"]["blocks"]["q_w"], dict)
+    assert "m" in tp["decoder"]["blocks"]["mlp0_w"]
+    rng = np.random.RandomState(12)
+    return {
+        "dtype": dtype, "jcd": getattr(jnp, dtype),
+        "tcd": getattr(torch, dtype), "tol": TOL_PACKED[dtype], "jp": jp,
+        "tp": tp, "enc": rng.randn(2, 32, 128).astype(np.float32) * 0.3,
+    }
+
+
+def _strict(fn, *args):
+    """fn jitted and compiled as the TPU computes it (see
+    tests/test_torch_quant.py), Pallas kernels in interpret mode."""
+    with pltpu.force_tpu_interpret_mode():
+        return jax.jit(fn).lower(*args).compile(compiler_options=STRICT)(
+            *args)
+
+
+def test_cross_kv_dense(qmodel):
+    """The cross K/V projections stay dense (never packed): the dense
+    paths' bound."""
+    m = qmodel
+    ref = wm.cross_kv(m["jp"], jnp.asarray(m["enc"]), n_head=2,
+                      compute_dtype=m["jcd"])
+    got = tm.cross_kv(m["tp"], _t(m["enc"]), n_head=2,
+                      compute_dtype=m["tcd"])
+    assert not isinstance(m["tp"]["decoder"]["blocks"]["xk_w"], dict)
+    for g, r in zip(got, ref):
+        assert g.dtype == m["tcd"] and tuple(g.shape) == r.shape
+        _close(g.float(), np.asarray(r, np.float32), TOL[m["dtype"]])
+
+
+def _qprompt(m):
+    """Dense cross-KV and a left-padded prompt pass on the packed model."""
+    kc, vc = wm.cross_kv(m["jp"], jnp.asarray(m["enc"]), n_head=2,
+                         compute_dtype=m["jcd"])
+    P = 6
+    pad_len = np.array([2, 0], np.int32)
+    prompt = np.array([[0, 0, 50, 51, 52, 53], [7, 8, 9, 10, 11, 12]],
+                      np.int32)
+    idx = np.arange(P)
+    positions = np.maximum(idx[None] - pad_len[:, None], 0)
+    q, k = idx[None, :, None], idx[None, None, :]
+    valid = (k <= q) & ((k >= pad_len[:, None, None]) | (k == q))
+    mask = np.where(valid, 0.0, -np.inf).astype(np.float32)[:, None]
+    return prompt, positions, pad_len, mask, kc, vc
+
+
+def test_decode_prompt_packed_dense_cross(qmodel):
+    """The prompt pass over untagged dense cross-KV, with every decoder
+    linear through K3's plain version."""
+    m = qmodel
+    prompt, positions, _, mask, kc, vc = _qprompt(m)
+    ref = _strict(lambda p, kc, vc: wm.decode_prompt(
+        p, jnp.asarray(prompt), jnp.asarray(positions), kc, vc, 2,
+        self_mask=jnp.asarray(mask), compute_dtype=m["jcd"]),
+        m["jp"], kc, vc)
+    tkc, tvc = (_t(np.asarray(x, np.float32)).to(m["tcd"]) for x in (kc, vc))
+    got = tm.decode_prompt(m["tp"], _t(prompt).long(), _t(positions).long(),
+                           tkc, tvc, 2, self_mask=_t(mask),
+                           compute_dtype=m["tcd"])
+    for g, r in zip(got, ref):
+        _close(g.float(), np.asarray(r, np.float32), m["tol"])
+
+
+@pytest.mark.parametrize("cross_mode", ["einsum", "pallas", "pallas_q8"])
+def test_decode_step_packed(qmodel, cross_mode):
+    """One token-loop step with packed weights through each cross mode's
+    layout (loop_cross_kv), against whisper_tpu's decode_step on the layout
+    its window loop builds (loop.py:268-280)."""
+    from whisper_tpu.ops import cross_attention as jxa
+    from whisper_tpu_torch.decode.loop import loop_cross_kv
+
+    m = qmodel
+    prompt, positions, pad_len, mask, kc, vc = _qprompt(m)
+    _, k_self, v_self = _strict(lambda p, kc, vc: wm.decode_prompt(
+        p, jnp.asarray(prompt), jnp.asarray(positions), kc, vc, 2,
+        self_mask=jnp.asarray(mask), compute_dtype=m["jcd"]),
+        m["jp"], kc, vc)
+    P, C = prompt.shape[1], prompt.shape[1] + 4
+    cache = {}
+    for name, s in (("k", k_self), ("v", v_self)):
+        c = np.zeros(s.shape[:2] + s.shape[3:] + (C,), np.float32)
+        c[..., :P] = np.asarray(s, np.float32).transpose(0, 1, 3, 4, 2)
+        cache[name] = c
+    tok = np.array([60, 61], np.int32)
+    pos = (P - pad_len).astype(np.int32)
+
+    def jlayout(kc):
+        if cross_mode == "einsum":
+            return kc
+        kt = kc.transpose(0, 1, 2, 4, 3)
+        if cross_mode == "pallas":
+            return kt.astype(m["jcd"])
+        q8, s8 = jxa.quantize_kv(kt)
+        return {"q": q8, "s": s8}
+
+    def jstep(p, kc, vc, cache):
+        kl, vl = jlayout(kc), jlayout(vc)
+        if cross_mode == "pallas":
+            kl, vl = ("bhtd", kl), ("bhtd", vl)
+        return wm.decode_step(p, jnp.asarray(tok), jnp.asarray(pos), P, cache,
+                              kl, vl, kv_len=P + 1, n_head=2,
+                              pad_len=jnp.asarray(pad_len),
+                              compute_dtype=m["jcd"])
+
+    jcache = {k: jnp.asarray(v).astype(m["jcd"]) for k, v in cache.items()}
+    ref_logits, ref_kv = _strict(jstep, m["jp"], kc, vc, jcache)
+    tkc, tvc = (_t(np.asarray(x, np.float32)).to(m["tcd"]) for x in (kc, vc))
+    kl, vl = loop_cross_kv(cross_mode, tkc, tvc, m["tcd"])
+    tcache = {k: _t(v).to(m["tcd"]) for k, v in cache.items()}
+    got_logits, got_kv = tm.decode_step(
+        m["tp"], _t(tok), _t(pos).long(), P, tcache, kl, vl, kv_len=P + 1,
+        n_head=2, pad_len=_t(pad_len).long(), compute_dtype=m["tcd"])
+    _close(got_logits, ref_logits, m["tol"])
+    for name in ("k", "v"):
+        _close(got_kv[name].float().numpy(),
+               np.asarray(ref_kv[name], np.float32), m["tol"])
+
+
+def test_host_log_mel_matches_jax(monkeypatch):
+    """The host mel of `full` (numpy path) on f32 and s16 PCM."""
+    from whisper_tpu.audio.mel import log_mel_spectrogram
+    monkeypatch.setenv("WTPU_NO_NATIVE", "1")
+    rng = np.random.RandomState(8)
+    filters = mel_filterbank(80).astype(np.float32)
+    for pcm in (rng.randn(16000 * 2).astype(np.float32) * 0.1,
+                (rng.randn(16000) * 3000).astype(np.int16),
+                np.zeros(150, np.float32)):
+        ref, ref_n = log_mel_spectrogram(pcm, filters)
+        got, got_n = tmel.log_mel_spectrogram(pcm, filters)
+        assert got_n == ref_n
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_tokenizer_matches_jax():
+    from whisper_tpu.tokenizer import tokenize
+    from whisper_tpu_torch.tokenizer import tokenize as ttokenize
+    vocab = synthetic_vocab(51865)
+    for text in (" t5 t6 t7", "hello t12 world", " t1234x t9", ""):
+        assert ttokenize(tvocab.synthetic_vocab(51865), text) == tokenize(
+            vocab, text)

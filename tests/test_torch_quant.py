@@ -1,0 +1,187 @@
+"""Plain versions of kernels K3 (quantized_matmul), K4 and K5 (single-query
+cross-attention over (B, H, Ta, Dh) K/V), and the int8 quantizer, against
+whisper_tpu's Pallas kernels run in interpret mode on the CPU, on the same
+numpy inputs.  The CUDA kernels themselves are held against these plain
+versions on the card (chip_smoke.py, tests/test_torch_gpu.py).
+
+The Pallas kernels round to bf16 at stated points (x, the scales and each
+dequantized weight in K3; the query, K/V and the softmax weights in K4/K5).
+XLA on the CPU may skip such a rounding between fused ops
+(`xla_allow_excess_precision`, on by default; it did so for K3 at M = 1),
+which the TPU does not.  The JAX side is therefore compiled with that
+option off, so it computes what the TPU kernels compute.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from whisper_tpu.ops import cross_attention as jxa  # noqa: E402
+from whisper_tpu.ops import quantized as jq  # noqa: E402
+from whisper_tpu.weights import quant  # noqa: E402
+from whisper_tpu_torch.ops import cross_attention as txa  # noqa: E402
+from whisper_tpu_torch.ops import quantized as tq  # noqa: E402
+
+STRICT = {"xla_allow_excess_precision": False}
+QTYPES = (quant.GGML_TYPE_Q4_0, quant.GGML_TYPE_Q4_1, quant.GGML_TYPE_Q5_0,
+          quant.GGML_TYPE_Q5_1, quant.GGML_TYPE_Q8_0)
+# only the f32 summation order differs between the two sides
+RTOL = 1e-5
+
+
+def run_strict(fn, *args):
+    """A Pallas wrapper in interpret mode, compiled without excess
+    precision (module docstring)."""
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(fn.lower(*args).compile(compiler_options=STRICT)(
+            *args))
+
+
+def _rel_err(got, ref):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+def _packed(qtype, K, N, seed):
+    """(codes_t, scales_t, mins_t|None) of a random (N, K) weight in ggml
+    type `qtype`, K-major as params_from_ggml stores them."""
+    rng = np.random.RandomState(seed)
+    w = (rng.randn(N, K) * 0.05 + 0.01).astype(np.float32)
+    raw = quant.QUANTIZERS[qtype](w)
+    return tuple(None if a is None else np.ascontiguousarray(a.T)
+                 for a in jq.unpack_to_codes(raw, qtype, (N, K)))
+
+
+@pytest.mark.parametrize("K,N", [(256, 128), (128, 512)])
+@pytest.mark.parametrize("M", [1, 5, 40])
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_k3_plain_matches_pallas(qtype, M, K, N):
+    codes, scales, mins = _packed(qtype, K, N, seed=M + K + qtype)
+    x = np.random.RandomState(M).randn(M, K).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (x, codes, scales)]
+    if mins is not None:
+        jargs.append(jnp.asarray(mins))
+    ref = run_strict(jq.quantized_matmul, *jargs)
+    targs = [torch.from_numpy(a) for a in (x, codes, scales)]
+    if mins is not None:
+        targs.append(torch.from_numpy(mins))
+    n = tq.quantized_matmul.launches
+    got = tq.quantized_matmul(*targs)
+    assert tq.quantized_matmul.launches == n      # CPU: the plain version
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL,
+                               atol=RTOL * np.abs(ref).max())
+
+
+def test_k3_plain_rounds_like_the_kernel():
+    """The roundings are the kernel's, not a dense f32 matmul's: the plain
+    version differs from x @ decoded_w by the bf16 steps, and equals the
+    explicit per-step rounding exactly."""
+    codes, scales, mins = _packed(quant.GGML_TYPE_Q5_1, 128, 128, seed=3)
+    x = np.random.RandomState(3).randn(4, 128).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (x, codes, scales, mins)]
+    got = tq.quantized_matmul_ref(*t)
+    w = (codes.astype(np.float32) * np.repeat(scales, 32, axis=0)
+         + np.repeat(mins, 32, axis=0))
+    assert _rel_err(got.numpy(), x @ w) > 1e-4
+    bf = torch.bfloat16
+    s = t[2].to(bf).float().repeat_interleave(32, 0)
+    m = t[3].to(bf).float().repeat_interleave(32, 0)
+    wt = ((t[1].float() * s).to(bf).float() + m).to(bf).float()
+    torch.testing.assert_close(got, t[0].to(bf).float() @ wt, rtol=0, atol=0)
+
+
+def test_k3_splits_cover_k():
+    """K3's grid: split K only while it adds blocks, never below one 32-row
+    block per warp, and the splits cover every block exactly once."""
+    for M, N, K in ((1, 1280, 1280), (1, 5120, 1280), (1, 1280, 5120),
+                    (232, 1280, 5120), (4, 128, 128), (5, 512, 128)):
+        splits, per = tq._splits(M, N, K)
+        kblocks = K // 32
+        assert splits >= 1 and (splits - 1) * per < kblocks <= splits * per
+        assert splits == 1 or per >= tq.WARPS
+    assert tq._splits(1, 1280, 1280)[0] > 1
+    assert tq._splits(232, 1280, 5120)[0] == 1
+
+
+def _kv_inputs(seed=0, B=2, H=4, Ta=37, Dh=64):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, 1, Dh).astype(np.float32) * 0.3
+    k = rng.randn(B, H, Ta, Dh).astype(np.float32) * 0.3
+    v = rng.randn(B, H, Ta, Dh).astype(np.float32) * 0.3
+    return q, k, v
+
+
+@pytest.mark.parametrize("Ta", [37, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_plain_matches_pallas(dtype, Ta):
+    """q and K/V in the compute dtype: both sides round them to bf16."""
+    q, k, v = (a.astype(np.float32) for a in _kv_inputs(Ta=Ta))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = run_strict(jxa.cross_attention_decode,
+                     *(jnp.asarray(a).astype(jd) for a in (q, k, v)))
+    n = txa.cross_attention_decode.launches
+    got = txa.cross_attention_decode(
+        *(torch.from_numpy(a).to(td) for a in (q, k, v)))
+    assert txa.cross_attention_decode.launches == n
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL,
+                               atol=RTOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("Ta", [37, 128])
+def test_k5_plain_matches_pallas(Ta):
+    """Identical int8 codes and scales into both (quantize_kv is held bit
+    for bit below)."""
+    q, k, v = _kv_inputs(seed=1, Ta=Ta)
+    kq, ks = jxa.quantize_kv(jnp.asarray(k))
+    vq, vs = jxa.quantize_kv(jnp.asarray(v))
+    qb = jnp.asarray(q).astype(jnp.bfloat16)
+    ref = run_strict(jxa.cross_attention_decode_q8, qb, kq, ks, vq, vs)
+    t = [torch.from_numpy(np.array(a)) for a in (kq, ks, vq, vs)]
+    n = txa.cross_attention_decode_q8.launches
+    got = txa.cross_attention_decode_q8(
+        torch.from_numpy(q).to(torch.bfloat16), *t)
+    assert txa.cross_attention_decode_q8.launches == n
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL,
+                               atol=RTOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_bit_exact(dtype):
+    _, k, _ = _kv_inputs(seed=2, Ta=64)
+    k = np.stack([k, 3.0 * k])                       # a leading L axis
+    k[..., 5, :] = 0.0                               # an all-zero row
+    jk = jnp.asarray(k).astype(getattr(jnp, dtype))
+    tk = torch.from_numpy(k).to(getattr(torch, dtype))
+    jq8, js = jxa.quantize_kv(jk)
+    tq8, ts = txa.quantize_kv(tk)
+    assert tq8.dtype == torch.int8 and ts.dtype == torch.float32
+    assert ts.shape == js.shape == k.shape[:-1] + (1,)
+    np.testing.assert_array_equal(tq8.numpy(), np.asarray(jq8))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_new_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA card is refused,
+    not sent down another path."""
+    codes, scales, _ = _packed(quant.GGML_TYPE_Q8_0, 128, 128, seed=0)
+    codes, scales = torch.from_numpy(codes), torch.from_numpy(scales)
+    x = torch.zeros(1, 128, device="meta")
+    with pytest.raises(ValueError):
+        tq.quantized_matmul(x, codes, scales)
+    q = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16, device="meta")
+    kv = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        txa.cross_attention_decode(q, kv, kv)
+    codes8 = torch.zeros(1, 2, 8, 64, dtype=torch.int8)
+    sc = torch.ones(1, 2, 8, 1)
+    with pytest.raises(ValueError):
+        txa.cross_attention_decode_q8(q, codes8, sc, codes8, sc)

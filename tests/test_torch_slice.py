@@ -131,7 +131,11 @@ def test_refused_paths(contexts):
         BatchTranscriber(tctx, batch_size=2, params=p, mesh=object(),
                          device_mel=True)
     with pytest.raises(NotImplementedError):
-        WhisperContext.from_random(dims=MICRO, cross_mode="einsum")
+        WhisperContext.from_random(dims=MICRO, cross_mode="einsum_q4")
+    # "einsum" runs in full() but not in the batched path
+    dense = WhisperContext.from_random(dims=MICRO, cross_mode="einsum")
+    with pytest.raises(NotImplementedError):
+        BatchTranscriber(dense, batch_size=2, params=p, device_mel=True)
     fields = ("config", "vocab", "filters", "params", "compute_dtype")
     other_mode = types.SimpleNamespace(
         cross_mode="pallas_q8dt", **{f: getattr(jctx, f) for f in fields})

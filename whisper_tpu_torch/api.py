@@ -1,10 +1,15 @@
-"""Public API of the port: parameters, context and segment assembly
-(port of the serving slice of whisper_tpu.api).
+"""Public API of the port: parameters, context, the serial orchestrator
+`full` (whisper_full) and segment assembly (port of whisper_tpu.api).
 
 The dataclasses keep whisper_tpu's fields and defaults.  `WhisperContext`
-carries only what the batched serving path needs: random-weight
-construction, the bridge from a whisper_tpu context, the window-decode
-function cache and host-side segment assembly.
+is built from a ggml file (`from_file`, `from_buffer`), from random
+weights (`from_random`) or from a whisper_tpu context (`from_jax`).
+`full` runs the sliding 30 s window loop greedily at temperature 0 in
+cross modes "einsum", "pallas" and "pallas_q8"; what it does not port
+(sampling at t > 0 and the fallback ladder, beam search, grammars and
+logits-filter callbacks, token timestamps and DTW, suppress_regex, and
+cross mode "einsum_q8", which only `BatchTranscriber` runs) is refused
+with NotImplementedError before any work.
 """
 
 from __future__ import annotations
@@ -12,21 +17,27 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from .audio.filters import mel_filterbank
-from .audio.mel import full_f32_matmuls
-from .constants import CHUNK_SIZE, TICKS_PER_SECOND
+from .audio.mel import full_f32_matmuls, log_mel_spectrogram
+from .constants import CHUNK_SIZE, MAX_DECODERS, TICKS_PER_SECOND
 from .decode.filters import FilterConsts, FilterOptions
-from .decode.loop import LoopConfig, make_decode_window
+from .decode.loop import (CROSS_MODES, DELTA_MIN, LoopConfig,
+                          make_decode_window)
+from .languages import lang_id as _lang_id, lang_str
+from .models import whisper as wm
 from .models.whisper import MODEL_DIMS, WhisperConfig
-from .weights.convert import from_jax, random_params
+from .tokenizer import tokenize
+from .utils.logging import log_error, log_info, log_warn
+from .utils.timings import Timings
+from .weights.convert import from_jax, params_from_ggml, random_params
+from .weights.ggml_reader import Hparams, read_ggml_file
 from .weights.vocab import Vocab, synthetic_vocab
-
-CROSS_MODES = ("einsum_q8",)   # cross-KV modes the port runs
 
 
 class SamplingStrategy:
@@ -161,6 +172,7 @@ class WhisperState:
         self.t_last = 0
         self.tid_last = 0
         self.exp_n_audio_ctx = 0
+        self.timings = Timings()
 
     def full_n_segments(self): return len(self.result_all)
     def full_lang_id(self): return self.lang_id_state
@@ -192,30 +204,80 @@ def _session_property(name):
 
 class WhisperContext:
     """Model weights, vocab and filters on one torch device, plus the
-    session state that segment assembly writes (whisper_context +
-    whisper_state).  Build it with `from_random` or `from_jax`."""
+    session state that `full` and segment assembly write (whisper_context
+    + whisper_state).
 
-    def __init__(self, *, config: WhisperConfig, vocab: Vocab,
-                 filters: np.ndarray, params: dict, device,
-                 compute_dtype: torch.dtype, cross_mode: str):
+    Use `WhisperContext.from_file(path, device=...)` then
+    `ctx.full(params, samples)`.
+    """
+
+    def __init__(self, model_file=None, compute_dtype=torch.bfloat16,
+                 device="cpu", keep_quantized: bool = True,
+                 cross_mode: str = "einsum",
+                 dtw_token_timestamps: bool = False, *,
+                 config: WhisperConfig | None = None,
+                 vocab: Vocab | None = None, filters=None,
+                 params: dict | None = None, hparams: Hparams | None = None):
+        """From a parsed ggml file (`model_file`), or from ready parts
+        (config, vocab, filters, params) when model_file is None.
+
+        keep_quantized: the decoder's block-quantized weights stay packed
+        and run through K3 on every device (on the CPU as its plain
+        version).  cross_mode: "einsum" (dense K/V), "einsum_q8" (K2),
+        "pallas" (K4) or "pallas_q8" (K5).
+        """
         if cross_mode not in CROSS_MODES:
             raise NotImplementedError(
                 f"cross_mode {cross_mode!r} is not ported (have "
                 f"{CROSS_MODES})")
+        if dtw_token_timestamps:
+            raise NotImplementedError("DTW token timestamps are not ported")
         if torch.device(device).type == "cuda":
             full_f32_matmuls()
+        self.model_file = model_file
+        if model_file is not None:
+            params, config = params_from_ggml(
+                model_file, dtype=compute_dtype,
+                keep_quantized=keep_quantized, device=device)
+            vocab, filters = model_file.vocab, model_file.filters
+            hparams = model_file.hparams
+            self.n_loaded = model_file.n_loaded
+        else:
+            self.n_loaded = sum(1 for _ in _leaves(params))
         self.config = config
+        self.hparams = hparams or Hparams(
+            *(getattr(config, f.name)
+              for f in dataclasses.fields(WhisperConfig)[:-1]), ftype=1)
         self.vocab = vocab
         self.filters = np.asarray(filters, np.float32)
         self.params = params
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.cross_mode = cross_mode
-        self.n_loaded = sum(1 for _ in _leaves(params))
         self.dtw_token_timestamps = False
         self._default_state = WhisperState()
         self._cur_state = self._default_state
         self._fn_cache: dict = {}
+
+    # ---- constructors (whisper_init_*; reference: whisper.h:195-228) -----
+
+    @classmethod
+    def from_file(cls, path: str, compute_dtype=torch.bfloat16,
+                  **kwargs) -> "WhisperContext":
+        mf = read_ggml_file(path)
+        ctx = cls(mf, compute_dtype=compute_dtype, **kwargs)
+        hp = mf.hparams
+        loaded = (f"{ctx.n_loaded} tensors" if ctx.n_loaded
+                  else "no tensors (stub)")
+        log_info(f"loaded model '{path}': type {hp.model_type}, "
+                 f"n_vocab {hp.n_vocab}, n_audio_ctx {hp.n_audio_ctx}, "
+                 f"n_text_layer {hp.n_text_layer}, {loaded}")
+        return ctx
+
+    @classmethod
+    def from_buffer(cls, buf: bytes, compute_dtype=torch.bfloat16,
+                    **kwargs) -> "WhisperContext":
+        return cls(read_ggml_file(buf), compute_dtype=compute_dtype, **kwargs)
 
     @classmethod
     def from_random(cls, size: str = "large-v3", seed: int = 0,
@@ -250,10 +312,68 @@ class WhisperContext:
                          and f.name != "token_to_id"})
         params_np = _map_leaves(jax_ctx.params, np.asarray)
         dtype = _torch_dtype(np.dtype(jax_ctx.compute_dtype))
+        hp = getattr(jax_ctx, "hparams", None)
         return cls(config=cfg, vocab=vocab, filters=jax_ctx.filters,
                    params=from_jax(params_np, device),
                    device=device, compute_dtype=dtype,
-                   cross_mode=jax_ctx.cross_mode)
+                   cross_mode=jax_ctx.cross_mode,
+                   hparams=None if hp is None else Hparams(
+                       **{f.name: getattr(hp, f.name)
+                          for f in dataclasses.fields(Hparams)}))
+
+    # ---- introspection (reference: whisper.h:380-439) --------------------
+
+    def n_vocab(self) -> int: return self.hparams.n_vocab
+    def n_audio_ctx(self) -> int: return self.hparams.n_audio_ctx
+    def n_text_ctx(self) -> int: return self.hparams.n_text_ctx
+    def is_multilingual(self) -> bool: return self.vocab.is_multilingual
+    def token_to_str(self, tid: int) -> str: return self.vocab.token_str(tid)
+    def token_eot(self) -> int: return self.vocab.token_eot
+    def token_sot(self) -> int: return self.vocab.token_sot
+    def token_prev(self) -> int: return self.vocab.token_prev
+    def token_nosp(self) -> int: return self.vocab.token_nosp
+    def token_not(self) -> int: return self.vocab.token_not
+    def token_beg(self) -> int: return self.vocab.token_beg
+    def token_translate(self) -> int: return self.vocab.token_translate
+    def token_transcribe(self) -> int: return self.vocab.token_transcribe
+    def token_lang(self, lid: int) -> int: return self.vocab.token_lang(lid)
+    def tokenize(self, text: str) -> list[int]: return tokenize(self.vocab, text)
+
+    # ---- mel (whisper_pcm_to_mel / whisper_set_mel) ----------------------
+
+    def pcm_to_mel(self, samples: np.ndarray) -> None:
+        t0 = time.perf_counter()
+        self.mel, self.mel_n_len_org = log_mel_spectrogram(samples,
+                                                           self.filters)
+        self.timings.t_mel_us += int((time.perf_counter() - t0) * 1e6)
+
+    def set_mel(self, mel: np.ndarray) -> None:
+        """Custom mel injection (reference: whisper_set_mel, whisper.cpp:3894).
+        mel: (n_len, n_mel); n_mel must match the model."""
+        if mel.shape[1] != self.hparams.n_mels:
+            raise ValueError(
+                f"invalid number of mel bands: {mel.shape[1]} "
+                f"(expected {self.hparams.n_mels})")
+        self.mel = np.asarray(mel, dtype=np.float32)
+        self.mel_n_len_org = mel.shape[0]
+
+    def n_len_from_state(self) -> int:
+        return self.mel_n_len_org
+
+    # ---- encoder ---------------------------------------------------------
+
+    @torch.no_grad()
+    def _encode_fn(self, mel: torch.Tensor):
+        """mel (B, 2*n_ctx, n_mels) -> (encoder output, dense cross-KV), as
+        whisper_tpu's jitted encode fn: every cross mode starts from the
+        dense (L, B, H, Dh, Ta) cross-KV, which the window loop transposes
+        or quantizes once per window."""
+        cd = self.compute_dtype
+        enc = wm.encode(self.params, mel, n_head=self.config.n_audio_head,
+                        compute_dtype=cd)
+        kc, vc = wm.cross_kv(self.params, enc,
+                             n_head=self.config.n_text_head, compute_dtype=cd)
+        return enc, kc, vc
 
     def _decode_window_fn(self, B: int, P: int, opts: FilterOptions,
                           single_segment: bool, no_timestamps: bool,
@@ -295,6 +415,253 @@ class WhisperContext:
             finally:
                 self._cur_state = prev
         return _cm()
+
+    def init_state(self) -> WhisperState:
+        """whisper_init_state: a fresh session sharing this model."""
+        return WhisperState()
+
+    # ---- windows ---------------------------------------------------------
+
+    def _mel_window(self, seek: int) -> np.ndarray:
+        """(1, 2*n_ctx, n_mels) mel slice at `seek` (zero-padded)."""
+        n_ctx = self.exp_n_audio_ctx or self.hparams.n_audio_ctx
+        want = 2 * n_ctx
+        mel = self.mel
+        out = np.zeros((want, mel.shape[1]), dtype=np.float32)
+        avail = max(0, min(want, mel.shape[0] - seek))
+        out[:avail] = mel[seek:seek + avail]
+        return out[None]
+
+    def encode_window(self, seek: int):
+        """Encoder + dense cross-KV for the 30 s window at `seek` (ticks)."""
+        t0 = time.perf_counter()
+        mel_win = torch.from_numpy(self._mel_window(seek)).to(self.device)
+        enc, kc, vc = self._encode_fn(mel_win)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timings.t_encode_us += int((time.perf_counter() - t0) * 1e6)
+        self.timings.n_encode += 1
+        return enc, kc, vc
+
+    # ---- language detection (reference: src/whisper.cpp:4027-4108) -------
+
+    def lang_auto_detect(self, offset_ms: int = 0) -> tuple[int, np.ndarray]:
+        seek = offset_ms // 10
+        if seek >= self.mel_n_len_org:
+            raise ValueError("offset is past the end of the audio")
+        _, kc, vc = self.encode_window(seek)
+
+        prompt = torch.tensor([[self.vocab.token_sot]], device=self.device)
+        with torch.no_grad():
+            logits, _, _ = wm.decode_prompt(
+                self.params, prompt,
+                torch.zeros((1, 1), dtype=torch.long, device=self.device),
+                kc, vc, n_head=self.config.n_text_head,
+                compute_dtype=self.compute_dtype)
+        logits = logits[0, -1].cpu().numpy()
+
+        lang_ids = [self.vocab.token_lang(i) for i in range(100)]
+        lang_logits = logits[lang_ids]
+        probs = np.exp(lang_logits - lang_logits.max())
+        probs /= probs.sum()
+        best = int(np.argmax(probs))
+        return best, probs
+
+    # ---- the orchestrator (whisper_full) ---------------------------------
+
+    def full(self, params: FullParams, samples: Optional[np.ndarray],
+             state: Optional[WhisperState] = None) -> int:
+        if state is not None:
+            prev = self._cur_state
+            self._cur_state = state
+            try:
+                return self._full_impl(params, samples)
+            finally:
+                self._cur_state = prev
+        return self._full_impl(params, samples)
+
+    def _check_full_supported(self, params: FullParams) -> None:
+        """Refuse, before any work, what `full` does not port."""
+        refused = []
+        if self.cross_mode == "einsum_q8":
+            refused.append("cross_mode 'einsum_q8' (BatchTranscriber's "
+                           "int8 cross-KV path)")
+        if params.temperature > 0.0 or params.temperature_inc > 0.0:
+            refused.append("temperature > 0 / the fallback ladder "
+                           "(temperature_inc > 0 needs JAX's threefry draws)")
+        if params.strategy == SamplingStrategy.BEAM_SEARCH:
+            refused.append("beam search")
+        if params.grammar_rules is not None or params.logits_filter_callback:
+            refused.append("grammar / logits-filter callbacks")
+        if params.token_timestamps:
+            refused.append("token timestamps")
+        if params.suppress_regex:
+            refused.append("suppress_regex")
+        if refused:
+            raise NotImplementedError(
+                "whisper_tpu_torch full() does not port: "
+                + "; ".join(refused))
+
+    def _full_impl(self, params: FullParams,
+                   samples: Optional[np.ndarray]) -> int:
+        """The sliding-window loop of whisper_full_with_state (reference:
+        src/whisper.cpp:5481-6397), greedy at temperature 0: one window
+        decode per 30 s window, no ladder retries."""
+        self._check_full_supported(params)
+        self.result_all = []
+        language = params.language
+
+        if samples is not None and len(samples) > 0:
+            self.pcm_to_mel(samples)
+
+        if (language is None or language == "" or language == "auto"
+                or params.detect_language):
+            lid, probs = self.lang_auto_detect()
+            self.lang_id_state = lid
+            language = lang_str(lid)
+            # the resolved language is written back, as the reference does
+            # (src/whisper.cpp:5510)
+            params.language = language
+            log_info(f"auto-detected language: {language} "
+                     f"(p = {probs[lid]:.6f})")
+            if params.detect_language:
+                return 0
+
+        seek_start = params.offset_ms // 10
+        seek_end = (self.n_len_from_state() if params.duration_ms == 0
+                    else seek_start + params.duration_ms // 10)
+
+        if seek_end < seek_start + DELTA_MIN:
+            log_warn(f"input is too short - {(seek_end - seek_start) * 10} ms "
+                     "< 100 ms. consider padding the input audio with silence")
+            return 0
+
+        # greedy: best_of only sizes the t > 0 rungs, refused above, but a
+        # value past the decoder limit is still an error (whisper.cpp:5556)
+        n_decoders = max(1, params.greedy.best_of)
+        if n_decoders > MAX_DECODERS:
+            log_error(f"too many decoders requested ({n_decoders}), "
+                      f"max = {MAX_DECODERS}")
+            return -4
+
+        if params.no_context:
+            self.prompt_past = []
+
+        # initial prompt handling (reference: src/whisper.cpp:5592-5617)
+        prompt_tokens = params.prompt_tokens
+        if prompt_tokens is None and params.initial_prompt:
+            prompt_tokens = tokenize(self.vocab, params.initial_prompt)
+        if prompt_tokens:
+            self.prompt_past = list(prompt_tokens) + self.prompt_past
+
+        if params.audio_ctx > self.hparams.n_audio_ctx:
+            log_error("audio_ctx is larger than the maximum allowed")
+            return -5
+        self.exp_n_audio_ctx = params.audio_ctx
+
+        # task prompt (reference: src/whisper.cpp:5627-5651)
+        prompt_init = [self.vocab.token_sot]
+        if self.vocab.is_multilingual:
+            lid = _lang_id(language or "en")
+            self.lang_id_state = lid
+            prompt_init.append(self.vocab.token_lang(lid))
+            prompt_init.append(self.vocab.token_translate if params.translate
+                               else self.vocab.token_transcribe)
+
+        is_distil = (self.hparams.n_text_layer == 2
+                     and self.hparams.n_vocab != 51866)
+        no_timestamps = params.no_timestamps
+        if is_distil and not no_timestamps:
+            log_warn("using first release distilled models - forcing "
+                     "no_timestamps")
+            no_timestamps = True
+        if no_timestamps:
+            prompt_init.append(self.vocab.token_not)
+
+        opts = FilterOptions(
+            suppress_blank=params.suppress_blank,
+            no_timestamps=no_timestamps,
+            tdrz_enable=params.tdrz_enable,
+            suppress_nst=params.suppress_nst,
+            max_initial_ts=params.max_initial_ts,
+        )
+
+        seek = seek_start
+        while True:
+            if params.progress_callback:
+                progress = ((100 * (seek - seek_start))
+                            // max(1, seek_end - seek_start))
+                params.progress_callback(self, progress)
+
+            if seek + DELTA_MIN >= seek_end:
+                break
+
+            if params.encoder_begin_callback:
+                if not params.encoder_begin_callback(self):
+                    log_error("encoder_begin_callback returned false - "
+                              "aborting")
+                    break
+
+            if params.abort_callback and params.abort_callback(self):
+                log_warn("abort_callback requested stop")
+                break
+
+            _, kc, vc = self.encode_window(seek)
+
+            # drop confusing old prompt near the very end
+            # (reference: src/whisper.cpp:5697-5700)
+            if seek > seek_start and seek + 500 >= seek_end:
+                self.prompt_past = []
+
+            if self.n_loaded == 0:
+                # stub model (reference: whisper.cpp:6050-6055): no weights,
+                # skip decoding and consume the whole window
+                seek += TICKS_PER_SECOND * CHUNK_SIZE
+                continue
+
+            # prompt assembly (reference: src/whisper.cpp:5759-5771)
+            prompt: list[int] = []
+            if self.prompt_past and params.n_max_text_ctx > 0:
+                n_take = min(params.n_max_text_ctx,
+                             self.hparams.n_text_ctx // 2,
+                             len(self.prompt_past))
+                prompt = [self.vocab.token_prev] + self.prompt_past[-n_take:]
+            prompt = prompt + prompt_init
+
+            result = self._decode_window(prompt, kc, vc, params.temperature,
+                                         seek, seek_end, params, opts,
+                                         no_timestamps)
+            self.no_speech_prob = float(result["no_speech_prob"][0])
+            # the single rung is the last: it always emits
+            best, n_fail_h = _rank_window_candidates(
+                result, 1, params, last=True, token_eot=self.vocab.token_eot)
+            self.timings.n_fail_h += n_fail_h
+            best["prompt"] = prompt
+            seek = self._emit_segments(best, seek, seek_end, params,
+                                       prompt_init, no_timestamps)
+        return 0
+
+    def _decode_window(self, prompt, kc, vc, t_cur, seek, seek_end, params,
+                       opts, no_timestamps):
+        """One greedy window decode of a single candidate."""
+        # prompt buffer: tiny when unconditioned, full when carrying past
+        P = 8 if len(prompt) <= 8 else self.hparams.n_text_ctx // 2 + 8
+        fn = self._decode_window_fn(1, P, opts, params.single_segment,
+                                    no_timestamps, params.max_tokens)
+        pad = P - len(prompt)
+        buf = np.zeros((1, P), dtype=np.int32)
+        buf[:, pad:] = np.asarray(prompt, dtype=np.int32)
+        pad_len = np.full((1,), pad, dtype=np.int32)
+
+        t0 = time.perf_counter()
+        out = fn(self.params, kc, vc, buf, pad_len, t_cur, seek, seek_end,
+                 np.ones((1,), bool))
+        n_tok = int(out["n_tokens"])
+        self.timings.t_decode_us += int((time.perf_counter() - t0) * 1e6)
+        self.timings.n_decode += max(n_tok, 1)
+        self.timings.n_sample += max(n_tok, 1)
+        self.timings.n_prompt += len(prompt)
+        return out
 
     def _emit_segments(self, best, seek, seek_end, params, prompt_init,
                        no_timestamps) -> int:
@@ -371,6 +738,21 @@ class WhisperContext:
 
         return seek + seek_delta
 
+    # ---- segment accessors (reference: src/whisper.cpp:6522-6617) --------
+
+    def full_n_segments(self) -> int: return len(self.result_all)
+    def full_lang_id(self) -> int: return self.lang_id_state
+    def full_get_segment_t0(self, i: int) -> int: return self.result_all[i].t0
+    def full_get_segment_t1(self, i: int) -> int: return self.result_all[i].t1
+    def full_get_segment_text(self, i: int) -> str: return self.result_all[i].text
+    def full_n_tokens(self, i: int) -> int: return len(self.result_all[i].tokens)
+    def full_get_token_id(self, i: int, j: int) -> int:
+        return self.result_all[i].tokens[j].id
+    def full_get_token_p(self, i: int, j: int) -> float:
+        return self.result_all[i].tokens[j].p
+    def full_get_segment_no_speech_prob(self, i: int) -> float:
+        return self.result_all[i].no_speech_prob
+
     def _push_segment(self, t0, t1, text, tokens, speaker_turn_next, params):
         if params.print_realtime:
             if params.print_timestamps:
@@ -390,7 +772,7 @@ class WhisperContext:
 # state selected by use_state()
 for _f in ("mel", "mel_n_len_org", "lang_id_state", "no_speech_prob",
            "result_all", "prompt_past", "energy", "t_beg", "t_last",
-           "tid_last", "exp_n_audio_ctx"):
+           "tid_last", "exp_n_audio_ctx", "timings"):
     setattr(WhisperContext, _f, _session_property(_f))
 del _f
 

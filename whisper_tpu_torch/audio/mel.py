@@ -1,6 +1,8 @@
 """Log-mel spectrogram frontend (port of whisper_tpu.audio.mel).
 
-`pad_audio` is a numpy copy of the original.  `log_mel_spectrogram_torch`
+`pad_audio` and the host `log_mel_spectrogram` (the serial `full` path)
+are numpy copies of the original's numpy path; the native C++ frontend is
+not ported.  `log_mel_spectrogram_torch`
 is the port of `log_mel_spectrogram_jax`: framing as a strided view, the
 real DFT as two (400, 201) matmuls, the filterbank as one more, all in
 full float32 — the result feeds log10 and a global-max clamp, so TF32
@@ -55,6 +57,42 @@ def pad_audio(samples: np.ndarray) -> tuple[np.ndarray, int, int]:
     n_len = (len(padded) - N_FFT) // HOP_LENGTH
     n_len_org = 1 + (n_samples + stage_2_pad - N_FFT) // HOP_LENGTH
     return padded, n_len, n_len_org
+
+
+def _mel_from_padded_np(padded: np.ndarray, n_len: int,
+                        filters: np.ndarray) -> np.ndarray:
+    window = hann_window_periodic()
+    idx = np.arange(n_len)[:, None] * HOP_LENGTH + np.arange(N_FFT)[None, :]
+    frames = padded[idx] * window[None, :]
+
+    spec = np.fft.rfft(frames.astype(np.float32), n=N_FFT, axis=1)
+    power = (spec.real ** 2 + spec.imag ** 2).astype(np.float32)  # (n_len, 201)
+
+    mel = power @ filters.astype(np.float32).T                    # (n_len, n_mel)
+    mel = np.log10(np.maximum(mel, 1e-10))
+
+    mmax = mel.max() - 8.0
+    mel = (np.maximum(mel, mmax) + 4.0) / 4.0
+    return mel.astype(np.float32)                                 # (n_len, n_mel)
+
+
+def log_mel_spectrogram(samples: np.ndarray,
+                        filters: np.ndarray) -> tuple[np.ndarray, int]:
+    """PCM f32 (or s16) mono @16 kHz -> ((n_len, n_mel) f32 mel, n_len_org),
+    on the host (whisper_tpu.audio.mel.log_mel_spectrogram's numpy path).
+
+    The returned mel includes the trailing 30 s zero-pad region so a full
+    window starting at any seek offset < n_len_org is always available.
+    """
+    samples = np.asarray(samples)
+    if samples.dtype == np.int16:
+        samples = samples.astype(np.float32) / 32768.0
+    samples = samples.astype(np.float32, copy=False)
+    if len(samples) < 1 + N_FFT // 2:
+        # too short for the reflect pad; zero-extend like a silent signal
+        samples = np.pad(samples, (0, 1 + N_FFT // 2 - len(samples)))
+    padded, n_len, n_len_org = pad_audio(samples)
+    return _mel_from_padded_np(padded, n_len, filters), n_len_org
 
 
 @functools.lru_cache(maxsize=1)

@@ -37,9 +37,40 @@ class LoopConfig:
     single_segment: bool
     no_timestamps: bool
     compute_dtype: torch.dtype = torch.bfloat16
-    # cross-attention path of the token loop; the port has "einsum_q8"
-    # (int8 cross-KV, through K2 on the card)
+    # cross-attention path of the token loop: "einsum" (dense K/V, plain
+    # torch), "einsum_q8" (int8 (.., Dh, Ta) K/V through K2), "pallas"
+    # (bf16 (.., Ta, Dh) K/V through K4) or "pallas_q8" (int8 (.., Ta, Dh)
+    # K/V through K5).  The prompt pass always runs the einsum.
     cross_mode: str = "einsum_q8"
+
+
+CROSS_MODES = ("einsum", "einsum_q8", "pallas", "pallas_q8")
+
+
+def loop_cross_kv(cross_mode: str, k_cross, v_cross, compute_dtype):
+    """The cross-KV layout the token loop reads, made once per window from
+    the prompt pass's (whisper_tpu.decode.loop, loop.py:252-280): from the
+    dense (L, B, H, Dh, Ta) of cross_kv, or for "einsum_q8" from the
+    (codes, scales) pairs of cross_kv_q8."""
+    if cross_mode == "einsum_q8":
+        if isinstance(k_cross, torch.Tensor):
+            raise ValueError("cross_mode 'einsum_q8' takes the (codes, "
+                             "scales) pairs of cross_kv_q8")
+        return ("q8e",) + tuple(k_cross), ("q8e",) + tuple(v_cross)
+    if not isinstance(k_cross, torch.Tensor):
+        raise ValueError(f"cross_mode {cross_mode!r} takes the dense "
+                         "cross-KV of cross_kv, not a (codes, scales) pair")
+    if cross_mode == "einsum":
+        return k_cross, v_cross
+    # (L, B, H, Dh, Ta) -> (L, B, H, Ta, Dh), contiguous as K4/K5 read it
+    k_t, v_t = (x.transpose(-1, -2).to(compute_dtype).contiguous()
+                for x in (k_cross, v_cross))
+    if cross_mode == "pallas":
+        return ("bhtd", k_t), ("bhtd", v_t)
+    from ..ops.cross_attention import quantize_kv
+    kq, ks = quantize_kv(k_t)
+    vq, vs = quantize_kv(v_t)
+    return {"q": kq, "s": ks}, {"q": vq, "s": vs}
 
 
 def token_state_update(consts, cfg, *, i, tok, live, has_ts, seek_delta,
@@ -95,9 +126,9 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
     if strategy != "greedy":
         raise NotImplementedError(f"decode strategy {strategy!r} is not "
                                   "ported (greedy only)")
-    if cfg.cross_mode != "einsum_q8":
+    if cfg.cross_mode not in CROSS_MODES:
         raise NotImplementedError(f"cross_mode {cfg.cross_mode!r} is not "
-                                  "ported (einsum_q8 only)")
+                                  f"ported (have {CROSS_MODES})")
     process_logits = make_process_logits(consts, options, extra_suppress,
                                          device)
     P = cfg.prompt_size
@@ -111,8 +142,9 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
                       temperature, seek, seek_end, row_live=None):
         """Run one full window decode.
 
-        k_cross/v_cross: (codes int8 (L,B,H,Dh,Ta), scales f32 (L,B,H,Ta))
-        pairs from cross_kv_q8.
+        k_cross/v_cross: dense (L,B,H,Dh,Ta) from cross_kv, or for
+        "einsum_q8" (codes int8 (L,B,H,Dh,Ta), scales f32 (L,B,H,Ta))
+        pairs from cross_kv_q8 (whose bf16 stack never exists).
         prompt: (B, P) int — LEFT-padded prompt (pad value irrelevant)
         pad_len: (B,) int — number of pad slots at the start of each row
         temperature: must be 0 (greedy); sampled draws need JAX's threefry
@@ -126,9 +158,9 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
                 "sampling at temperature > 0 is not ported (it needs JAX's "
                 "threefry draws to match the reference)")
         temperature = 0.0
-        (kq, ks), (vq, vs) = k_cross, v_cross
-        L, _, H, Dh, _ = kq.shape
-        dev = kq.device
+        prequant = not isinstance(k_cross, torch.Tensor)
+        L, _, H, Dh, _ = (k_cross[0] if prequant else k_cross).shape
+        dev = (k_cross[0] if prequant else k_cross).device
 
         def dev_tensor(a, dtype):
             return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
@@ -150,9 +182,11 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         valid = (k <= q) & ((k >= pad_len[:, None, None]) | (k == q))
         mask = torch.where(valid, 0.0, float("-inf"))[:, None]
 
+        kc_p, vc_p = ((("q8",) + tuple(k_cross), ("q8",) + tuple(v_cross))
+                      if prequant else (k_cross, v_cross))
         logits_all, k_self, v_self = wm.decode_prompt(
-            params, prompt, positions, ("q8", kq, ks), ("q8", vq, vs),
-            cfg.n_head, self_mask=mask, compute_dtype=cd)
+            params, prompt, positions, kc_p, vc_p, cfg.n_head,
+            self_mask=mask, compute_dtype=cd)
         logits0 = logits_all[:, -1]
         del logits_all
 
@@ -160,8 +194,8 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         # (reference: src/whisper.cpp:5812-5820)
         no_speech_prob = torch.softmax(logits0, dim=-1)[:, consts.token_nosp]
 
-        kc_loop = ("q8e", kq, ks)
-        vc_loop = ("q8e", vq, vs)
+        kc_loop, vc_loop = loop_cross_kv(cfg.cross_mode, k_cross, v_cross,
+                                         cd)
 
         # self-KV cache (L, B, H, Dh, C); slots [0, P) hold the prompt
         kv_k = torch.zeros((L, B, H, Dh, C), dtype=cd, device=dev)

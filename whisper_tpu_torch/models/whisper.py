@@ -7,10 +7,12 @@ layernorm and softmax run in float32.  Where JAX asks for an f32 matmul
 result from bf16 operands (preferred_element_type), torch's bf16 GEMM rounds
 its output to bf16 before the cast: the bf16 parity bounds cover that.
 
-Only the serving slice is ported: the dense einsum path of the encoder with
-its self-attention through K1 (ops/encoder_attention.py), the int8
-cross-KV, the prompt pass with the tagged-q8 dequant, and the decode step
-whose "q8e" cross-attention runs through K2 (ops/cross_attention.py).
+Ported: the dense einsum path of the encoder with its self-attention
+through K1 (ops/encoder_attention.py); block-quantized decoder weights
+through K3 (ops/quantized.py); the dense and int8 cross-KV; the prompt pass
+over dense or tagged-q8 cross-KV; and the decode step, whose cross-attention
+runs the einsum on dense K/V, K2 on "q8e", K4 on ("bhtd", K/V) and K5 on
+{"q", "s"} (ops/cross_attention.py).
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..ops.cross_attention import cross_attention_decode_q8dt, quantize_kv_bhdt
+from ..ops.cross_attention import (cross_attention_decode,
+                                   cross_attention_decode_q8,
+                                   cross_attention_decode_q8dt,
+                                   quantize_kv_bhdt)
 from ..ops.encoder_attention import self_attention
+from ..ops.quantized import quantized_matmul
 
 # canonical dims per released model; order matches WhisperConfig fields
 MODEL_DIMS = {
@@ -54,6 +60,13 @@ class WhisperConfig:
     n_mels: int
     model_type: str = "unknown"
 
+    @classmethod
+    def from_hparams(cls, hp) -> "WhisperConfig":
+        """From a ggml file's Hparams (weights/ggml_reader.py)."""
+        return cls(*(getattr(hp, f.name)
+                     for f in dataclasses.fields(cls)[:-1]),
+                   model_type=hp.model_type)
+
     @property
     def head_dim_audio(self) -> int:
         return self.n_audio_state // self.n_audio_head
@@ -64,7 +77,9 @@ class WhisperConfig:
 
 
 def _layer(blocks: dict, l: int) -> dict:
-    return {key: w[l] for key, w in blocks.items()}
+    """Layer l of a stacked block dict (quantized weights are dicts)."""
+    return {key: _layer(w, l) if isinstance(w, dict) else w[l]
+            for key, w in blocks.items()}
 
 
 def _layernorm(x, w, b, eps: float = 1e-5):
@@ -73,7 +88,16 @@ def _layernorm(x, w, b, eps: float = 1e-5):
 
 
 def _linear(x, w, b=None, compute_dtype=torch.bfloat16):
-    y = F.linear(x.to(compute_dtype), w.to(compute_dtype)).float()
+    if isinstance(w, dict):
+        # block-quantized weight {"q": (K, N) int8, "s": (K/32, N)[, "m"]}
+        # -> K3, which rounds x to bf16 whatever the compute dtype and
+        # returns f32
+        shape = x.shape
+        y = quantized_matmul(x.reshape(-1, shape[-1]).to(compute_dtype),
+                             w["q"], w["s"], w.get("m"))
+        y = y.reshape(shape[:-1] + (w["q"].shape[-1],))
+    else:
+        y = F.linear(x.to(compute_dtype), w.to(compute_dtype)).float()
     if b is not None:
         y = y + b
     return y
@@ -156,6 +180,27 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16):
 # cross-attention KV precompute (reference: src/whisper.cpp:2285-2359)
 # ---------------------------------------------------------------------------
 
+def cross_kv(params, enc_out, n_head: int, compute_dtype=torch.bfloat16):
+    """enc_out (B, Ta, D) -> (k_cross, v_cross): (L, B, H, Dh, Ta) each, in
+    the compute dtype (the dense cross-KV of cross modes "einsum",
+    "pallas" and "pallas_q8")."""
+    blocks = params["decoder"]["blocks"]
+    L = blocks["xk_w"].shape[0]
+    B, Ta, D = enc_out.shape
+    dev = enc_out.device
+    kc = torch.empty((L, B, n_head, D // n_head, Ta), dtype=compute_dtype,
+                     device=dev)
+    vc = torch.empty_like(kc)
+    for l in range(L):
+        k = _linear(enc_out, blocks["xk_w"][l], None, compute_dtype)
+        v = _linear(enc_out, blocks["xv_w"][l], blocks["xv_b"][l],
+                    compute_dtype)
+        # (B, Ta, H, Dh) -> (B, H, Dh, Ta)
+        kc[l] = _split_heads(k, n_head).permute(0, 2, 3, 1)
+        vc[l] = _split_heads(v, n_head).permute(0, 2, 3, 1)
+    return kc, vc
+
+
 def cross_kv_q8(params, enc_out, n_head: int, compute_dtype=torch.bfloat16):
     """enc_out (B, Ta, D) -> ((L, B, H, Dh, Ta) int8 codes,
     (L, B, H, Ta) f32 scales) for K and for V.
@@ -216,27 +261,30 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
     """Parallel decode of a token block (prompt processing).
 
     tokens: (B, T) int; positions: (T,) or (B, T) int
-    k_cross/v_cross: tagged ("q8", codes (L,B,H,Dh,Ta), scales (L,B,H,Ta))
+    k_cross/v_cross: dense (L, B, H, Dh, Ta) (cross_kv layout), or tagged
+        ("q8", codes (L,B,H,Dh,Ta), scales (L,B,H,Ta)) from cross_kv_q8
     self_mask: additive mask broadcastable to (B, 1, T, T) (float32), or None
     Returns (logits (B, T, n_vocab), k_self (L, B, T, H, Dh), v_self).
     """
-    if not (isinstance(k_cross, tuple) and k_cross[0] == "q8"):
+    tagged = isinstance(k_cross, tuple)
+    if tagged and k_cross[0] != "q8":
         raise NotImplementedError(
-            "decode_prompt: only the tagged int8 cross-KV ('q8', codes, "
-            "scales) is ported")
+            f"decode_prompt: cross-KV tag {k_cross[0]!r} is not ported "
+            "(dense or 'q8')")
     dec = params["decoder"]
     blocks = dec["blocks"]
     nh = n_head
     cd = compute_dtype
-    _, kq, ksc = k_cross
-    _, vq, vsc = v_cross
 
     x = (dec["tok_emb"][tokens] + dec["pos"][positions]).float()
     ks_out, vs_out = [], []
-    for l in range(blocks["q_w"].shape[0]):
+    for l in range(blocks["attn_ln_w"].shape[0]):
         blk = _layer(blocks, l)
-        kc = _dequant_q8(kq[l], ksc[l], cd)
-        vc = _dequant_q8(vq[l], vsc[l], cd)
+        if tagged:
+            kc = _dequant_q8(k_cross[1][l], k_cross[2][l], cd)
+            vc = _dequant_q8(v_cross[1][l], v_cross[2][l], cd)
+        else:
+            kc, vc = k_cross[l], v_cross[l]
 
         ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
         q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd), nh)
@@ -262,17 +310,36 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
 
 
 def _cross_attn_step(xq, kc, vc, compute_dtype):
-    """Cross attention for one decode step over ("q8e", int8 (B,H,Dh,Ta),
-    scales (B,H,Ta)): K2 on CUDA, its plain version on the CPU.
+    """Cross attention for one decode step; kc/vc select the path:
+
+      * array (B, H, Dh, Ta)                        — the einsum (plain)
+      * ("q8e", int8 (B, H, Dh, Ta), scales (B, H, Ta)) — K2
+      * ("bhtd", k (B, H, Ta, Dh))                  — K4
+      * {"q": int8 (B, H, Ta, Dh), "s": (B, H, Ta, 1)} — K5
+    Kernels run on CUDA tensors, their plain versions on the CPU.
     xq (B, 1, H, Dh) -> (B, 1, D)."""
-    if not (isinstance(kc, tuple) and kc[0] == "q8e"):
-        raise NotImplementedError(
-            "decode_step: only the 'q8e' int8 cross-KV path is ported")
-    _, kq, ks = kc
-    _, vq, vs = vc
+    if isinstance(kc, torch.Tensor):
+        return _cross_attention(xq, kc, vc, compute_dtype)
     q = xq.transpose(1, 2).to(compute_dtype).contiguous()   # (B, H, 1, Dh)
-    out = cross_attention_decode_q8dt(q, kq, ks, vq, vs)
+    if isinstance(kc, dict):
+        out = cross_attention_decode_q8(q, kc["q"], kc["s"], vc["q"], vc["s"])
+    elif kc[0] == "q8e":
+        out = cross_attention_decode_q8dt(q, kc[1], kc[2], vc[1], vc[2])
+    elif kc[0] == "bhtd":
+        out = cross_attention_decode(q, kc[1], vc[1])
+    else:
+        raise NotImplementedError(
+            f"decode_step: cross-KV tag {kc[0]!r} is not ported")
     return _merge_heads(out.transpose(1, 2))
+
+
+def _cross_layer(kc, l: int):
+    """Layer l of a stacked cross-KV in any form _cross_attn_step takes."""
+    if isinstance(kc, torch.Tensor):
+        return kc[l]
+    if isinstance(kc, dict):
+        return {key: val[l] for key, val in kc.items()}
+    return (kc[0],) + tuple(a[l] for a in kc[1:])
 
 
 def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
@@ -287,8 +354,9 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
         written IN PLACE (JAX returns an updated copy)
     kv_len: int — number of valid cache entries AFTER this write
     pad_len: (B,) int or None — cache slots [0, pad_len) are left-padding
-    k_cross/v_cross: ("q8e", codes (L,B,H,Dh,Ta), scales (L,B,H,Ta)), one
-        cross-KV row per sequence (whisper_tpu's group=1, as K2 takes)
+    k_cross/v_cross: (L, ...) stacked cross-KV in any form that
+        _cross_attn_step takes, one cross-KV row per sequence
+        (whisper_tpu's group=1, as the kernels take)
     Returns (logits (B, n_vocab), kv_self).
     """
     dec = params["decoder"]
@@ -308,8 +376,7 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
         valid = valid & (idx[None, :] >= pad_len[:, None])
     attn_mask = torch.where(valid, 0.0, float("-inf"))[:, None, None, :]
 
-    tag = k_cross[0]
-    for l in range(blocks["q_w"].shape[0]):
+    for l in range(blocks["attn_ln_w"].shape[0]):
         blk = _layer(blocks, l)
         ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
         q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd), nh)
@@ -323,9 +390,8 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
 
         ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
         xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
-        kc_l = (tag,) + tuple(a[l] for a in k_cross[1:])
-        vc_l = (tag,) + tuple(a[l] for a in v_cross[1:])
-        attn = _cross_attn_step(xq, kc_l, vc_l, cd)
+        attn = _cross_attn_step(xq, _cross_layer(k_cross, l),
+                                _cross_layer(v_cross, l), cd)
         x = x + _linear(attn, blk["xo_w"], blk["xo_b"], cd)
 
         ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])

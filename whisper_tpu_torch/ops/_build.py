@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-On first use, nvcc compiles every `whisper_tpu_torch/csrc/*.cu` into one
-shared library with a plain C interface, under `build/whisper_tpu_torch/`
-at the repository root, and ctypes loads it.  The library name carries a
-hash of the sources, so an edited kernel is rebuilt.  A missing nvcc or a
+On first use, nvcc compiles every `whisper_tpu_torch/csrc/*.cu` to an
+object file, one nvcc process per source, all started together, then links
+them into one shared library with a plain C interface under
+`build/whisper_tpu_torch/` at the repository root, and ctypes loads it.
+The library name carries a hash of the sources, so an edited kernel is
+rebuilt.  A missing nvcc or a
 failed build raises; nothing falls back to another path.
 
 Each C entry point takes device pointers and the CUDA stream as
@@ -26,8 +28,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "whisper_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +40,14 @@ SIGNATURES = {
     "wtt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, stream
     "wtt_cross_attention_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, codes, scales, mins (or 0), work, out, M, N, K, splits,
+    # kb_per_split, stream
+    "wtt_quantized_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, B, H, Dh, Ta, stream
+    "wtt_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, stream
+    "wtt_cross_attention_bhtd_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _P],
 }
 
 
@@ -86,15 +97,37 @@ def library() -> KernelLibrary:
     seconds = 0.0
     if not path.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        nvcc = _find_nvcc()
+        tag = f"{digest.hexdigest()[:16]}.tmp{os.getpid()}"
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for src in srcs:
+            obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = ""
+        failed = []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        objs = [obj for _, obj, _ in jobs]
+        if not failed:
+            tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         log_path.write_text(log)
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))

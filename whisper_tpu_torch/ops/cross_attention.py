@@ -1,7 +1,7 @@
-"""Single-query cross-attention over int8 K/V, kernel K2
-(csrc/cross_attention_q8.cu), and the per-position int8 quantizer.
+"""Single-query cross-attention kernels and the per-position int8
+quantizer of their K/V.
 
-K2 replaces whisper_tpu/ops/cross_attention.py
+K2 (csrc/cross_attention_q8.cu) replaces whisper_tpu/ops/cross_attention.py
 `cross_attention_decode_q8dt` / `_xattn_kernel_q8dt`, which computes the
 same function as the serving path's "q8e" einsum
 (whisper_tpu/models/whisper.py `_cross_attn_step`): per (batch, head),
@@ -18,23 +18,43 @@ contiguous Ta axis), dequantizes in registers, and keeps the (Ta,) logits
 and weights in shared memory, so no bf16 copy of K/V and no score tensor
 ever reaches device memory — the einsum path writes and re-reads both.
 One block per (b, h); splitting Ta over several blocks is later work.
+
+K4 and K5 (csrc/cross_attention.cu) are the same design on the
+(B, H, Ta, Dh) layout of cross modes "pallas" and "pallas_q8", where Dh is
+contiguous: a group of 8 lanes reads one key row, 8 channels a lane.
+K4 replaces `cross_attention_decode` / `_xattn_kernel` (bf16 K/V), K5
+`cross_attention_decode_q8` / `_xattn_kernel_q8` (int8 K/V, (B, H, Ta, 1)
+scales).  As in those TPU kernels, the query and K/V are rounded to bf16
+inside the kernel whatever the compute dtype, and so are the softmax
+weights (times the V scale, for K5) before the product with V.
 """
 
 from __future__ import annotations
 
 import torch
 
+DH = 64   # every Whisper model; K4 and K5 are written for it
+
+
+def quantize_kv(k: torch.Tensor, axis: int = -1):
+    """Per-position int8 quantization over the channel axis `axis`:
+    -> (int8 codes, same layout; f32 scales with `axis` kept as 1).
+    axis=-1 is whisper_tpu.ops.cross_attention.quantize_kv on
+    (..., Ta, Dh) K/V.  Arithmetic stays in the input dtype; torch.round
+    rounds half to even, like jnp.round."""
+    amax = torch.amax(torch.abs(k), dim=axis, keepdim=True).float()
+    # x * f32(1/127), not x / 127: XLA rewrites the reference's division
+    # by a constant into this product, and the scales must match bit for bit
+    scale = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)
+    inv = (1.0 / scale).to(k.dtype)
+    q = torch.clamp(torch.round(k * inv), -127, 127).to(torch.int8)
+    return q, scale
+
 
 def quantize_kv_bhdt(k: torch.Tensor):
     """(..., H, Dh, Ta) -> (int8 codes, same layout; (..., H, Ta) f32
-    per-(head, position) scales).  Arithmetic stays in the input dtype;
-    torch.round rounds half to even, like jnp.round."""
-    amax = torch.amax(torch.abs(k), dim=-2, keepdim=True).float()
-    # x * f32(1/127), not x / 127: XLA rewrites the reference's division
-    # by a constant into this product, and the scales must match bit for bit
-    scale = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)    # (..., H, 1, Ta)
-    inv = (1.0 / scale).to(k.dtype)
-    q = torch.clamp(torch.round(k * inv), -127, 127).to(torch.int8)
+    per-(head, position) scales), as whisper_tpu's quantize_kv_bhdt."""
+    q, scale = quantize_kv(k, axis=-2)
     return q, scale[..., 0, :]
 
 
@@ -95,3 +115,110 @@ def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
 
 
 cross_attention_decode_q8dt.launches = 0
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16, computed on as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def cross_attention_decode_ref(q, k_t, v_t):
+    """Plain PyTorch version of K4, in f32 from bf16-rounded operands:
+    q (B, H, 1, Dh); k_t/v_t (B, H, Ta, Dh) -> (B, H, 1, Dh) f32."""
+    dh = q.shape[-1]
+    qk = torch.matmul(_bf16(q), _bf16(k_t).transpose(-1, -2)) * (dh ** -0.5)
+    w = torch.softmax(qk, dim=-1)
+    return torch.matmul(_bf16(w), _bf16(v_t))
+
+
+def cross_attention_decode_q8_ref(q, k_q, k_s, v_q, v_s):
+    """Plain PyTorch version of K5: q (B, H, 1, Dh); k_q/v_q (B, H, Ta, Dh)
+    int8; k_s/v_s (B, H, Ta, 1) f32 -> (B, H, 1, Dh) f32."""
+    dh = q.shape[-1]
+    qk = torch.matmul(_bf16(q), k_q.float().transpose(-1, -2))
+    qk = qk * k_s[..., 0][:, :, None, :] * (dh ** -0.5)
+    w = torch.softmax(qk, dim=-1)
+    wv = _bf16(w * v_s[..., 0][:, :, None, :])
+    return torch.matmul(wv, v_q.float())
+
+
+def _check(fn_name, q, tensors):
+    """Shape, dtype, device, contiguity and alignment of every operand of
+    K4/K5 (name -> (tensor, shape, dtype, alignment in bytes: 16 where the
+    kernel reads 8 elements at once, 4 for the per-position scales));
+    q must be (B, H, 1, DH) bf16."""
+    B, H, one, Dh = q.shape
+    if one != 1 or Dh != DH:
+        raise ValueError(f"{fn_name}: q must be (B, H, 1, {DH}), got "
+                         f"{tuple(q.shape)}")
+    for name, (x, shape, dtype, align) in tensors.items():
+        if (tuple(x.shape) != shape or x.dtype != dtype
+                or x.device != q.device):
+            raise ValueError(
+                f"{fn_name}: {name} is {tuple(x.shape)} {x.dtype} on "
+                f"{x.device}, expected {shape} {dtype} on {q.device}")
+        if not x.is_contiguous() or x.data_ptr() % align:
+            raise ValueError(f"{fn_name}: {name} must be contiguous and "
+                             f"{align}-byte aligned")
+
+
+def cross_attention_decode(q, k_t, v_t):
+    """q (B, H, 1, Dh); k_t/v_t (B, H, Ta, Dh) -> (B, H, 1, Dh) f32.
+
+    CPU tensors take the plain version; CUDA tensors go through K4, which
+    takes bfloat16 q and K/V only (the roundings the TPU kernel makes)."""
+    if q.device.type == "cpu":
+        return cross_attention_decode_ref(q, k_t, v_t)
+    if q.device.type != "cuda":
+        raise ValueError(f"cross_attention_decode: unsupported device "
+                         f"{q.device}")
+    B, H, _, Dh = q.shape
+    Ta = k_t.shape[2]
+    kv = (B, H, Ta, Dh)
+    _check("cross_attention_decode", q, {
+        "q": (q, (B, H, 1, Dh), torch.bfloat16, 16),
+        "k_t": (k_t, kv, torch.bfloat16, 16),
+        "v_t": (v_t, kv, torch.bfloat16, 16)})
+    from ._build import library
+    out = torch.empty((B, H, 1, Dh), dtype=torch.float32, device=q.device)
+    library().call("wtt_cross_attention", q.data_ptr(), k_t.data_ptr(),
+                   v_t.data_ptr(), out.data_ptr(), B, H, Dh, Ta,
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    cross_attention_decode.launches += 1
+    return out
+
+
+cross_attention_decode.launches = 0
+
+
+def cross_attention_decode_q8(q, k_q, k_s, v_q, v_s):
+    """q (B, H, 1, Dh); k_q/v_q (B, H, Ta, Dh) int8; k_s/v_s (B, H, Ta, 1)
+    f32 -> (B, H, 1, Dh) f32.
+
+    CPU tensors take the plain version; CUDA tensors go through K5, which
+    takes a bfloat16 query only."""
+    if q.device.type == "cpu":
+        return cross_attention_decode_q8_ref(q, k_q, k_s, v_q, v_s)
+    if q.device.type != "cuda":
+        raise ValueError(f"cross_attention_decode_q8: unsupported device "
+                         f"{q.device}")
+    B, H, _, Dh = q.shape
+    Ta = k_q.shape[2]
+    codes, scales = (B, H, Ta, Dh), (B, H, Ta, 1)
+    _check("cross_attention_decode_q8", q, {
+        "q": (q, (B, H, 1, Dh), torch.bfloat16, 16),
+        "k_q": (k_q, codes, torch.int8, 16),
+        "k_s": (k_s, scales, torch.float32, 4),
+        "v_q": (v_q, codes, torch.int8, 16),
+        "v_s": (v_s, scales, torch.float32, 4)})
+    from ._build import library
+    out = torch.empty((B, H, 1, Dh), dtype=torch.float32, device=q.device)
+    library().call("wtt_cross_attention_bhtd_q8", q.data_ptr(),
+                   k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+                   v_s.data_ptr(), out.data_ptr(), B, H, Dh, Ta,
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    cross_attention_decode_q8.launches += 1
+    return out
+
+
+cross_attention_decode_q8.launches = 0

@@ -1,0 +1,195 @@
+"""Block-quantized weight matmul, kernel K3 (csrc/quantized_matmul.cu).
+
+K3 replaces whisper_tpu/ops/quantized.py `quantized_matmul` / `_qmm_kernel`
+and `_qmm_kernel_mins`: y = x @ W^T for W = codes * scales (+ mins) with
+32-element blocks, held K-major as in the JAX package:
+    x:       (M, K), rounded to bf16
+    codes_t: (K, N) int8     — W^T codes
+    scales_t:(K/32, N) f32   — block scales, rounded to bf16 in the kernel
+    mins_t:  (K/32, N) f32 or None — block offsets (q4_1/q5_1)
+    w = bf16(code * scale_bf16) [then bf16(w + min_bf16)], f32 sums.
+
+What bounds it on the H100: in the token loop M is the batch (1 in
+`full`), so each call streams K*N code bytes for 2*M FLOP a byte: memory
+bound.  K3 gives each warp 128 output columns, one char4 of codes per lane
+per K row (128 contiguous bytes a warp: coalesced), loads a block's scales
+once per 32 rows, keeps up to 8 rows of x per block in registers and
+splits K over blocks when the columns alone cannot fill the card, with a
+second pass that sums the splits in a fixed order.  No dequantized copy of
+W ever reaches device memory.  Codes stay one byte each, as in the TPU
+representation; nibble codes are later work.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..weights import quant
+
+QK = quant.QK            # 32
+TILE_N = 128             # output columns per block in K3
+TILE_M = 8               # rows of x per block in K3
+WARPS = 8                # warps per block, each taking whole 32-row blocks
+TARGET_BLOCKS = 264      # two blocks per SM of the H100's 132
+
+
+# ---------------------------------------------------------------------------
+# repacking: raw ggml bytes -> (codes, scales, mins)
+# ---------------------------------------------------------------------------
+
+def unpack_to_codes(raw: bytes, ttype: int,
+                    shape: tuple[int, int]) -> tuple[np.ndarray, np.ndarray,
+                                                     np.ndarray | None]:
+    """Raw quantized tensor bytes -> (int8 codes, f32 scales, f32 mins|None)
+    (copy of whisper_tpu.ops.quantized.unpack_to_codes).
+
+    Bit-exact with quant.decode_tensor: codes * scales (+ mins) == decoded.
+    """
+    n, k = shape
+    nb = (n * k) // QK
+
+    def blocks(block_bytes):
+        return np.frombuffer(raw, dtype=np.uint8).reshape(nb, block_bytes)
+
+    if ttype == quant.GGML_TYPE_Q8_0:
+        b = blocks(2 + QK)
+        scales = b[:, :2].copy().view(np.float16).astype(np.float32)
+        codes = b[:, 2:].copy().view(np.int8)
+        mins = None
+    elif ttype == quant.GGML_TYPE_Q4_0:
+        b = blocks(2 + QK // 2)
+        scales = b[:, :2].copy().view(np.float16).astype(np.float32)
+        qs = b[:, 2:]
+        lo = (qs & 0x0F).astype(np.int8) - 8
+        hi = (qs >> 4).astype(np.int8) - 8
+        codes = np.concatenate([lo, hi], axis=1)
+        mins = None
+    elif ttype == quant.GGML_TYPE_Q4_1:
+        b = blocks(4 + QK // 2)
+        scales = b[:, 0:2].copy().view(np.float16).astype(np.float32)
+        mins = b[:, 2:4].copy().view(np.float16).astype(np.float32)
+        qs = b[:, 4:]
+        codes = np.concatenate([(qs & 0x0F), (qs >> 4)], axis=1).astype(np.int8)
+    elif ttype == quant.GGML_TYPE_Q5_0:
+        b = blocks(2 + 4 + QK // 2)
+        scales = b[:, 0:2].copy().view(np.float16).astype(np.float32)
+        xh0, xh1 = quant._q5_high_bits(b[:, 2:6])
+        qs = b[:, 6:]
+        lo = (((qs & 0x0F).astype(np.int32)) | xh0) - 16
+        hi = (((qs >> 4).astype(np.int32)) | xh1) - 16
+        codes = np.concatenate([lo, hi], axis=1).astype(np.int8)
+        mins = None
+    elif ttype == quant.GGML_TYPE_Q5_1:
+        b = blocks(4 + 4 + QK // 2)
+        scales = b[:, 0:2].copy().view(np.float16).astype(np.float32)
+        mins = b[:, 2:4].copy().view(np.float16).astype(np.float32)
+        xh0, xh1 = quant._q5_high_bits(b[:, 4:8])
+        qs = b[:, 8:]
+        lo = ((qs & 0x0F).astype(np.int32)) | xh0
+        hi = ((qs >> 4).astype(np.int32)) | xh1
+        codes = np.concatenate([lo, hi], axis=1).astype(np.int8)
+    else:
+        raise ValueError(f"not a supported quantized type: {ttype}")
+
+    codes = codes.reshape(n, k)
+    scales = scales.reshape(n, k // QK)
+    if mins is not None:
+        mins = mins.reshape(n, k // QK)
+    return codes, scales, mins
+
+
+# ---------------------------------------------------------------------------
+# the matmul
+# ---------------------------------------------------------------------------
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16, computed on as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def dequantize_t(codes_t, scales_t, mins_t=None) -> torch.Tensor:
+    """(K, N) W^T in f32 with K3's roundings: w = bf16(code * bf16(s))
+    [then bf16(w + bf16(m))]."""
+    s = _bf16(scales_t).repeat_interleave(QK, dim=0)
+    w = _bf16(codes_t.float() * s)
+    if mins_t is not None:
+        w = _bf16(w + _bf16(mins_t).repeat_interleave(QK, dim=0))
+    return w
+
+
+def quantized_matmul_ref(x, codes_t, scales_t, mins_t=None):
+    """Plain PyTorch version: the TPU kernel's roundings (x and the scales
+    to bf16, each dequantized weight to bf16), then one float32 matmul.
+    Only the summation order differs from the kernel.  -> (M, N) f32."""
+    return _bf16(x) @ dequantize_t(codes_t, scales_t, mins_t)
+
+
+def _splits(M: int, N: int, K: int) -> tuple[int, int]:
+    """(number of K splits, 32-row blocks per split) for K3's grid: split K
+    only as far as it takes to reach TARGET_BLOCKS blocks, and no further
+    than one 32-row block per warp."""
+    kblocks = K // QK
+    tiles = (N // TILE_N) * math.ceil(M / TILE_M)
+    want = math.ceil(TARGET_BLOCKS / tiles)
+    splits = max(1, min(want, kblocks // WARPS))
+    per = math.ceil(kblocks / splits)
+    return math.ceil(kblocks / per), per
+
+
+def quantized_matmul(x, codes_t, scales_t, mins_t=None):
+    """x (M, K); codes_t (K, N) int8; scales_t/mins_t (K/32, N) f32
+    -> (M, N) f32.
+
+    CPU tensors take `quantized_matmul_ref`.  CUDA tensors go through K3:
+    x is rounded to bf16 first (the TPU kernel's first step); the codes
+    and scales must already be int8 and float32, contiguous, with N a
+    multiple of 128 and K of 32.
+    """
+    if x.device.type == "cpu":
+        return quantized_matmul_ref(x, codes_t, scales_t, mins_t)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantized_matmul: unsupported device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"quantized_matmul: x must be (M, K), got "
+                         f"{tuple(x.shape)}")
+    M, K = x.shape
+    N = codes_t.shape[-1]
+    expect = {"codes_t": (codes_t, (K, N), torch.int8, 4),
+              "scales_t": (scales_t, (K // QK, N), torch.float32, 16)}
+    if mins_t is not None:
+        expect["mins_t"] = (mins_t, (K // QK, N), torch.float32, 16)
+    for name, (t, shape, dtype, align) in expect.items():
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != x.device):
+            raise ValueError(
+                f"quantized_matmul: {name} is {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}, expected {shape} {dtype} on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"quantized_matmul: {name} must be contiguous "
+                             f"and {align}-byte aligned")
+    if M < 1 or K % QK or N % TILE_N:
+        raise ValueError(f"K3 takes M >= 1, K a multiple of {QK} and N of "
+                         f"{TILE_N} (got M={M}, K={K}, N={N})")
+    from ._build import library
+    xb = x.to(torch.bfloat16).contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    splits, per = _splits(M, N, K)
+    work = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+            if splits > 1 else out)
+    library().call("wtt_quantized_matmul", xb.data_ptr(), codes_t.data_ptr(),
+                   scales_t.data_ptr(),
+                   0 if mins_t is None else mins_t.data_ptr(),
+                   work.data_ptr(), out.data_ptr(), M, N, K, splits, per,
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    quantized_matmul.launches += 1
+    if mins_t is not None:
+        quantized_matmul.launches_mins += 1
+    return out
+
+
+quantized_matmul.launches = 0
+quantized_matmul.launches_mins = 0     # the launches with mins (q4_1/q5_1)
+

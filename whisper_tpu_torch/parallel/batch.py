@@ -12,8 +12,9 @@ offsets choose the windows, which are cut, converted to f32 and turned
 into log-mel on the device.
 
 The port decodes greedily at temperature 0 with the int8 cross-KV
-("einsum_q8").  Everything else the JAX class offers is refused with an
-error rather than run on another path.
+("einsum_q8"), over dense or block-quantized (K3) decoder weights.
+Everything else the JAX class offers is refused with an error rather than
+run on another path.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ from ..models import whisper as wm
 def _check_supported(ctx: WhisperContext, p: FullParams, mesh) -> None:
     """Refuse what the port has not ported yet, with the reason."""
     refused = []
+    if ctx.cross_mode != "einsum_q8":
+        refused.append(f"cross_mode {ctx.cross_mode!r} (the batched path "
+                       "runs einsum_q8)")
     if mesh is not None:
         refused.append("a device mesh")
     if p.strategy == SamplingStrategy.BEAM_SEARCH:

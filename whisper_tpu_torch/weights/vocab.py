@@ -1,8 +1,8 @@
 """Vocab and special-token layout (copied from whisper_tpu.weights.ggml_reader).
 
 Importing the original module runs whisper_tpu/__init__.py, which imports
-JAX, so the port keeps its own copy of these JAX-free pieces.  Reading ggml
-model files is not ported yet.
+JAX, so the port keeps its own copy of these JAX-free pieces.  The ggml
+reader (weights/ggml_reader.py) builds its vocab with this class.
 """
 
 from __future__ import annotations
