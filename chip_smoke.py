@@ -5,16 +5,21 @@
 
 Phases, each of which must pass (the script exits nonzero otherwise):
   1. require CUDA; print the card's name and power limit
-  2. build kernels K1-K5 from whisper_tpu_torch/csrc with nvcc (one process
+  2. build kernels K1-K7 from whisper_tpu_torch/csrc with nvcc (one process
      per source, in parallel)
   3. compare each kernel with its plain PyTorch version on the card at
      every shape the paths below give it, taken from the models they load,
      each within its own bound (KERNEL_TOL), and time both (CUDA-graph
      replay between CUDA events, median of 20 runs after 3 warm-ups, L2
-     flushed before each run)
+     flushed before each run), and where one PyTorch call computes the same
+     function (scaled_dot_product_attention for K1, K4, K6) that call too;
+     each kernel's bound (the least time the card could take) is computed
+     from its first shape and the card's data-sheet peaks
   4. model checks, bf16 on the card against float32 on the CPU (plain
-     versions): large-v3 width cut to 2+2 layers through K1 and K2; and a
-     small q5_1 file through K1, K3 and K4 ("pallas") or K5 ("pallas_q8")
+     versions): large-v3 width cut to 2+2 layers, the prompt pass and one
+     decode step in the serving path's einsum_q8 (K1, K2) and in cross
+     modes einsum, pallas_q8dt (K2), einsum_q8i and einsum_q4; and a small
+     q5_1 file through K1, K3 and K4 ("pallas") or K5 ("pallas_q8")
   5. path A: a large-v3 q5_0 file (random valid blocks, seed 0, written
      once into build/, ~1 GB) through WhisperContext.from_file(...,
      cross_mode="pallas_q8") + full on 60 s of PCM: K1, K3 and K5 launch
@@ -22,8 +27,18 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      + full: K1, K3 with mins and K4 launch
   7. the serving path: BatchTranscriber.transcribe on 4 int16 streams of
      45 s with large-v3 random weights (seed 0), greedy with the bench's
-     serving settings: K1 and K2 launch
-In 5-7 every segment list must be non-empty and every probability finite.
+     serving settings: K1 and K2 launch; then once more with 4-bit cross-KV
+     (cross_mode="einsum_q4", bench.py's kv=q4): K1 launches
+  8. path C, the CLI's --kv-q8 / --kv-q4: path A's file through
+     from_file(..., cross_mode="einsum_q8") + full on 30 s of PCM (K1, K2,
+     K3 launch), then cross_mode="einsum_q4" (K1, K3)
+  9. path D, the encoder front end: 60 s of PCM through log_mel_pallas
+     (K7), then large-v3 `encode` (32 layers, random weights, seed 0) on
+     the first window with attn_impl pallas, pallas_dt, pallas_pf,
+     pallas_btd (K6) and flash, each held against pallas; and
+     cross_kv_q8(enc_layout="bdt") from encode(out_layout="bdt") against
+     the btd route: K1, K6 and K7 launch
+In 5-8 every segment list must be non-empty and every probability finite.
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 
@@ -50,24 +65,39 @@ import torch
 # K3's rows: 1 (one token of `full`), 4 (the serving batch) and 232
 # (n_text_ctx // 2 + 8, the carried-prompt pass)
 K3_M = (1, 4, 232)
-# max |kernel - plain| / max |plain|, per kernel.  K3, K4 and K5 round to
-# bf16 exactly where their plain versions do, so only the f32 summation
-# order differs.  K3 read <= 3.5e-7 on the card; the plain version against
+# max |kernel - plain| / max |plain|, per kernel.  K2, K3, K4 and K5 round
+# to bf16 exactly where their plain versions do, so only the f32 summation
+# order differs.  K3 read <= 3.8e-7 on the card; the plain version against
 # a copy of itself that drops one rounding (x, a scale, a weight, or adds
-# the min before rounding) reads >= 9.7e-4 at these shapes.  In K4/K5 a
+# the min before rounding) reads >= 9.7e-4 at these shapes.  In K2/K4/K5 a
 # softmax weight a summation order apart can round to the neighbouring
 # bf16 value: they read <= 1.4e-4, and dropping the rounding of the
-# weights (times the V scale, in K5) reads >= 1.7e-3.
-# K1's and K2's plain versions compute through bf16 cuBLAS products, not
-# at the kernels' rounding points (read 4.2e-3 and 2.2e-3).
-KERNEL_TOL = {"K1": 2e-2, "K2": 2e-2, "K3": 1e-5, "K3+mins": 1e-5,
-              "K4": 5e-4, "K5": 5e-4}
+# weights (times the V scale, in K2 and K5) reads >= 1.7e-3.
+# K1's and K6's plain versions compute through bf16 cuBLAS products, not
+# at the kernels' rounding points (they read <= 5.0e-3).  K7 is f32
+# against f32: it read 4.8e-8, and f32 products on TF32-rounded operands
+# read 8.8e-3.
+KERNEL_TOL = {"K1": 2e-2, "K1dt": 2e-2, "K2": 5e-4, "K3": 1e-5,
+              "K3+mins": 1e-5, "K4": 5e-4, "K5": 5e-4, "K6": 2e-2,
+              "K7": 1e-5}
 # bf16 on the card against f32 on the CPU through two encoder and two
 # decoder layers at full width: bf16 keeps ~3 significant digits per
-# rounding and the errors add over ~20 roundings in series
+# rounding and the errors add over ~20 roundings in series.  einsum_q4 is
+# held to it too: both sides quantize to 4 bits, so q4 is compared with
+# q4 (it read 6.9e-3, like the other modes); q4 against bf16 K/V is not
+# token-exact and is not what this checks
 MODEL_TOL = 5e-2
+# encode at large-v3's 32 layers: each attn_impl against "pallas", bf16
+ENCODE_TOL = 5e-2
+# data-sheet peaks of one H100 SXM: bytes
+# per second of HBM3, and operations per second for bf16 on the tensor
+# cores and f32 on the CUDA cores
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 N_STREAMS, STREAM_S = 4, 45
 FULL_S = 60                        # seconds of PCM for paths A and B
+PATH_C_S = 30                      # seconds of PCM for path C
+MEL_S = 60                         # seconds of PCM for path D's mel
 BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -110,8 +140,10 @@ def time_ms(fn, n_warm: int = 3, n_runs: int = 20) -> float:
     return statistics.median(times)
 
 
-def compare(name, tol, kernel, plain, args):
-    """-> (max abs err, rel err, kernel ms, plain ms); raises past tol."""
+def compare(name, tol, kernel, plain, args, library=None):
+    """-> (max abs err, rel err, kernel ms, plain ms, library ms or None);
+    raises past tol.  `library` is one PyTorch call that computes the same
+    function on the same inputs: timed only, as a yardstick."""
     out = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
@@ -121,25 +153,35 @@ def compare(name, tol, kernel, plain, args):
     rel = err / float(ref.abs().max())
     ms = time_ms(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args))
+    lib_ms = time_ms(library) if library is not None else None
     log(f"{name}: max_abs_err {err:.3e} rel {rel:.3e} (tol {tol}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
     if rel > tol:
         raise AssertionError(f"{name}: rel err {rel:.3e} > {tol}")
-    return err, rel, ms, plain_ms
+    return err, rel, ms, plain_ms, lib_ms
 
 
 def path_shapes() -> dict:
     """Each kernel's check shapes, from the models its paths load, the
     shape of the path that runs it first (its time is the one reported):
-    K1 (B, T, H, Dh) of the encoders; K2 (B, H, Dh, Ta) of the serving
-    batch; K3 (M, K, N) of the decoder linears; K4/K5 (B, H, Ta, Dh)."""
+    K1 (B, T, H, Dh) of the encoders, K1dt (B, H, Dh, Tp, t_valid) and K6
+    (B, Tp, D, H, t_valid) of path D's padded encoders (and K6 at small's
+    width and the serving batch); K2 (B, H, Dh, Ta) of the serving batch;
+    K3 (M, K, N) of the decoder linears; K4/K5 (B, H, Ta, Dh); K7 (seconds
+    of PCM, n_mels)."""
     from whisper_tpu_torch.models.whisper import MODEL_DIMS, WhisperConfig
+    from whisper_tpu_torch.ops.encoder_attention import BLOCK_Q
     big, small = (WhisperConfig(*MODEL_DIMS[s]) for s in ("large-v3",
                                                             "small"))
 
     def enc(c, B):
         return (B, c.n_audio_ctx, c.n_audio_head,
                 c.n_audio_state // c.n_audio_head)
+
+    def padded(c, B):
+        Tp = -(-c.n_audio_ctx // BLOCK_Q) * BLOCK_Q
+        return (B, Tp, c.n_audio_state, c.n_audio_head, c.n_audio_ctx)
 
     def xattn(c, B):
         return (B, c.n_text_head, c.n_audio_ctx,
@@ -150,20 +192,89 @@ def path_shapes() -> dict:
                 for M in K3_M for K, N in ((d, d), (d, 4 * d), (4 * d, d))]
 
     B, H, Ta, Dh = xattn(big, N_STREAMS)
+    b, tp, d, h, tv = padded(big, 1)
     return {"K1": [enc(big, 1), enc(small, 1), enc(big, N_STREAMS)],
+            "K1dt": [(b, h, d // h, tp, tv)],
             "K2": [(B, H, Dh, Ta)],
             "K3": linears(big, small),           # path A: large-v3 q5_0
             "K3+mins": linears(small, big),      # path B: small q5_1
             "K4": [xattn(small, 1), xattn(big, 1), xattn(big, N_STREAMS)],
-            "K5": [xattn(big, 1), xattn(small, 1), xattn(big, N_STREAMS)]}
+            "K5": [xattn(big, 1), xattn(small, 1), xattn(big, N_STREAMS)],
+            "K6": [padded(big, 1), padded(small, 1), padded(big, N_STREAMS)],
+            "K7": [(MEL_S, big.n_mels), (MEL_S, small.n_mels)]}
+
+
+def bound(key, shape) -> tuple[float, str]:
+    """(least ms the card could take for one call at `shape`, "bytes" or
+    "operations"): the larger of the bytes the call must move (each input
+    read once, each output written once) over the memory rate, and its
+    operations over the peak rate for their type.  Attention counts the
+    keys it needs (t_valid), not the padded ones."""
+    if key in ("K1", "K1dt", "K6"):
+        if key == "K1":
+            B, T, H, Dh = shape
+            rows = keys = T
+        elif key == "K1dt":
+            B, H, Dh, rows, keys = shape
+        else:
+            B, rows, D, H, keys = shape
+            Dh = D // H
+        nbytes = B * H * rows * Dh * (3 * 2 + 4)         # bf16 q/k/v, f32 out
+        ops, kind = 4 * B * H * rows * keys * Dh, "bf16"
+    elif key == "K2":
+        B, H, Dh, Ta = shape
+        nbytes = B * H * (Dh * 2 + 2 * Dh * Ta + 2 * Ta * 4 + Dh * 4)
+        ops, kind = 4 * B * H * Dh * Ta, "bf16"
+    elif key in ("K3", "K3+mins"):
+        M, K, N = shape
+        n_scale = 2 if key == "K3+mins" else 1
+        nbytes = M * K * 4 + K * N + n_scale * (K // 32) * N * 4 + M * N * 4
+        ops, kind = 2 * M * K * N, "bf16"
+    elif key in ("K4", "K5"):
+        B, H, Ta, Dh = shape
+        kv = 2 * Ta * Dh * (2 if key == "K4" else 1)
+        scales = 0 if key == "K4" else 2 * Ta * 4
+        nbytes = B * H * (Dh * 2 + kv + scales + Dh * 4)
+        ops, kind = 4 * B * H * Ta * Dh, "bf16"
+    elif key == "K7":
+        seconds, n_mel = shape
+        n = mel_frames(seconds)
+        bins = 201
+        nbytes = 4 * (n * 400 + 400 + 2 * 400 * bins + bins * n_mel
+                      + n * n_mel)
+        ops, kind = n * (2 * 2 * 400 * bins + 3 * bins
+                         + 2 * bins * n_mel), "f32"
+    else:
+        raise KeyError(key)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mel_pcm(seconds: int) -> np.ndarray:
+    return (np.random.RandomState(7).randn(16000 * seconds) * 0.1).astype(
+        np.float32)
+
+
+def mel_frames(seconds: int) -> int:
+    """K7's frame count for `seconds` of PCM (log_mel_pallas)."""
+    from whisper_tpu_torch.audio.mel import pad_audio
+    from whisper_tpu_torch.ops.mel_pallas import FRAMES_PER_BLOCK
+    n_len = (len(pad_audio(mel_pcm(seconds))[0]) - 400) // 160
+    return n_len // FRAMES_PER_BLOCK * FRAMES_PER_BLOCK
 
 
 def check_kernels(gen):
     """Each kernel against its plain version at each of its path_shapes
-    -> {kernel: {max_abs_err, max_rel_err, ms, plain_ms, shape, shapes}},
-    the times at the first shape."""
+    -> {kernel: {max_abs_err, max_rel_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by, shape, shapes}}, the times and the bound at the
+    first shape."""
+    import torch.nn.functional as F
+    from whisper_tpu_torch.audio.filters import mel_filterbank
+    from whisper_tpu_torch.audio.mel import pad_audio
     from whisper_tpu_torch.ops import cross_attention as xa
     from whisper_tpu_torch.ops import encoder_attention as ea
+    from whisper_tpu_torch.ops import mel_pallas as mp
     from whisper_tpu_torch.ops import quantized as qm
 
     def randn(*shape):
@@ -173,12 +284,18 @@ def check_kernels(gen):
         return randn(*shape).to(torch.bfloat16)
 
     def k1(B, T, H, Dh):
-        return [bf16(B, T, H, Dh) for _ in range(3)]
+        q, k, v = (bf16(B, T, H, Dh) for _ in range(3))
+        # (B, H, T, Dh) views of the same tensors for the library call
+        views = [x.transpose(1, 2) for x in (q, k, v)]
+        return [q, k, v], lambda: F.scaled_dot_product_attention(*views)
+
+    def k1dt(B, H, Dh, Tp, t_valid):
+        return [*(bf16(B, H, Dh, Tp) for _ in range(3)), t_valid], None
 
     def k2(B, H, Dh, Ta):
         (kq, ks), (vq, vs) = (xa.quantize_kv_bhdt(randn(B, H, Dh, Ta))
                               for _ in range(2))
-        return [bf16(B, H, 1, Dh), kq, ks, vq, vs]
+        return [bf16(B, H, 1, Dh), kq, ks, vq, vs], None
 
     def k3(mins):
         def make(M, K, N):
@@ -188,20 +305,36 @@ def check_kernels(gen):
             scales = (torch.rand(K // 32, N, generator=gen, device="cuda")
                       * 2e-3 + 1e-4)
             x = torch.randn(M, K, generator=gen, device="cuda")
-            return [x, codes, scales, -16 * scales if mins else None]
+            return [x, codes, scales, -16 * scales if mins else None], None
         return make
 
     def k4(B, H, Ta, Dh):
-        return [bf16(B, H, 1, Dh), bf16(B, H, Ta, Dh), bf16(B, H, Ta, Dh)]
+        q, k, v = bf16(B, H, 1, Dh), bf16(B, H, Ta, Dh), bf16(B, H, Ta, Dh)
+        return [q, k, v], lambda: F.scaled_dot_product_attention(q, k, v)
 
     def k5(B, H, Ta, Dh):
-        q, k, v = k4(B, H, Ta, Dh)
+        (q, k, v), _ = k4(B, H, Ta, Dh)
         (kq, ks), (vq, vs) = (xa.quantize_kv(t.float()) for t in (k, v))
-        return [q, kq, ks, vq, vs]
+        return [q, kq, ks, vq, vs], None
+
+    def k6(B, Tp, D, H, t_valid):
+        q, k, v = (bf16(B, Tp, D) for _ in range(3))
+        views = [x.reshape(B, Tp, H, D // H).transpose(1, 2)
+                 for x in (q, k, v)]
+        # keys to keep, broadcast over (B, H, queries)
+        keep = (torch.arange(Tp, device="cuda") < t_valid)[None, :]
+        return [q, k, v, H, t_valid], lambda: F.scaled_dot_product_attention(
+            *views, attn_mask=keep)
+
+    def k7(seconds, n_mel):
+        padded = torch.from_numpy(pad_audio(mel_pcm(seconds))[0]).cuda()
+        return list(mp.mel_block_inputs(padded, mel_filterbank(n_mel))), None
 
     cases = {
         "K1": ("encoder_attention", ea.self_attention, ea.self_attention_ref,
                k1),
+        "K1dt": ("encoder_attention (B,H,Dh,Tp)", ea.encoder_attention,
+                 ea.encoder_attention_ref, k1dt),
         "K2": ("cross_attention_q8", xa.cross_attention_decode_q8dt,
                xa.cross_attention_decode_q8dt_ref, k2),
         "K3": ("quantized_matmul", qm.quantized_matmul,
@@ -212,25 +345,43 @@ def check_kernels(gen):
                xa.cross_attention_decode_ref, k4),
         "K5": ("cross_attention_decode_q8", xa.cross_attention_decode_q8,
                xa.cross_attention_decode_q8_ref, k5),
+        "K6": ("encoder_attention_btd", ea.encoder_attention_btd,
+               ea.encoder_attention_btd_ref, k6),
+        "K7": ("log_mel (_mel_blocks)", mp._mel_blocks, mp._mel_blocks_ref,
+               k7),
     }
     res = {}
     for key, shapes in path_shapes().items():
         name, kernel, plain, make = cases[key]
-        rows = [compare(f"{key} {name} {shape}", KERNEL_TOL[key], kernel,
-                        plain, make(*shape)) for shape in shapes]
+        rows = []
+        for shape in shapes:
+            args, library = make(*shape)
+            rows.append(compare(f"{key} {name} {shape}", KERNEL_TOL[key],
+                                kernel, plain, args, library))
+            del args, library
+        bound_ms, bound_by = bound(key, shapes[0])
         res[key] = {"max_abs_err": max(r[0] for r in rows),
                     "max_rel_err": max(r[1] for r in rows),
                     "tol": KERNEL_TOL[key], "ms": rows[0][2],
-                    "plain_ms": rows[0][3], "shape": list(shapes[0]),
+                    "plain_ms": rows[0][3], "library_ms": rows[0][4],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "shape": list(shapes[0]),
                     "shapes": [list(x) for x in shapes]}
+        log(f"{key} bound at {shapes[0]}: {bound_ms:.4f} ms ({bound_by})")
+    torch.cuda.empty_cache()
     return res
 
 
 def check_model(gen):
-    """Full-width large-v3 cut to 2+2 layers: bf16 on the card (K1, K2)
-    against the same weights in float32 on the CPU (plain versions)."""
+    """Full-width large-v3 cut to 2+2 layers: bf16 on the card against the
+    same weights in float32 on the CPU (plain versions).  The serving
+    path's form first (prompt over the int8 cross_kv_q8, one einsum_q8
+    step: K1, K2); then one step in each of cross modes einsum,
+    pallas_q8dt (K2), einsum_q8i and einsum_q4 from the dense cross-KV
+    quantized once, as `full` runs them."""
     from whisper_tpu_torch.audio.mel import log_mel_spectrogram_torch, pad_audio
     from whisper_tpu_torch.audio.filters import mel_filterbank
+    from whisper_tpu_torch.decode.loop import loop_cross_kv
     from whisper_tpu_torch.models import whisper as wm
     from whisper_tpu_torch.weights.convert import random_params
 
@@ -249,6 +400,18 @@ def check_model(gen):
     n_ctx, nh = cfg.n_audio_ctx, cfg.n_text_head
     tokens = torch.tensor([[50258, 50259, 50360, 50364, 1000, 2000]])
     pos = torch.arange(tokens.shape[1])
+    modes = ("einsum", "pallas_q8dt", "einsum_q8i", "einsum_q4")
+
+    def step(p, device, cd, k_self, v_self, kc, vc):
+        L, B, P, H, Dh = k_self.shape
+        cache = {n: torch.zeros((L, B, H, Dh, P + 1), dtype=cd, device=device)
+                 for n in ("k", "v")}
+        cache["k"][..., :P] = k_self.permute(0, 1, 3, 4, 2).to(cd)
+        cache["v"][..., :P] = v_self.permute(0, 1, 3, 4, 2).to(cd)
+        logits, _ = wm.decode_step(
+            p, tokens[:, -1].to(device), torch.tensor([P], device=device), P,
+            cache, kc, vc, kv_len=P + 1, n_head=nh, compute_dtype=cd)
+        return logits
 
     def run(p, device, cd):
         samples = torch.from_numpy(pcm[:2 * n_ctx * 160 + 400]).to(device)
@@ -261,52 +424,60 @@ def check_model(gen):
         logits, k_self, v_self = wm.decode_prompt(
             p, tokens.to(device), pos.to(device), ("q8", kq, ks),
             ("q8", vq, vs), nh, self_mask=mask, compute_dtype=cd)
-        L, B, P, H, Dh = k_self.shape
-        cache = {n: torch.zeros((L, B, H, Dh, P + 1), dtype=cd, device=device)
-                 for n in ("k", "v")}
-        cache["k"][..., :P] = k_self.permute(0, 1, 3, 4, 2).to(cd)
-        cache["v"][..., :P] = v_self.permute(0, 1, 3, 4, 2).to(cd)
-        step_logits, _ = wm.decode_step(
-            p, tokens[:, -1].to(device), torch.tensor([P], device=device), P,
-            cache, ("q8e", kq, ks), ("q8e", vq, vs), kv_len=P + 1,
-            n_head=nh, compute_dtype=cd)
-        return [x.float().cpu() for x in (mel, enc, logits, step_logits)]
+        out = {"mel": mel, "encoder": enc, "prompt logits": logits,
+               "step logits einsum_q8": step(p, device, cd, k_self, v_self,
+                                             ("q8e", kq, ks),
+                                             ("q8e", vq, vs))}
+        kc, vc = wm.cross_kv(p, enc, n_head=nh, compute_dtype=cd)
+        for mode in modes:
+            out[f"step logits {mode}"] = step(
+                p, device, cd, k_self, v_self,
+                *loop_cross_kv(mode, kc, vc, cd))
+        return {k: x.float().cpu() for k, x in out.items()}
 
     with torch.no_grad():
         got = run(params, "cuda", torch.bfloat16)
         ref = run(ref_params, "cpu", torch.float32)
-    for name, g, r in zip(("mel", "encoder", "prompt logits",
-                           "step logits"), got, ref):
+    for name, g in got.items():
+        r = ref[name]
+        tol = MODEL_TOL
         if g.shape != r.shape or not torch.isfinite(g).all():
             raise AssertionError(f"model check {name}: shape {tuple(g.shape)}"
                                  f" vs {tuple(r.shape)} or non-finite")
         rel = float((g - r).abs().max() / r.abs().max())
         log(f"model check {name} {tuple(g.shape)}: rel err vs f32 CPU "
-            f"{rel:.3e} (tol {MODEL_TOL})")
-        if rel > MODEL_TOL:
-            raise AssertionError(f"model check {name}: {rel:.3e} > "
-                                 f"{MODEL_TOL}")
+            f"{rel:.3e} (tol {tol})")
+        if rel > tol:
+            raise AssertionError(f"model check {name}: {rel:.3e} > {tol}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def counters() -> dict:
-    """Each kernel's wrapper, whose `launches` counts its launches."""
+    """Each kernel's wrappers, whose `launches` count their launches; K1
+    has two entries, (B, T, H, Dh) and (B, H, Dh, Tp)."""
     from whisper_tpu_torch.ops import cross_attention as xa
     from whisper_tpu_torch.ops import encoder_attention as ea
+    from whisper_tpu_torch.ops import mel_pallas as mp
     from whisper_tpu_torch.ops import quantized as qm
-    return {"K1": ea.self_attention, "K2": xa.cross_attention_decode_q8dt,
-            "K3": qm.quantized_matmul, "K4": xa.cross_attention_decode,
-            "K5": xa.cross_attention_decode_q8}
+    return {"K1": (ea.self_attention, ea.encoder_attention),
+            "K2": (xa.cross_attention_decode_q8dt,),
+            "K3": (qm.quantized_matmul,), "K4": (xa.cross_attention_decode,),
+            "K5": (xa.cross_attention_decode_q8,),
+            "K6": (ea.encoder_attention_btd,), "K7": (mp._mel_blocks,)}
 
 
 def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
-    counters()["K3"].launches_mins = 0
+    for fns in counters().values():
+        for fn in fns:
+            fn.launches = 0
+    counters()["K3"][0].launches_mins = 0
 
 
 def read_counts() -> dict:
-    counts = {k: fn.launches for k, fn in counters().items()}
-    counts["K3+mins"] = counters()["K3"].launches_mins
+    counts = {k: sum(fn.launches for fn in fns)
+              for k, fns in counters().items()}
+    counts["K3+mins"] = counters()["K3"][0].launches_mins
     return counts
 
 
@@ -429,13 +600,14 @@ def full_params(seconds: int = 0):
     return p
 
 
-def full_pcm() -> np.ndarray:
-    return (np.random.RandomState(7).randn(16000 * FULL_S) * 0.1).astype(
+def full_pcm(seconds: int = FULL_S) -> np.ndarray:
+    return (np.random.RandomState(7).randn(16000 * seconds) * 0.1).astype(
         np.float32)
 
 
-def run_full(label: str, path: Path, cross_mode: str, need, card_line):
-    """from_file + full on FULL_S s of noise PCM (full_params).  -> the
+def run_full(label: str, path: Path, cross_mode: str, need, card_line,
+             seconds: int = FULL_S):
+    """from_file + full on `seconds` s of noise PCM (full_params).  -> the
     kernel launch counts of `full`."""
     from whisper_tpu_torch import WhisperContext
 
@@ -444,7 +616,7 @@ def run_full(label: str, path: Path, cross_mode: str, need, card_line):
                                    cross_mode=cross_mode)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    p, pcm = full_params(), full_pcm()
+    p, pcm = full_params(), full_pcm(seconds)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -455,8 +627,8 @@ def run_full(label: str, path: Path, cross_mode: str, need, card_line):
     tm = ctx.timings
     n_tok = sum(len(s.tokens) for s in ctx.result_all)
     log(f"[{card_line}] {label}: {path.name}, cross_mode {cross_mode}: load "
-        f"{load_s:.3f} s; full of {FULL_S} s: rc {rc}, wall {wall:.3f} s, "
-        f"{FULL_S / wall:.2f} audio-s per wall-s, {tm.n_encode} windows, "
+        f"{load_s:.3f} s; full of {seconds} s: rc {rc}, wall {wall:.3f} s, "
+        f"{seconds / wall:.2f} audio-s per wall-s, {tm.n_encode} windows, "
         f"{tm.n_decode} decode steps, {n_tok} tokens emitted, "
         f"{tm.t_decode_us / 1e3 / max(1, tm.n_decode):.3f} ms per decode "
         f"step (prompt pass included), peak device memory "
@@ -581,17 +753,12 @@ def profile(card_line: str, seconds: int) -> dict:
     return out
 
 
-def serve(card_line: str):
-    from whisper_tpu_torch import (BatchTranscriber, WhisperContext,
-                                   full_default_params)
+def serve(card_line: str, ctx, label: str, need):
+    """BatchTranscriber.transcribe of N_STREAMS int16 streams of STREAM_S s
+    with bench.py's greedy serving settings, in ctx's cross mode.  -> the
+    kernel launch counts of transcribe."""
+    from whisper_tpu_torch import BatchTranscriber, full_default_params
 
-    t0 = time.perf_counter()
-    ctx = WhisperContext.from_random("large-v3", seed=0, device="cuda",
-                                     cross_mode="einsum_q8")
-    torch.cuda.synchronize()
-    log(f"large-v3 random weights on the card: "
-        f"{time.perf_counter() - t0:.2f} s")
-    # bench.py's greedy serving settings
     p = full_default_params()
     p.print_progress = False
     p.language = "en"
@@ -604,7 +771,7 @@ def serve(card_line: str):
     t0 = time.perf_counter()
     bt.warmup(pcm_dtype=np.int16)
     torch.cuda.synchronize()
-    log(f"warmup: {time.perf_counter() - t0:.2f} s")
+    log(f"{label} warmup: {time.perf_counter() - t0:.2f} s")
 
     rng = np.random.RandomState(7)
     streams = [(rng.randn(16000 * STREAM_S) * 0.1 * 32768).clip(
@@ -618,20 +785,92 @@ def serve(card_line: str):
     launches = read_counts()
 
     audio_s = float(N_STREAMS * STREAM_S)
-    log(f"[{card_line}] transcribe {N_STREAMS} x {STREAM_S} s int16: wall "
-        f"{wall:.3f} s, {audio_s / wall:.2f} audio-s per wall-s, "
-        f"{bt.n_windows} windows, peak device memory "
+    log(f"[{card_line}] {label} ({ctx.cross_mode}) {N_STREAMS} x {STREAM_S} "
+        f"s int16: wall {wall:.3f} s, {audio_s / wall:.2f} audio-s per "
+        f"wall-s, {bt.n_windows} windows, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[{card_line}] phase_times (s): "
+    log(f"[{card_line}] {label} phase_times (s): "
         + json.dumps({k: round(v, 4) for k, v in bt.phase_times.items()}))
-    log(f"[{card_line}] window_times (batch, s): "
+    log(f"[{card_line}] {label} window_times (batch, s): "
         + json.dumps([(b, round(t, 4)) for b, t in bt.window_times]))
-    log(f"kernel launches in transcribe: {launches}")
-    check_segments("transcribe", result)
-    require_launches("transcribe", launches, ("K1", "K2"))
-    del bt, ctx
+    log(f"kernel launches in {label}: {launches}")
+    check_segments(label, result)
+    require_launches(label, launches, need)
+    del bt
     torch.cuda.empty_cache()
     return launches
+
+
+def front_end(card_line: str, params, cfg):
+    """Path D: MEL_S s of PCM through log_mel_pallas (K7); large-v3 encode
+    of the first window at B = 1 in each attn_impl, held against "pallas"
+    and timed; cross_kv_q8(enc_layout="bdt") from encode(out_layout="bdt")
+    against the btd route.  -> the kernel launch counts."""
+    from whisper_tpu_torch.audio.filters import mel_filterbank
+    from whisper_tpu_torch.audio.mel import pad_audio
+    from whisper_tpu_torch.models import whisper as wm
+    from whisper_tpu_torch.ops.mel_pallas import log_mel_pallas
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    padded = torch.from_numpy(pad_audio(mel_pcm(MEL_S))[0]).cuda()
+    filters = mel_filterbank(cfg.n_mels)
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        mel = log_mel_pallas(padded, filters)
+        torch.cuda.synchronize()
+        mel_s = time.perf_counter() - t0
+        if not torch.isfinite(mel).all():
+            raise AssertionError("path D: non-finite log-mel")
+        window = mel[None, :2 * cfg.n_audio_ctx]
+        log(f"[{card_line}] path D: log_mel_pallas of {MEL_S} s -> "
+            f"{tuple(mel.shape)} in {mel_s * 1e3:.3f} ms (first call); "
+            f"window {tuple(window.shape)}")
+        outs, times = {}, {}
+        for impl in ("pallas", "pallas_dt", "pallas_pf", "pallas_btd",
+                     "flash"):
+            for _ in range(2):          # the second call is the one timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[impl] = wm.encode(params, window, n_head=cfg.n_audio_head,
+                                       attn_impl=impl)
+                torch.cuda.synchronize()
+                times[impl] = time.perf_counter() - t0
+            if not torch.isfinite(outs[impl]).all():
+                raise AssertionError(f"path D: encode {impl} non-finite")
+        for impl, out in outs.items():
+            err = rel(out, outs["pallas"])
+            log(f"[{card_line}] path D: encode large-v3 B=1 {impl}: "
+                f"{times[impl] * 1e3:.3f} ms, rel err vs pallas {err:.3e} "
+                f"(tol {ENCODE_TOL})")
+            if err > ENCODE_TOL:
+                raise AssertionError(f"path D: encode {impl} {err:.3e} > "
+                                     f"{ENCODE_TOL}")
+        bdt = wm.encode(params, window, n_head=cfg.n_audio_head,
+                        attn_impl="pallas_dt", out_layout="bdt")
+        (kq, ks), (vq, vs) = wm.cross_kv_q8(params, bdt,
+                                            n_head=cfg.n_text_head,
+                                            enc_layout="bdt")
+        (kq2, ks2), (vq2, vs2) = wm.cross_kv_q8(
+            params, outs["pallas_dt"], n_head=cfg.n_text_head)
+        for name, a, b in (("K", (kq, ks), (kq2, ks2)),
+                           ("V", (vq, vs), (vq2, vs2))):
+            err = rel(a[0].float() * a[1][..., None, :],
+                      b[0].float() * b[1][..., None, :])
+            log(f"[{card_line}] path D: cross_kv_q8 {name} bdt vs btd: rel "
+                f"err {err:.3e} (tol {ENCODE_TOL})")
+            if err > ENCODE_TOL:
+                raise AssertionError(f"path D: cross_kv_q8 bdt {name} "
+                                     f"{err:.3e} > {ENCODE_TOL}")
+    counts = read_counts()
+    log(f"kernel launches in path D: {counts}")
+    require_launches("path D", counts, ("K1", "K6", "K7"))
+    del outs, bdt
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -666,18 +905,40 @@ def main() -> int:
     check_model(gen)
     small = model_file("small", "q5_1")
     check_file_model(small)
+    big_file = model_file("large-v3", "q5_0")
+
+    from whisper_tpu_torch import WhisperContext
+    t0 = time.perf_counter()
+    big = WhisperContext.from_random("large-v3", seed=0,
+                                     cross_mode="einsum_q8")
+    big_q4 = WhisperContext(config=big.config, vocab=big.vocab,
+                            filters=big.filters, params=big.params,
+                            cross_mode="einsum_q4")
+    torch.cuda.synchronize()
+    log(f"large-v3 random weights on the card: "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # the main paths, each read with the counts set to 0 just before it
     paths = {
-        "path A": run_full("path A", model_file("large-v3", "q5_0"),
-                           "pallas_q8", ("K1", "K3", "K5"), card_line),
+        "path A": run_full("path A", big_file, "pallas_q8",
+                           ("K1", "K3", "K5"), card_line),
         "path B": run_full("path B", small, "pallas",
                            ("K1", "K3", "K3+mins", "K4"), card_line),
-        "transcribe": serve(card_line),
+        "transcribe": serve(card_line, big, "transcribe", ("K1", "K2")),
+        "transcribe q4": serve(card_line, big_q4, "transcribe q4", ("K1",)),
+        "path C q8": run_full("path C q8", big_file, "einsum_q8",
+                              ("K1", "K2", "K3"), card_line, PATH_C_S),
+        "path C q4": run_full("path C q4", big_file, "einsum_q4",
+                              ("K1", "K3"), card_line, PATH_C_S),
+        "path D": front_end(card_line, big.params, big.config),
     }
-    launches = {k: sum(c.get(k, 0) for c in paths.values())
-                for k in ("K1", "K2", "K3", "K4", "K5")}
+    del big, big_q4
+    torch.cuda.empty_cache()
+    keys = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+    launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in keys}
     log(f"kernel launches, all paths: {launches}")
+    log("kernel launches by path: " + json.dumps(
+        {name: {k: c.get(k, 0) for k in keys} for name, c in paths.items()}))
 
     def entry(key, name, source, replaces, extra=None):
         out = {"name": name, "route": "cuda",
@@ -687,10 +948,18 @@ def main() -> int:
         out.update(extra or {})
         return out
 
-    k3, k3m = res["K3"], res["K3+mins"]
+    k1dt, k3m = res["K1dt"], res["K3+mins"]
+    k3 = res["K3"]
     kernels = [
         entry("K1", "encoder_attention", "encoder_attention.cu",
-              "whisper_tpu/ops/encoder_attention.py:77"),
+              "whisper_tpu/ops/encoder_attention.py:77",
+              {"max_abs_err": max(res["K1"]["max_abs_err"],
+                                  k1dt["max_abs_err"]),
+               "max_rel_err": max(res["K1"]["max_rel_err"],
+                                  k1dt["max_rel_err"]),
+               "ms_bhdt": k1dt["ms"], "plain_ms_bhdt": k1dt["plain_ms"],
+               "bound_ms_bhdt": k1dt["bound_ms"], "shape_bhdt": k1dt["shape"],
+               "shapes_bhdt": k1dt["shapes"]}),
         entry("K2", "cross_attention_q8", "cross_attention_q8.cu",
               "whisper_tpu/ops/cross_attention.py:142"),
         entry("K3", "quantized_matmul", "quantized_matmul.cu",
@@ -698,12 +967,20 @@ def main() -> int:
               {"max_abs_err": max(k3["max_abs_err"], k3m["max_abs_err"]),
                "max_rel_err": max(k3["max_rel_err"], k3m["max_rel_err"]),
                "ms_mins": k3m["ms"], "plain_ms_mins": k3m["plain_ms"],
-               "shape_mins": k3m["shape"], "shapes_mins": k3m["shapes"]}),
+               "bound_ms_mins": k3m["bound_ms"], "shape_mins": k3m["shape"],
+               "shapes_mins": k3m["shapes"]}),
         entry("K4", "cross_attention_decode", "cross_attention.cu",
               "whisper_tpu/ops/cross_attention.py:68"),
         entry("K5", "cross_attention_decode_q8", "cross_attention.cu",
               "whisper_tpu/ops/cross_attention.py:89"),
+        entry("K6", "encoder_attention_btd", "encoder_attention.cu",
+              "whisper_tpu/ops/encoder_attention.py:165"),
+        entry("K7", "log_mel", "log_mel.cu",
+              "whisper_tpu/ops/mel_pallas.py:58"),
     ]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} launched on no path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

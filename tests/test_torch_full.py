@@ -136,7 +136,7 @@ def test_full_segments_identical(files, pcm, jax_strict, case):
     assert jctx.full(jp, pcm) == 0
 
     tctx = WhisperContext.from_file(files[kind], compute_dtype=torch.float32,
-                                    cross_mode=cross_mode)
+                                    cross_mode=cross_mode, device="cpu")
     packed = tctx.params["decoder"]["blocks"]["mlp0_w"]
     assert isinstance(packed, dict) and packed["q"].dtype == torch.int8
     n = (tq.quantized_matmul.launches, txa.cross_attention_decode.launches,
@@ -161,7 +161,8 @@ def test_detect_language_only(files, pcm, jax_strict):
     jp = _params(jax_params, {"detect_language": True})
     tp = _params(full_default_params, {"detect_language": True})
     jctx = jax_context(path, "einsum")
-    tctx = WhisperContext.from_file(path, compute_dtype=torch.float32)
+    tctx = WhisperContext.from_file(path, compute_dtype=torch.float32,
+                                    device="cpu")
     assert jctx.full(jp, pcm) == 0 and tctx.full(tp, pcm) == 0
     assert tctx.full_lang_id() == jctx.full_lang_id()
     assert tp.language == jp.language
@@ -178,7 +179,7 @@ def test_batch_transcriber_over_file(files, jax_strict):
     path = files["q8_0"]
     jctx = jax_context(path, "einsum_q8")
     tctx = WhisperContext.from_file(path, compute_dtype=torch.float32,
-                                    cross_mode="einsum_q8")
+                                    cross_mode="einsum_q8", device="cpu")
     rng = np.random.RandomState(3)
     streams = [(rng.randn(16000 * s) * 0.1 * 32768).clip(-32768, 32767)
                .astype(np.int16) for s in (20, 33)]
@@ -203,7 +204,7 @@ def test_batch_transcriber_over_file(files, jax_strict):
     ("suppress_regex", "t1.*"),
 ])
 def test_full_refuses_unported_options(files, pcm, field, value):
-    tctx = WhisperContext.from_file(files["q8_0"],
+    tctx = WhisperContext.from_file(files["q8_0"], device="cpu",
                                     compute_dtype=torch.float32)
     p = _params(full_default_params, {field: value})
     calls = []
@@ -214,22 +215,31 @@ def test_full_refuses_unported_options(files, pcm, field, value):
 
 
 def test_full_refuses_einsum_q8(files, pcm):
-    """einsum_q8 is the batched path's cross mode: full() refuses it
-    before any work rather than quantizing the dense cross-KV itself."""
-    tctx = WhisperContext.from_file(files["q8_0"],
+    """With cross mode einsum_q8, full() refuses only what it refuses in
+    every mode (here beam search), before any work, and not for the mode:
+    the mode runs (tests/test_torch_cross_modes.py holds its segments)."""
+    tctx = WhisperContext.from_file(files["q8_0"], device="cpu",
                                     compute_dtype=torch.float32,
                                     cross_mode="einsum_q8")
-    with pytest.raises(NotImplementedError, match="einsum_q8"):
-        tctx.full(_params(full_default_params, {}), pcm)
+    with pytest.raises(NotImplementedError, match="beam search") as err:
+        tctx.full(_params(full_default_params, {"strategy": 1}), pcm)
+    assert "einsum_q8" not in str(err.value)
     assert tctx.mel is None
 
 
 def test_unported_context_options_refused(files):
-    for kw in ({"cross_mode": "pallas_q8dt"}, {"cross_mode": "einsum_q4"},
-               {"dtw_token_timestamps": True}):
-        with pytest.raises(NotImplementedError):
-            WhisperContext.from_file(files["q8_0"], **kw)
-    tctx = WhisperContext.from_file(files["q8_0"], cross_mode="einsum")
+    """DTW is refused; a cross mode outside the seven is rejected; each of
+    the seven builds a context, and BatchTranscriber takes each."""
+    from whisper_tpu_torch.decode.loop import CROSS_MODES
     with pytest.raises(NotImplementedError):
+        WhisperContext.from_file(files["q8_0"], device="cpu",
+                                 dtw_token_timestamps=True)
+    with pytest.raises(ValueError, match="cross_mode"):
+        WhisperContext.from_file(files["q8_0"], device="cpu",
+                                 cross_mode="pallas_q4")
+    assert len(CROSS_MODES) == 7
+    for mode in CROSS_MODES:
+        tctx = WhisperContext.from_file(files["q8_0"], device="cpu",
+                                        cross_mode=mode)
         BatchTranscriber(tctx, batch_size=2, device_mel=True,
                          params=_params(full_default_params, {}))

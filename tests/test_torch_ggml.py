@@ -136,7 +136,8 @@ def test_params_from_ggml_every_leaf(files, kind, dtype):
     ref, ref_cfg = jconvert.params_from_ggml(
         jread(files[kind]), dtype=getattr(jnp, dtype), keep_quantized=True)
     got, cfg = tconvert.params_from_ggml(
-        tread(files[kind]), dtype=getattr(torch, dtype), keep_quantized=True)
+        tread(files[kind]), dtype=getattr(torch, dtype), keep_quantized=True,
+        device="cpu")
     assert cfg.__dict__ == ref_cfg.__dict__
     fr = _flat(jax.tree_util.tree_map(np.asarray, ref))
     fg = _flat(got)
@@ -157,7 +158,7 @@ def test_params_from_ggml_dense_and_from_jax(files):
     from_jax carries packed leaves bit for bit even when asked to cast."""
     mf = tread(files["q4_1"])
     got, _ = tconvert.params_from_ggml(mf, dtype=torch.float32,
-                                       keep_quantized=False)
+                                       keep_quantized=False, device="cpu")
     ref, _ = jconvert.params_from_ggml(jread(files["q4_1"]),
                                        dtype=jnp.float32)
     fr = _flat(jax.tree_util.tree_map(np.asarray, ref))
@@ -181,7 +182,8 @@ def test_stub_file_gives_zero_params(tmp_path):
     path = str(tmp_path / "stub.bin")
     write_ggml(path, hp, mel_filterbank(80).astype(np.float32),
                synthetic_vocab(hp["n_vocab"]).id_to_token[:50257], {})
-    got, _ = tconvert.params_from_ggml(tread(path), dtype=torch.bfloat16)
+    got, _ = tconvert.params_from_ggml(tread(path), dtype=torch.bfloat16,
+                                       device="cpu")
     ref, _ = jconvert.params_from_ggml(jread(path), dtype=jnp.bfloat16)
     fr = _flat(jax.tree_util.tree_map(np.asarray, ref))
     fg = _flat(got)

@@ -1,7 +1,8 @@
-"""Kernels K1-K5 on the card against their plain PyTorch versions, the
-serving slice through K1 and K2, and from_file + full over block-quantized
-files through K1, K3 and K4 or K5.  Every test here needs CUDA and skips
-without it.  The card has no JAX and tests/conftest.py imports it, so
+"""Kernels K1-K7 on the card against their plain PyTorch versions, the
+serving slice through K1 and K2 (and in 4-bit cross-KV), from_file + full
+over block-quantized files through K1, K3 and K2, K4 or K5 in every cross
+mode, and the encoder's attention variants through K1 and K6.  Every test
+here needs CUDA and skips without it.  The card has no JAX and tests/conftest.py imports it, so
 run this file there without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py -q
@@ -17,8 +18,10 @@ from whisper_tpu_torch import (BatchTranscriber, WhisperContext,  # noqa: E402
                                full_default_params)
 from whisper_tpu_torch.audio.filters import mel_filterbank  # noqa: E402
 from whisper_tpu_torch.audio.mel import full_f32_matmuls  # noqa: E402
+from whisper_tpu_torch.models import whisper as wm  # noqa: E402
 from whisper_tpu_torch.ops import cross_attention as xa  # noqa: E402
 from whisper_tpu_torch.ops import encoder_attention as ea  # noqa: E402
+from whisper_tpu_torch.ops import mel_pallas as mp  # noqa: E402
 from whisper_tpu_torch.ops import quantized as qm  # noqa: E402
 from whisper_tpu_torch.weights import ggml_writer  # noqa: E402
 from whisper_tpu_torch.weights.vocab import synthetic_vocab  # noqa: E402
@@ -31,9 +34,11 @@ TOL = 2e-2
 # K3 and its plain version make the same bf16 roundings; only the order of
 # the f32 sums differs (chip_smoke.KERNEL_TOL gives the readings)
 TOL_K3 = 1e-5
-# K4/K5 and theirs likewise, but a softmax weight within an f32 rounding
-# of a bf16 tie may round the other way
-TOL_K45 = 5e-4
+# K2/K4/K5 and theirs likewise, but a softmax weight within an f32
+# rounding of a bf16 tie may round the other way
+TOL_XATTN = 5e-4
+# K7 and its plain version: f32 throughout, summation order only
+TOL_K7 = 1e-5
 
 
 @pytest.fixture
@@ -83,7 +88,7 @@ def test_k2_matches_plain_on_card(gen, shape):
     assert xa.cross_attention_decode_q8dt.launches == n + 1
     assert got.shape == (B, H, 1, Dh) and got.dtype == torch.float32
     ref = xa.cross_attention_decode_q8dt_ref(q, kq, ks, vq, vs)
-    assert _rel_err(got, ref) <= TOL
+    assert _rel_err(got, ref) <= TOL_XATTN
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -175,7 +180,7 @@ def test_k4_k5_match_plain_on_card(gen, shape):
     torch.cuda.synchronize()
     assert xa.cross_attention_decode.launches == n4 + 1
     assert got.shape == q.shape and got.dtype == torch.float32
-    assert _rel_err(got, xa.cross_attention_decode_ref(q, k, v)) <= TOL_K45
+    assert _rel_err(got, xa.cross_attention_decode_ref(q, k, v)) <= TOL_XATTN
 
     kq, ks = xa.quantize_kv(k.float())
     vq, vs = xa.quantize_kv(v.float())
@@ -184,7 +189,7 @@ def test_k4_k5_match_plain_on_card(gen, shape):
     torch.cuda.synchronize()
     assert xa.cross_attention_decode_q8.launches == n5 + 1
     ref = xa.cross_attention_decode_q8_ref(q, kq, ks, vq, vs)
-    assert _rel_err(got, ref) <= TOL_K45
+    assert _rel_err(got, ref) <= TOL_XATTN
 
 
 def test_new_wrappers_refuse_on_card(gen):
@@ -248,3 +253,167 @@ def test_full_from_file_on_card(gen, tmp_path, kind, cross_mode, audio_ctx):
     segs = ctx.result_all
     assert segs
     assert np.isfinite([t.p for s in segs for t in s.tokens]).all()
+
+
+def _bf16_randn(gen, *shape):
+    return (torch.randn(*shape, generator=gen, device="cuda") * 0.3).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,Tp,H,t_valid", [(1, 1536, 20, 1500),
+                                            (2, 256, 2, 200),
+                                            (1, 256, 3, 17)])
+def test_k6_matches_plain_on_card(gen, B, Tp, H, t_valid):
+    """K6 on (B, Tp, H*64) with keys past t_valid masked; padded rows are
+    computed too (t_valid = 17 leaves most of the rows padding)."""
+    q, k, v = (_bf16_randn(gen, B, Tp, H * 64) for _ in range(3))
+    n = ea.encoder_attention_btd.launches
+    got = ea.encoder_attention_btd(q, k, v, n_head=H, t_valid=t_valid)
+    torch.cuda.synchronize()
+    assert ea.encoder_attention_btd.launches == n + 1
+    assert got.shape == q.shape and got.dtype == torch.float32
+    ref = ea.encoder_attention_btd_ref(q, k, v, H, t_valid)
+    assert _rel_err(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("B,H,Tp,t_valid", [(1, 20, 1536, 1500),
+                                            (2, 2, 256, 200),
+                                            (1, 3, 72, 72)])
+def test_k1_bhdt_entry_matches_plain_on_card(gen, B, H, Tp, t_valid):
+    """K1's (B, H, Dh, Tp) entry, read Dh-major; Tp = 72 leaves a ragged
+    last tile."""
+    q, k, v = (_bf16_randn(gen, B, H, 64, Tp) for _ in range(3))
+    n = ea.encoder_attention.launches
+    got = ea.encoder_attention(q, k, v, t_valid=t_valid)
+    torch.cuda.synchronize()
+    assert ea.encoder_attention.launches == n + 1
+    assert got.shape == q.shape and got.dtype == torch.float32
+    assert _rel_err(got, ea.encoder_attention_ref(q, k, v, t_valid)) <= TOL
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("seconds", [5, 60])
+def test_k7_matches_plain_on_card(gen, n_mels, seconds):
+    """K7 on a padded signal's row views (not copies), and log_mel_pallas
+    through it."""
+    from whisper_tpu_torch.audio.mel import pad_audio
+    pcm = (np.random.RandomState(seconds).randn(16000 * seconds) * 0.1
+           ).astype(np.float32)
+    padded = torch.from_numpy(pad_audio(pcm)[0]).cuda()
+    args = mp.mel_block_inputs(padded, mel_filterbank(n_mels))
+    n = mp._mel_blocks.launches
+    got = mp._mel_blocks(*args)
+    torch.cuda.synchronize()
+    assert mp._mel_blocks.launches == n + 1
+    assert got.shape == (args[0].shape[0], n_mels)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, mp._mel_blocks_ref(*args)) <= TOL_K7
+    mel = mp.log_mel_pallas(padded, mel_filterbank(n_mels))
+    assert mp._mel_blocks.launches == n + 2
+    assert float(mel.max()) == pytest.approx(
+        (float(got.max()) + 4.0) / 4.0, rel=1e-6)
+
+
+def test_k6_k7_refuse_what_the_kernels_do_not_take(gen):
+    x = _bf16_randn(gen, 1, 256, 128)
+    with pytest.raises(ValueError):          # f32
+        ea.encoder_attention_btd(x.float(), x.float(), x.float(), n_head=2)
+    with pytest.raises(ValueError):          # head dim 32
+        ea.encoder_attention_btd(x, x, x, n_head=4)
+    y = _bf16_randn(gen, 1, 2, 64, 260)
+    with pytest.raises(ValueError):          # Tp not a multiple of 8
+        ea.encoder_attention(y, y, y)
+    padded = torch.zeros(16000 * 31, device="cuda")
+    args = list(mp.mel_block_inputs(padded, mel_filterbank(80)))
+    with pytest.raises(ValueError):          # 64 mels
+        mp._mel_blocks(*args[:-1], args[-1][:, :64].contiguous())
+    with pytest.raises(ValueError):          # frames not a multiple of 64
+        mp._mel_blocks(*(a[:100] for a in args[:3]), *args[3:])
+
+
+def test_encoder_variants_on_card(gen):
+    """The default attn_impl on CUDA tensors is "pallas" (K1); every
+    variant agrees with it in bf16, pallas_btd through K6, pallas_dt and
+    pallas_pf through K1's Dh-major entry."""
+    from whisper_tpu_torch.weights.convert import random_params
+    dims = (51864, 200, 128, 2, 2, 48, 128, 2, 2, 80)
+    cfg = wm.WhisperConfig(*dims)
+    params = random_params(cfg, seed=2, device="cuda")
+    mel = torch.randn(2, 400, 80, generator=gen, device="cuda")
+    assert wm.default_encoder_attn_impl(mel) == "pallas"
+    with torch.no_grad():
+        base = wm.encode(params, mel, n_head=2)
+        for impl, counter in (("pallas_dt", ea.encoder_attention),
+                              ("pallas_pf", ea.encoder_attention),
+                              ("pallas_btd", ea.encoder_attention_btd),
+                              ("flash", ea.self_attention),
+                              ("pallas_btd_interpret", None)):
+            n = counter.launches if counter else 0
+            got = wm.encode(params, mel, n_head=2, attn_impl=impl)
+            torch.cuda.synchronize()
+            if counter:
+                assert counter.launches == n + cfg.n_audio_layer, impl
+            assert _rel_err(got, base) <= TOL, impl
+        bdt = wm.encode(params, mel, n_head=2, attn_impl="pallas_dt",
+                        out_layout="bdt")
+        (kq, ks), _ = wm.cross_kv_q8(params, bdt, n_head=2,
+                                     enc_layout="bdt")
+        (kq2, ks2), _ = wm.cross_kv_q8(params, bdt.transpose(1, 2), n_head=2)
+    deq = kq.float() * ks[..., None, :]
+    assert _rel_err(deq, kq2.float() * ks2[..., None, :]) <= TOL
+
+
+@pytest.mark.parametrize("cross_mode,kernel", [
+    ("einsum_q8", "K2"), ("pallas_q8dt", "K2"), ("einsum_q8i", None),
+    ("einsum_q4", None), ("einsum", None)])
+def test_full_cross_modes_on_card(gen, tmp_path, cross_mode, kernel):
+    """whisper_full at small widths in bf16 over a q5_0 file in the cross
+    modes beside the default: K1 and K3 always, K2 for the int8
+    modes whose step is K2's function."""
+    dims = (51865, 64, 128, 2, 2, 48, 128, 2, 3, 80)
+    hp = dict(zip(ggml_writer.HPARAM_KEYS, dims))
+    path = str(tmp_path / "q5_0.bin")
+    ggml_writer.write_random_model(
+        path, hp, mel_filterbank(80), synthetic_vocab(dims[0]).id_to_token[
+            :50257], "q5_0", seed=1)
+    ctx = WhisperContext.from_file(path, cross_mode=cross_mode)
+    assert ctx.device.type == "cuda"
+    p = full_default_params()
+    p.print_progress = False
+    p.temperature_inc = 0.0
+    p.max_tokens = 16
+    pcm = (np.random.RandomState(0).randn(16000 * 5) * 0.1).astype(
+        np.float32)
+    for fn in (ea.self_attention, qm.quantized_matmul,
+               xa.cross_attention_decode_q8dt):
+        fn.launches = 0
+    assert ctx.full(p, pcm) == 0
+    torch.cuda.synchronize()
+    assert ea.self_attention.launches > 0
+    assert qm.quantized_matmul.launches > 0
+    assert (xa.cross_attention_decode_q8dt.launches > 0) == (kernel == "K2")
+    segs = ctx.result_all
+    assert segs
+    assert np.isfinite([t.p for s in segs for t in s.tokens]).all()
+
+
+def test_batch_transcriber_q4_on_card(gen):
+    """bench.py's kv=q4 serving setting: cross_kv_q4 in the batched
+    encode, the q4e step in the loop."""
+    dims = (51864, 32, 128, 2, 2, 48, 128, 2, 2, 80)
+    ctx = WhisperContext.from_random(dims=dims, seed=1,
+                                     cross_mode="einsum_q4")
+    p = full_default_params()
+    p.print_progress = False
+    p.temperature_inc = 0.0
+    p.no_timestamps = True
+    p.max_tokens = 8
+    bt = BatchTranscriber(ctx, batch_size=2, params=p, device_mel=True)
+    rng = np.random.RandomState(0)
+    streams = [(rng.randn(16000 * s) * 0.1 * 32768).clip(-32768, 32767)
+               .astype(np.int16) for s in (5, 9)]
+    result = bt.transcribe(streams)
+    torch.cuda.synchronize()
+    for segs in result:
+        assert segs
+        assert np.isfinite([t.p for s in segs for t in s.tokens]).all()

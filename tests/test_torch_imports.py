@@ -45,3 +45,34 @@ def test_port_has_the_whisper_full_modules():
                  "utils.logging"):
         mod = importlib.import_module(f"whisper_tpu_torch.{name}")
         assert mod.__name__ == f"whisper_tpu_torch.{name}"
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point takes device="cuda" by default.  Without a card
+    such a call raises instead of running on the CPU, so each CPU test
+    here that reaches one asks for "cpu" itself."""
+    import inspect
+
+    from whisper_tpu_torch.api import WhisperContext
+    from whisper_tpu_torch.decode import filters, loop
+    from whisper_tpu_torch.models.whisper import WhisperConfig
+    from whisper_tpu_torch.weights import convert
+    fns = (WhisperContext.__init__, WhisperContext.from_random,
+           WhisperContext.from_jax, convert.params_from_ggml,
+           convert.zero_params, convert.random_params, convert.from_jax,
+           loop.make_decode_window, filters.make_process_logits)
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
+    # from_file and from_buffer forward their keywords to __init__
+    for fn in (WhisperContext.from_file, WhisperContext.from_buffer):
+        assert "device" not in inspect.signature(fn).parameters
+    if torch.cuda.is_available():
+        return
+    dims = (128, 32, 64, 4, 2, 32, 64, 4, 2, 80)
+    cfg = WhisperConfig(*dims)
+    for call in (lambda: convert.random_params(cfg),
+                 lambda: convert.zero_params(cfg),
+                 lambda: WhisperContext.from_random(dims=dims)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

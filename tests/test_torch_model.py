@@ -212,7 +212,7 @@ def test_filter_chain_matches_jax(no_timestamps):
     proc_j = jf.make_process_logits(consts_j, jf.FilterOptions(**opts),
                                     extra_suppress=(5, 7))
     proc_t = tf.make_process_logits(consts_t, tf.FilterOptions(**opts),
-                                    extra_suppress=(5, 7))
+                                    extra_suppress=(5, 7), device="cpu")
     flags = np.array(list(itertools.product([False, True], repeat=4)))
     B = len(flags)
     rng = np.random.RandomState(9)
@@ -269,7 +269,7 @@ def qmodel(request, tmp_path_factory):
                        "q5_1", dims=QDIMS, seed=4)
     jp, _ = params_from_ggml(read_ggml_file(path), dtype=getattr(jnp, dtype),
                              keep_quantized=True)
-    tp, _ = tpfg(tread(path), dtype=getattr(torch, dtype))
+    tp, _ = tpfg(tread(path), dtype=getattr(torch, dtype), device="cpu")
     assert isinstance(tp["decoder"]["blocks"]["q_w"], dict)
     assert "m" in tp["decoder"]["blocks"]["mlp0_w"]
     rng = np.random.RandomState(12)

@@ -82,9 +82,12 @@ def test_random_params_values_and_seed():
     """Layernorm scales are one, rank-1 leaves zero, rank>=2 leaves drawn
     with the stated scale; the seed fixes the draw."""
     cfg = TWhisperConfig(*TINY, "test")
-    a = _flat(tconvert.random_params(cfg, seed=3, dtype=torch.float32))
-    b = _flat(tconvert.random_params(cfg, seed=3, dtype=torch.float32))
-    c = _flat(tconvert.random_params(cfg, seed=4, dtype=torch.float32))
+    a = _flat(tconvert.random_params(cfg, seed=3, dtype=torch.float32,
+                                    device="cpu"))
+    b = _flat(tconvert.random_params(cfg, seed=3, dtype=torch.float32,
+                                    device="cpu"))
+    c = _flat(tconvert.random_params(cfg, seed=4, dtype=torch.float32,
+                                    device="cpu"))
     for name, t in a.items():
         leaf = name.split("/")[-1]
         assert torch.equal(t, b[name]), name

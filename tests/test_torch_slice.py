@@ -130,17 +130,18 @@ def test_refused_paths(contexts):
     with pytest.raises(NotImplementedError):
         BatchTranscriber(tctx, batch_size=2, params=p, mesh=object(),
                          device_mel=True)
-    with pytest.raises(NotImplementedError):
-        WhisperContext.from_random(dims=MICRO, cross_mode="einsum_q4")
-    # "einsum" runs in full() but not in the batched path
-    dense = WhisperContext.from_random(dims=MICRO, cross_mode="einsum")
-    with pytest.raises(NotImplementedError):
-        BatchTranscriber(dense, batch_size=2, params=p, device_mel=True)
+    with pytest.raises(ValueError, match="cross_mode"):
+        WhisperContext.from_random(dims=MICRO, cross_mode="einsum_q2",
+                                   device="cpu")
+    # every cross mode of whisper_tpu, "einsum" included, runs batched
+    dense = WhisperContext.from_random(dims=MICRO, cross_mode="einsum",
+                                       device="cpu")
+    BatchTranscriber(dense, batch_size=2, params=p, device_mel=True)
     fields = ("config", "vocab", "filters", "params", "compute_dtype")
     other_mode = types.SimpleNamespace(
-        cross_mode="pallas_q8dt", **{f: getattr(jctx, f) for f in fields})
-    with pytest.raises(NotImplementedError):
-        WhisperContext.from_jax(other_mode)
+        cross_mode="pallas_q4", **{f: getattr(jctx, f) for f in fields})
+    with pytest.raises(ValueError, match="cross_mode"):
+        WhisperContext.from_jax(other_mode, "cpu")
 
 
 def test_window_rng_matches_jax():
@@ -202,7 +203,7 @@ def test_rank_window_candidates_matches_jax(last):
 
 def test_from_random_micro_runs(streams):
     """A context built from torch's own generator runs the slice too."""
-    ctx = WhisperContext.from_random(dims=MICRO, seed=1,
+    ctx = WhisperContext.from_random(dims=MICRO, seed=1, device="cpu",
                                      compute_dtype=torch.float32)
     assert ctx.n_loaded > 0
     bt = BatchTranscriber(ctx, batch_size=2, params=_params(

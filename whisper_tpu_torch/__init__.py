@@ -2,29 +2,34 @@
 
 The package mirrors whisper_tpu's module names.  It imports torch and
 numpy only (never jax, never whisper_tpu), so it runs on a machine that
-has no JAX.  Two paths are ported:
+has no JAX.  Its entry points run on the card (device="cuda") unless the
+caller asks for the CPU.  Two paths are ported:
 
     WhisperContext.from_file + full (api.py): whisper_full
       -> ggml reader, block codecs, packed decoder weights
          (weights/ggml_reader.py, quant.py, convert.py)
       -> host log-mel (audio/mel.py)
-      -> conv stem + encoder, self-attention through kernel K1
-         (ops/encoder_attention.py, csrc/encoder_attention.cu)
-      -> dense cross-KV (models/whisper.py cross_kv)
+      -> conv stem + encoder, self-attention through kernel K1, or K6 for
+         attn_impl "pallas_btd" (ops/encoder_attention.py,
+         csrc/encoder_attention.cu)
+      -> dense cross-KV (models/whisper.py cross_kv), quantized once per
+         window for the quantized cross modes (decode/loop.py)
       -> window decode loop (decode/loop.py); every packed decoder linear
          through kernel K3 (ops/quantized.py, csrc/quantized_matmul.cu),
-         the per-token cross-attention through K4 ("pallas") or K5
-         ("pallas_q8") (ops/cross_attention.py, csrc/cross_attention.cu)
-         or the einsum ("einsum")
+         the per-token cross-attention through K2 ("einsum_q8",
+         "pallas_q8dt"; csrc/cross_attention_q8.cu), K4 ("pallas") or K5
+         ("pallas_q8") (csrc/cross_attention.cu), or plain torch
+         ("einsum", "einsum_q8i", "einsum_q4")
       -> host segment assembly (api.py)
 
     BatchTranscriber.transcribe (parallel/batch.py): batched serving
-      -> device log-mel, encoder (K1), int8 cross-KV (cross_kv_q8),
-         window decode loop with the cross-attention through K2
-         (csrc/cross_attention_q8.cu) and packed linears through K3
+      -> device log-mel, encoder (K1), the cross-KV of the cross mode
+         (cross_kv, cross_kv_q8 or cross_kv_q4), window decode loop
 
-On CPU tensors every kernel wrapper runs its plain PyTorch version; on
-CUDA tensors it launches the hand-written kernel or raises.
+The fused log-mel kernel K7 (ops/mel_pallas.py, csrc/log_mel.cu) runs in
+`log_mel_pallas`, as whisper_tpu's Pallas mel kernel does.  On CPU tensors
+every kernel wrapper runs its plain PyTorch version; on CUDA tensors it
+launches the hand-written kernel or raises.
 """
 
 from .api import (FullParams, GreedyParams, Segment, TokenData,

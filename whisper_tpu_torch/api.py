@@ -5,11 +5,13 @@ The dataclasses keep whisper_tpu's fields and defaults.  `WhisperContext`
 is built from a ggml file (`from_file`, `from_buffer`), from random
 weights (`from_random`) or from a whisper_tpu context (`from_jax`).
 `full` runs the sliding 30 s window loop greedily at temperature 0 in
-cross modes "einsum", "pallas" and "pallas_q8"; what it does not port
-(sampling at t > 0 and the fallback ladder, beam search, grammars and
-logits-filter callbacks, token timestamps and DTW, suppress_regex, and
-cross mode "einsum_q8", which only `BatchTranscriber` runs) is refused
-with NotImplementedError before any work.
+every cross mode of whisper_tpu (decode/loop.CROSS_MODES); the quantized
+modes quantize the window's dense cross-KV once, as whisper_tpu's `full`
+does.  What it does not port (sampling at t > 0 and the fallback ladder,
+beam search, grammars and logits-filter callbacks, token timestamps and
+DTW, suppress_regex) is refused with NotImplementedError before any work.
+Its entry points run on the card (device="cuda") unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from .languages import lang_id as _lang_id, lang_str
 from .models import whisper as wm
 from .models.whisper import MODEL_DIMS, WhisperConfig
 from .tokenizer import tokenize
+from .utils.device import resolve_device
 from .utils.logging import log_error, log_info, log_warn
 from .utils.timings import Timings
 from .weights.convert import from_jax, params_from_ggml, random_params
@@ -212,7 +215,7 @@ class WhisperContext:
     """
 
     def __init__(self, model_file=None, compute_dtype=torch.bfloat16,
-                 device="cpu", keep_quantized: bool = True,
+                 device="cuda", keep_quantized: bool = True,
                  cross_mode: str = "einsum",
                  dtw_token_timestamps: bool = False, *,
                  config: WhisperConfig | None = None,
@@ -221,18 +224,21 @@ class WhisperContext:
         """From a parsed ggml file (`model_file`), or from ready parts
         (config, vocab, filters, params) when model_file is None.
 
-        keep_quantized: the decoder's block-quantized weights stay packed
-        and run through K3 on every device (on the CPU as its plain
-        version).  cross_mode: "einsum" (dense K/V), "einsum_q8" (K2),
-        "pallas" (K4) or "pallas_q8" (K5).
+        device: "cuda" (the default) or "cpu"; a CUDA device without a
+        card raises.  keep_quantized: the decoder's block-quantized
+        weights stay packed and run through K3 on every device (on the CPU
+        as its plain version).  cross_mode: one of CROSS_MODES — "einsum"
+        (dense K/V), "einsum_q8" and "pallas_q8dt" (int8 K/V through K2),
+        "einsum_q8i" (int8 dots), "einsum_q4" (4-bit K/V), "pallas" (K4)
+        or "pallas_q8" (K5).
         """
         if cross_mode not in CROSS_MODES:
-            raise NotImplementedError(
-                f"cross_mode {cross_mode!r} is not ported (have "
-                f"{CROSS_MODES})")
+            raise ValueError(f"unknown cross_mode {cross_mode!r} (have "
+                             f"{CROSS_MODES})")
         if dtw_token_timestamps:
             raise NotImplementedError("DTW token timestamps are not ported")
-        if torch.device(device).type == "cuda":
+        device = resolve_device(device)
+        if device.type == "cuda":
             full_f32_matmuls()
         self.model_file = model_file
         if model_file is not None:
@@ -251,7 +257,7 @@ class WhisperContext:
         self.vocab = vocab
         self.filters = np.asarray(filters, np.float32)
         self.params = params
-        self.device = torch.device(device)
+        self.device = device
         self.compute_dtype = compute_dtype
         self.cross_mode = cross_mode
         self.dtw_token_timestamps = False
@@ -281,7 +287,7 @@ class WhisperContext:
 
     @classmethod
     def from_random(cls, size: str = "large-v3", seed: int = 0,
-                    device="cpu", compute_dtype=torch.bfloat16,
+                    device="cuda", compute_dtype=torch.bfloat16,
                     cross_mode: str = "einsum_q8",
                     dims: tuple | None = None) -> "WhisperContext":
         """Random-weight context at exact named dims with a synthetic
@@ -297,7 +303,7 @@ class WhisperContext:
                    cross_mode=cross_mode)
 
     @classmethod
-    def from_jax(cls, jax_ctx, device="cpu") -> "WhisperContext":
+    def from_jax(cls, jax_ctx, device="cuda") -> "WhisperContext":
         """The same model as a whisper_tpu WhisperContext, bit for bit.
         Takes the JAX context as duck-typed data: its params must already
         be numpy leaves or convert through np.asarray."""
@@ -483,9 +489,6 @@ class WhisperContext:
     def _check_full_supported(self, params: FullParams) -> None:
         """Refuse, before any work, what `full` does not port."""
         refused = []
-        if self.cross_mode == "einsum_q8":
-            refused.append("cross_mode 'einsum_q8' (BatchTranscriber's "
-                           "int8 cross-KV path)")
         if params.temperature > 0.0 or params.temperature_inc > 0.0:
             refused.append("temperature > 0 / the fallback ladder "
                            "(temperature_inc > 0 needs JAX's threefry draws)")

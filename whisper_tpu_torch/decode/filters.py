@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..constants import CHUNK_SIZE
+from ..utils.device import resolve_device
 from ..weights.vocab import Vocab
 
 NEG_INF = float("-inf")
@@ -115,7 +116,7 @@ def _static_suppress_mask(c: FilterConsts, o: FilterOptions,
 
 def make_process_logits(c: FilterConsts, o: FilterOptions,
                         extra_suppress: tuple[int, ...] = (),
-                        device: str | torch.device = "cpu"):
+                        device: str | torch.device = "cuda"):
     """Build `process(logits, temperature, is_initial, last_was_ts,
     penult_was_ts, has_ts, seek_delta) -> (logits, logprobs, probs)`.
 
@@ -125,6 +126,7 @@ def make_process_logits(c: FilterConsts, o: FilterOptions,
     max_initial_ts -> monotonic ts floor -> log_softmax -> timestamp-sum
     rule -> softmax.
     """
+    device = resolve_device(device)
     static_mask = torch.from_numpy(
         _static_suppress_mask(c, o, extra_suppress)).to(device)
     V = c.n_vocab

@@ -37,27 +37,38 @@ class LoopConfig:
     single_segment: bool
     no_timestamps: bool
     compute_dtype: torch.dtype = torch.bfloat16
-    # cross-attention path of the token loop: "einsum" (dense K/V, plain
-    # torch), "einsum_q8" (int8 (.., Dh, Ta) K/V through K2), "pallas"
-    # (bf16 (.., Ta, Dh) K/V through K4) or "pallas_q8" (int8 (.., Ta, Dh)
-    # K/V through K5).  The prompt pass always runs the einsum.
+    # cross-attention path of the token loop, one of CROSS_MODES; the
+    # prompt pass always runs the einsum (over dequantized K/V)
     cross_mode: str = "einsum_q8"
 
 
-CROSS_MODES = ("einsum", "einsum_q8", "pallas", "pallas_q8")
+# cross mode -> the decode step's tag for its (codes, scales) cross-KV:
+# "einsum_q8" and "pallas_q8dt" through K2, "einsum_q8i" int8 dots and
+# "einsum_q4" nibble dots in plain torch (models/whisper._cross_attn_step)
+QUANT_TAGS = {"einsum_q8": "q8e", "pallas_q8dt": "q8dt", "einsum_q8i": "q8i",
+              "einsum_q4": "q4e"}
+# the dense modes: "einsum" (plain torch), "pallas" (bf16 (.., Ta, Dh) K/V
+# through K4), "pallas_q8" (int8 (.., Ta, Dh) K/V through K5)
+CROSS_MODES = ("einsum", "einsum_q8", "pallas_q8dt", "einsum_q8i",
+               "einsum_q4", "pallas", "pallas_q8")
 
 
 def loop_cross_kv(cross_mode: str, k_cross, v_cross, compute_dtype):
-    """The cross-KV layout the token loop reads, made once per window from
-    the prompt pass's (whisper_tpu.decode.loop, loop.py:252-280): from the
-    dense (L, B, H, Dh, Ta) of cross_kv, or for "einsum_q8" from the
-    (codes, scales) pairs of cross_kv_q8."""
-    if cross_mode == "einsum_q8":
-        if isinstance(k_cross, torch.Tensor):
-            raise ValueError("cross_mode 'einsum_q8' takes the (codes, "
-                             "scales) pairs of cross_kv_q8")
-        return ("q8e",) + tuple(k_cross), ("q8e",) + tuple(v_cross)
-    if not isinstance(k_cross, torch.Tensor):
+    """The cross-KV layout the token loop reads, made once per window
+    (whisper_tpu.decode.loop, loop.py:252-280).  The quantized modes take
+    the (codes, scales) pairs of cross_kv_q8 / cross_kv_q4 as they are (the
+    batched path), or quantize the dense (L, B, H, Dh, Ta) of cross_kv here
+    (the `full` path); "pallas" and "pallas_q8" transpose the dense one."""
+    prequant = not isinstance(k_cross, torch.Tensor)
+    if cross_mode in QUANT_TAGS:
+        tag = QUANT_TAGS[cross_mode]
+        if not prequant:
+            from ..ops.cross_attention import (quantize_kv_bhdt,
+                                               quantize_kv_bhdt_q4)
+            qfn = quantize_kv_bhdt_q4 if tag == "q4e" else quantize_kv_bhdt
+            k_cross, v_cross = qfn(k_cross), qfn(v_cross)
+        return (tag,) + tuple(k_cross), (tag,) + tuple(v_cross)
+    if prequant:
         raise ValueError(f"cross_mode {cross_mode!r} takes the dense "
                          "cross-KV of cross_kv, not a (codes, scales) pair")
     if cross_mode == "einsum":
@@ -67,6 +78,8 @@ def loop_cross_kv(cross_mode: str, k_cross, v_cross, compute_dtype):
                 for x in (k_cross, v_cross))
     if cross_mode == "pallas":
         return ("bhtd", k_t), ("bhtd", v_t)
+    if cross_mode != "pallas_q8":
+        raise ValueError(f"unknown cross_mode {cross_mode!r}")
     from ..ops.cross_attention import quantize_kv
     kq, ks = quantize_kv(k_t)
     vq, vs = quantize_kv(v_t)
@@ -121,14 +134,15 @@ def token_state_update(consts, cfg, *, i, tok, live, has_ts, seek_delta,
 def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
                        cfg: LoopConfig, strategy: str = "greedy",
                        extra_suppress: tuple = (),
-                       device: str | torch.device = "cpu"):
-    """Build the window-decode function (greedy at temperature 0)."""
+                       device: str | torch.device = "cuda"):
+    """Build the window-decode function (greedy at temperature 0), its
+    logit filters on `device`."""
     if strategy != "greedy":
         raise NotImplementedError(f"decode strategy {strategy!r} is not "
                                   "ported (greedy only)")
     if cfg.cross_mode not in CROSS_MODES:
-        raise NotImplementedError(f"cross_mode {cfg.cross_mode!r} is not "
-                                  f"ported (have {CROSS_MODES})")
+        raise ValueError(f"unknown cross_mode {cfg.cross_mode!r} (have "
+                         f"{CROSS_MODES})")
     process_logits = make_process_logits(consts, options, extra_suppress,
                                          device)
     P = cfg.prompt_size
@@ -142,9 +156,10 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
                       temperature, seek, seek_end, row_live=None):
         """Run one full window decode.
 
-        k_cross/v_cross: dense (L,B,H,Dh,Ta) from cross_kv, or for
-        "einsum_q8" (codes int8 (L,B,H,Dh,Ta), scales f32 (L,B,H,Ta))
-        pairs from cross_kv_q8 (whose bf16 stack never exists).
+        k_cross/v_cross: dense (L,B,H,Dh,Ta) from cross_kv, or for the
+        quantized modes the (codes, scales (L,B,H,Ta)) pairs of
+        cross_kv_q8 (int8 (L,B,H,Dh,Ta)) or, for "einsum_q4", cross_kv_q4
+        (uint8 (L,B,H,Dh/2,Ta)), whose bf16 stack never exists.
         prompt: (B, P) int — LEFT-padded prompt (pad value irrelevant)
         pad_len: (B,) int — number of pad slots at the start of each row
         temperature: must be 0 (greedy); sampled draws need JAX's threefry
@@ -159,7 +174,12 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
                 "threefry draws to match the reference)")
         temperature = 0.0
         prequant = not isinstance(k_cross, torch.Tensor)
+        if prequant and cfg.cross_mode not in QUANT_TAGS:
+            raise ValueError(f"pre-quantized cross-KV needs a q8/q4 "
+                             f"cross_mode, got {cfg.cross_mode!r}")
         L, _, H, Dh, _ = (k_cross[0] if prequant else k_cross).shape
+        if prequant and cfg.cross_mode == "einsum_q4":
+            Dh *= 2   # codes are nibble-packed along Dh
         dev = (k_cross[0] if prequant else k_cross).device
 
         def dev_tensor(a, dtype):
@@ -182,8 +202,11 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         valid = (k <= q) & ((k >= pad_len[:, None, None]) | (k == q))
         mask = torch.where(valid, 0.0, float("-inf"))[:, None]
 
-        kc_p, vc_p = ((("q8",) + tuple(k_cross), ("q8",) + tuple(v_cross))
-                      if prequant else (k_cross, v_cross))
+        if prequant:   # decode_prompt's tagged form
+            ptag = "q4" if cfg.cross_mode == "einsum_q4" else "q8"
+            kc_p, vc_p = (ptag,) + tuple(k_cross), (ptag,) + tuple(v_cross)
+        else:
+            kc_p, vc_p = k_cross, v_cross
         logits_all, k_self, v_self = wm.decode_prompt(
             params, prompt, positions, kc_p, vc_p, cfg.n_head,
             self_mask=mask, compute_dtype=cd)

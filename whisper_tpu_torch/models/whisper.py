@@ -7,12 +7,14 @@ layernorm and softmax run in float32.  Where JAX asks for an f32 matmul
 result from bf16 operands (preferred_element_type), torch's bf16 GEMM rounds
 its output to bf16 before the cast: the bf16 parity bounds cover that.
 
-Ported: the dense einsum path of the encoder with its self-attention
-through K1 (ops/encoder_attention.py); block-quantized decoder weights
-through K3 (ops/quantized.py); the dense and int8 cross-KV; the prompt pass
-over dense or tagged-q8 cross-KV; and the decode step, whose cross-attention
-runs the einsum on dense K/V, K2 on "q8e", K4 on ("bhtd", K/V) and K5 on
-{"q", "s"} (ops/cross_attention.py).
+Kernels: the encoder's self-attention runs through K1 (`attn_impl`
+"pallas", "pallas_dt", "pallas_pf", "flash") or K6 ("pallas_btd")
+(ops/encoder_attention.py); block-quantized decoder weights through K3
+(ops/quantized.py); the decode step's cross-attention through K2 on "q8e"
+and "q8dt", K4 on ("bhtd", K/V) and K5 on {"q", "s"}
+(ops/cross_attention.py).  The "q8i" and "q4e" steps and the dense einsum
+are plain torch, as whisper_tpu leaves them to XLA.  `*_interpret`
+attention impls select the kernels' plain versions on any device.
 """
 
 from __future__ import annotations
@@ -25,8 +27,13 @@ import torch.nn.functional as F
 from ..ops.cross_attention import (cross_attention_decode,
                                    cross_attention_decode_q8,
                                    cross_attention_decode_q8dt,
-                                   quantize_kv_bhdt)
-from ..ops.encoder_attention import self_attention
+                                   quantize_kv_bhdt, quantize_kv_bhdt_q4,
+                                   unpack_q4_bhdt)
+from ..ops.encoder_attention import (BLOCK_Q, encoder_attention,
+                                     encoder_attention_btd,
+                                     encoder_attention_btd_ref,
+                                     encoder_attention_ref, self_attention,
+                                     self_attention_ref)
 from ..ops.quantized import quantized_matmul
 
 # canonical dims per released model; order matches WhisperConfig fields
@@ -151,13 +158,31 @@ def conv_stem(enc_params, mel, compute_dtype=torch.bfloat16):
     return x.transpose(1, 2)                                # (B, T, D)
 
 
-def _encoder_block(x, blk, n_head, compute_dtype):
+def _flash_self_attention(q, k, v, compute_dtype):
+    """attn_impl "flash": whisper_tpu runs JAX's stock Pallas flash kernel
+    with T padded to 128 and the pad keys masked by segment ids.  Its
+    counterpart is an entry onto K1, which computes the same function on
+    (B, T, H, Dh) and masks its ragged last tile itself."""
+    return self_attention(q, k, v, compute_dtype)
+
+
+def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum"):
     ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
-    q = _linear(ln, blk["q_w"], blk["q_b"], compute_dtype)
-    k = _linear(ln, blk["k_w"], None, compute_dtype)       # K has no bias
-    v = _linear(ln, blk["v_w"], blk["v_b"], compute_dtype)
-    attn = self_attention(_split_heads(q, n_head), _split_heads(k, n_head),
-                          _split_heads(v, n_head), compute_dtype)
+    q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], compute_dtype),
+                     n_head)
+    k = _split_heads(_linear(ln, blk["k_w"], None, compute_dtype), n_head)
+    v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], compute_dtype),
+                     n_head)
+    if attn_impl == "pallas":
+        attn = self_attention(q, k, v, compute_dtype)
+    elif attn_impl == "pallas_interpret":
+        attn = self_attention_ref(q, k, v, compute_dtype)
+    elif attn_impl == "flash":
+        attn = _flash_self_attention(q, k, v, compute_dtype)
+    elif attn_impl == "einsum":
+        attn = _attention(q, k, v, compute_dtype=compute_dtype)
+    else:
+        raise ValueError(f"unknown encoder attn_impl {attn_impl!r}")
     x = x + _linear(attn, blk["o_w"], blk["o_b"], compute_dtype)
 
     ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
@@ -165,14 +190,154 @@ def _encoder_block(x, blk, n_head, compute_dtype):
     return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype)
 
 
-def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16):
-    """Full encoder: mel (B, 2*n_ctx, n_mels) -> (B, n_ctx, n_state) f32."""
+def _layernorm_dt(x, w, b, eps: float = 1e-5):
+    """Layernorm of channels-first (B, D, T) activations over D (axis 1)."""
+    return _layernorm(x.transpose(1, 2), w, b, eps).transpose(1, 2)
+
+
+def _linear_dt(x, w, b=None, compute_dtype=torch.bfloat16):
+    """Channels-first linear: x (B, I, T), w torch-(O, I) -> (B, O, T) f32,
+    the (out, in) weight used as it lies."""
+    y = torch.matmul(w.to(compute_dtype), x.to(compute_dtype)).float()
+    if b is not None:
+        y = y + b[:, None]
+    return y
+
+
+def _encoder_block_dt(x, blk, n_head, compute_dtype, t_valid: int,
+                      interpret: bool = False):
+    """Encoder layer on (B, D, Tp) channels-first activations: the QKV
+    projections emit (B, D, Tp), the head split to (B, H, Dh, Tp) is a
+    reshape, and K1's Dh-major entry reads that layout as it lies.  Pad
+    columns past t_valid carry garbage, are masked as keys and are sliced
+    off by encode()."""
+    B, D, Tp = x.shape
+    attn_fn = encoder_attention_ref if interpret else encoder_attention
+    ln = _layernorm_dt(x, blk["attn_ln_w"], blk["attn_ln_b"])
+
+    def heads(w, b):
+        y = _linear_dt(ln, w, b, compute_dtype)
+        return y.reshape(B, n_head, D // n_head, Tp).to(compute_dtype)
+
+    attn = attn_fn(heads(blk["q_w"], blk["q_b"]), heads(blk["k_w"], None),
+                   heads(blk["v_w"], blk["v_b"]), t_valid)
+    x = x + _linear_dt(attn.reshape(B, D, Tp), blk["o_w"], blk["o_b"],
+                       compute_dtype)
+
+    ln = _layernorm_dt(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
+    h = _gelu(_linear_dt(ln, blk["mlp0_w"], blk["mlp0_b"], compute_dtype))
+    return x + _linear_dt(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype)
+
+
+def _encoder_block_pf(x, blk, n_head, compute_dtype, t_valid: int,
+                      interpret: bool = False):
+    """Projection-fused encoder layer: the residual stays (B, Tp, D), the
+    QKV projections emit K1's (B, H, Dh, Tp) directly, and the output
+    projection contracts the (H, Dh) pair back to (B, Tp, D)."""
+    B, Tp, D = x.shape
+    attn_fn = encoder_attention_ref if interpret else encoder_attention
+    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
+    ln_t = ln.transpose(1, 2)                                # (B, D, Tp)
+
+    def proj_ht(w, b):
+        y = _linear_dt(ln_t, w, b, compute_dtype)            # (B, D, Tp)
+        return y.reshape(B, n_head, D // n_head, Tp).to(compute_dtype)
+
+    attn = attn_fn(proj_ht(blk["q_w"], blk["q_b"]), proj_ht(blk["k_w"], None),
+                   proj_ht(blk["v_w"], blk["v_b"]), t_valid)
+    x = x + _linear(attn.reshape(B, D, Tp).transpose(1, 2), blk["o_w"],
+                    blk["o_b"], compute_dtype)
+
+    ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
+    h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], compute_dtype))
+    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype)
+
+
+def _encoder_block_btd(x, blk, n_head, compute_dtype, t_valid: int,
+                       interpret: bool = False):
+    """Transpose-free encoder layer: K6 reads the projections' natural
+    (B, Tp, D) output, each head the Dh-wide column slice of a row."""
+    attn_fn = encoder_attention_btd_ref if interpret else \
+        encoder_attention_btd
+    cd = compute_dtype
+    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
+    q = _linear(ln, blk["q_w"], blk["q_b"], cd).to(cd)
+    k = _linear(ln, blk["k_w"], None, cd).to(cd)             # K has no bias
+    v = _linear(ln, blk["v_w"], blk["v_b"], cd).to(cd)
+    attn = attn_fn(q, k, v, n_head, t_valid)
+    x = x + _linear(attn, blk["o_w"], blk["o_b"], cd)
+
+    ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
+    h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
+    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd)
+
+
+# padded whole-stack variants: impl -> (block fn, channels first)
+_PADDED_BLOCKS = {
+    "pallas_dt": (_encoder_block_dt, True),
+    "pallas_pf": (_encoder_block_pf, False),
+    "pallas_btd": (_encoder_block_btd, False),
+}
+ATTN_IMPLS = ("einsum", "pallas", "flash", *_PADDED_BLOCKS,
+              "pallas_interpret",
+              *(f"{impl}_interpret" for impl in _PADDED_BLOCKS))
+
+
+def default_encoder_attn_impl(x: torch.Tensor) -> str:
+    """"pallas" (K1) for activations on a CUDA device, "einsum" elsewhere;
+    decided by where the tensors lie, as whisper_tpu decides by its
+    backend."""
+    return "pallas" if x.device.type == "cuda" else "einsum"
+
+
+def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
+           attn_impl: str | None = None, out_layout: str = "btd"):
+    """Full encoder: mel (B, 2*n_ctx, n_mels) -> (B, n_ctx, n_state) f32,
+    or (B, n_state, n_ctx) with out_layout="bdt" (pallas_dt only), which
+    cross_kv*(enc_layout="bdt") reads with a reshape.
+
+    attn_impl: see ATTN_IMPLS; None takes default_encoder_attn_impl.  The
+    padded variants pad T to a BLOCK_Q multiple once, before the first
+    layer; pad rows are masked as attention keys (t_valid) and row-local
+    ops never mix rows, so slicing them off at the end is exact.
+    """
+    if attn_impl not in (None, *ATTN_IMPLS):
+        raise ValueError(f"unknown encoder attn_impl {attn_impl!r} (have "
+                         f"{ATTN_IMPLS})")
     enc = params["encoder"]
     x = conv_stem(enc, mel, compute_dtype)
-    x = x + enc["pos"][:x.shape[1]]
+    n_ctx = x.shape[1]
+    x = x + enc["pos"][:n_ctx]
+    if attn_impl is None:
+        attn_impl = default_encoder_attn_impl(x)
+    base = attn_impl.removesuffix("_interpret")
+    if out_layout not in ("btd", "bdt"):
+        raise ValueError(f"unknown out_layout {out_layout!r}")
+    if out_layout == "bdt" and base != "pallas_dt":
+        raise ValueError("out_layout='bdt' requires attn_impl='pallas_dt'")
     blocks = enc["blocks"]
-    for l in range(blocks["q_w"].shape[0]):
-        x = _encoder_block(x, _layer(blocks, l), n_head, compute_dtype)
+    n_layer = blocks["q_w"].shape[0]
+
+    if base in _PADDED_BLOCKS:
+        block_fn, channels_first = _PADDED_BLOCKS[base]
+        interpret = attn_impl.endswith("_interpret")
+        Tp = -(-n_ctx // BLOCK_Q) * BLOCK_Q
+        x = F.pad(x, (0, 0, 0, Tp - n_ctx))                 # (B, Tp, D)
+        if channels_first:
+            x = x.transpose(1, 2)                           # (B, D, Tp)
+        for l in range(n_layer):
+            x = block_fn(x, _layer(blocks, l), n_head, compute_dtype,
+                         t_valid=n_ctx, interpret=interpret)
+        if channels_first:
+            x = x[..., :n_ctx]
+            if out_layout == "bdt":
+                return _layernorm_dt(x, enc["ln_post_w"], enc["ln_post_b"])
+            x = x.transpose(1, 2)
+        return _layernorm(x[:, :n_ctx], enc["ln_post_w"], enc["ln_post_b"])
+
+    for l in range(n_layer):
+        x = _encoder_block(x, _layer(blocks, l), n_head, compute_dtype,
+                           attn_impl)
     return _layernorm(x, enc["ln_post_w"], enc["ln_post_b"])
 
 
@@ -180,55 +345,84 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16):
 # cross-attention KV precompute (reference: src/whisper.cpp:2285-2359)
 # ---------------------------------------------------------------------------
 
-def cross_kv(params, enc_out, n_head: int, compute_dtype=torch.bfloat16):
-    """enc_out (B, Ta, D) -> (k_cross, v_cross): (L, B, H, Dh, Ta) each, in
-    the compute dtype (the dense cross-KV of cross modes "einsum",
-    "pallas" and "pallas_q8")."""
+def _make_cross_proj(enc_out, n_head: int, compute_dtype, enc_layout: str):
+    """Per-layer cross K/V projection from the encoder output in
+    `enc_layout`: "btd" (B, Ta, D), projected then split to (B, H, Dh, Ta);
+    or "bdt" (B, D, Ta) from encode(out_layout="bdt"), projected to
+    (B, D, Ta), where the head split is a reshape.
+    Returns blk -> (k, v), each (B, H, Dh, Ta) in the compute dtype."""
+    cd = compute_dtype
+    if enc_layout == "bdt":
+        B, D, Ta = enc_out.shape
+
+        def proj(blk):
+            k = _linear_dt(enc_out, blk["xk_w"], None, cd)
+            v = _linear_dt(enc_out, blk["xv_w"], blk["xv_b"], cd)
+            return (k.reshape(B, n_head, D // n_head, Ta).to(cd),
+                    v.reshape(B, n_head, D // n_head, Ta).to(cd))
+        return proj
+    if enc_layout != "btd":
+        raise ValueError(f"unknown enc_layout {enc_layout!r}")
+
+    def proj(blk):
+        k = _linear(enc_out, blk["xk_w"], None, cd)
+        v = _linear(enc_out, blk["xv_w"], blk["xv_b"], cd)
+        # (B, Ta, H, Dh) -> (B, H, Dh, Ta)
+        return (_split_heads(k, n_head).permute(0, 2, 3, 1).to(cd),
+                _split_heads(v, n_head).permute(0, 2, 3, 1).to(cd))
+    return proj
+
+
+def _stack_layers(params, proj, per_layer):
+    """Run per_layer(*proj(blk)) for each decoder layer, writing each
+    layer's outputs into preallocated (L, ...) stacks, so only one layer's
+    projection is live at a time."""
     blocks = params["decoder"]["blocks"]
     L = blocks["xk_w"].shape[0]
-    B, Ta, D = enc_out.shape
-    dev = enc_out.device
-    kc = torch.empty((L, B, n_head, D // n_head, Ta), dtype=compute_dtype,
-                     device=dev)
-    vc = torch.empty_like(kc)
+    stacks = None
     for l in range(L):
-        k = _linear(enc_out, blocks["xk_w"][l], None, compute_dtype)
-        v = _linear(enc_out, blocks["xv_w"][l], blocks["xv_b"][l],
-                    compute_dtype)
-        # (B, Ta, H, Dh) -> (B, H, Dh, Ta)
-        kc[l] = _split_heads(k, n_head).permute(0, 2, 3, 1)
-        vc[l] = _split_heads(v, n_head).permute(0, 2, 3, 1)
+        outs = per_layer(*proj(_layer(blocks, l)))
+        if stacks is None:
+            stacks = [torch.empty((L,) + tuple(o.shape), dtype=o.dtype,
+                                  device=o.device) for o in outs]
+        for st, o in zip(stacks, outs):
+            st[l] = o
+    return stacks
+
+
+def cross_kv(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
+             enc_layout: str = "btd"):
+    """enc_out -> (k_cross, v_cross): (L, B, H, Dh, Ta) each, in the compute
+    dtype (the dense cross-KV that cross modes "einsum", "pallas" and
+    "pallas_q8" read, and that `full` quantizes per window for the
+    quantized modes)."""
+    proj = _make_cross_proj(enc_out, n_head, compute_dtype, enc_layout)
+    kc, vc = _stack_layers(params, proj, lambda k, v: (k, v))
     return kc, vc
 
 
-def cross_kv_q8(params, enc_out, n_head: int, compute_dtype=torch.bfloat16):
-    """enc_out (B, Ta, D) -> ((L, B, H, Dh, Ta) int8 codes,
-    (L, B, H, Ta) f32 scales) for K and for V.
+def cross_kv_q8(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
+                enc_layout: str = "btd"):
+    """enc_out -> ((L, B, H, Dh, Ta) int8 codes, (L, B, H, Ta) f32 scales)
+    for K and for V.  Each layer is projected and quantized before the
+    next, so the bf16 (L, B, H, Dh, Ta) stack never exists in device
+    memory."""
+    proj = _make_cross_proj(enc_out, n_head, compute_dtype, enc_layout)
+    kq, ks, vq, vs = _stack_layers(
+        params, proj, lambda k, v: (*quantize_kv_bhdt(k),
+                                    *quantize_kv_bhdt(v)))
+    return (kq, ks), (vq, vs)
 
-    Each layer is projected and quantized before the next, so the bf16
-    (L, B, H, Dh, Ta) stack never exists in device memory.
-    """
-    blocks = params["decoder"]["blocks"]
-    L = blocks["xk_w"].shape[0]
-    B, Ta, _ = enc_out.shape
-    kq = ks = vq = vs = None
-    for l in range(L):
-        k = _linear(enc_out, blocks["xk_w"][l], None, compute_dtype)
-        v = _linear(enc_out, blocks["xv_w"][l], blocks["xv_b"][l],
-                    compute_dtype)
-        # (B, Ta, H, Dh) -> (B, H, Dh, Ta)
-        k = _split_heads(k, n_head).permute(0, 2, 3, 1).to(compute_dtype)
-        v = _split_heads(v, n_head).permute(0, 2, 3, 1).to(compute_dtype)
-        kq_l, ks_l = quantize_kv_bhdt(k)
-        vq_l, vs_l = quantize_kv_bhdt(v)
-        if kq is None:
-            dev = enc_out.device
-            kq = torch.empty((L,) + kq_l.shape, dtype=torch.int8, device=dev)
-            vq = torch.empty_like(kq)
-            ks = torch.empty((L,) + ks_l.shape, dtype=torch.float32,
-                             device=dev)
-            vs = torch.empty_like(ks)
-        kq[l], ks[l], vq[l], vs[l] = kq_l, ks_l, vq_l, vs_l
+
+def cross_kv_q4(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
+                enc_layout: str = "btd"):
+    """enc_out -> ((L, B, H, Dh/2, Ta) uint8 nibble-packed codes,
+    (L, B, H, Ta) f32 scales) for K and for V, quantized per layer as in
+    cross_kv_q8.  4-bit K/V is not token-exact against bf16 in general."""
+    proj = _make_cross_proj(enc_out, n_head, compute_dtype, enc_layout)
+    kq, ks, vq, vs = _stack_layers(
+        params, proj, lambda k, v: (*quantize_kv_bhdt_q4(k),
+                                    *quantize_kv_bhdt_q4(v)))
     return (kq, ks), (vq, vs)
 
 
@@ -250,10 +444,15 @@ def _cross_attention(xq, kc, vc, compute_dtype, mask=None):
 # decoder
 # ---------------------------------------------------------------------------
 
-def _dequant_q8(codes, scales, compute_dtype):
-    """(B, H, Dh, Ta) int8 x (B, H, Ta) scales -> compute dtype; the scale
-    is cast to the compute dtype before the multiply, as in whisper_tpu."""
-    return codes.to(compute_dtype) * scales[:, :, None, :].to(compute_dtype)
+def _dequant(tag, codes, scales, compute_dtype):
+    """Tagged quantized cross-KV of one layer -> (B, H, Dh, Ta) in the
+    compute dtype: int8 codes ("q8"), or nibble-packed ones ("q4", "q4e")
+    unpacked first; the (B, H, Ta) scale is cast to the compute dtype
+    before the multiply, as in whisper_tpu."""
+    if tag in ("q4", "q4e"):
+        codes = unpack_q4_bhdt(codes, compute_dtype)
+    return (codes.to(compute_dtype)
+            * scales[:, :, None, :].to(compute_dtype))
 
 
 def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
@@ -262,15 +461,16 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
 
     tokens: (B, T) int; positions: (T,) or (B, T) int
     k_cross/v_cross: dense (L, B, H, Dh, Ta) (cross_kv layout), or tagged
-        ("q8", codes (L,B,H,Dh,Ta), scales (L,B,H,Ta)) from cross_kv_q8
+        ("q8", codes (L,B,H,Dh,Ta), scales (L,B,H,Ta)) from cross_kv_q8, or
+        ("q4" / "q4e", packed (L,B,H,Dh/2,Ta), scales) from cross_kv_q4,
+        dequantized one layer at a time
     self_mask: additive mask broadcastable to (B, 1, T, T) (float32), or None
     Returns (logits (B, T, n_vocab), k_self (L, B, T, H, Dh), v_self).
     """
     tagged = isinstance(k_cross, tuple)
-    if tagged and k_cross[0] != "q8":
-        raise NotImplementedError(
-            f"decode_prompt: cross-KV tag {k_cross[0]!r} is not ported "
-            "(dense or 'q8')")
+    if tagged and k_cross[0] not in ("q8", "q4", "q4e"):
+        raise ValueError(f"decode_prompt: unknown cross-KV tag "
+                         f"{k_cross[0]!r}")
     dec = params["decoder"]
     blocks = dec["blocks"]
     nh = n_head
@@ -281,8 +481,8 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
     for l in range(blocks["attn_ln_w"].shape[0]):
         blk = _layer(blocks, l)
         if tagged:
-            kc = _dequant_q8(k_cross[1][l], k_cross[2][l], cd)
-            vc = _dequant_q8(v_cross[1][l], v_cross[2][l], cd)
+            kc = _dequant(k_cross[0], k_cross[1][l], k_cross[2][l], cd)
+            vc = _dequant(v_cross[0], v_cross[1][l], v_cross[2][l], cd)
         else:
             kc, vc = k_cross[l], v_cross[l]
 
@@ -309,27 +509,109 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
     return logits, torch.stack(ks_out), torch.stack(vs_out)
 
 
+def _q8e_attention(xq, kq, ks, vq, vs, compute_dtype):
+    """The "q8e" einsum of whisper_tpu in the compute dtype: int8 K/V with
+    the per-position scales folded into the logits and the weights."""
+    cd = compute_dtype
+    dh = xq.shape[-1]
+    qk = torch.matmul(xq.to(cd).transpose(1, 2), kq.to(cd)).float()
+    qk = qk * ks[:, :, None, :] * (dh ** -0.5)
+    w = torch.softmax(qk, dim=-1)
+    wv = w * vs[:, :, None, :]
+    out = torch.matmul(wv.to(cd), vq.to(cd).transpose(-1, -2)).float()
+    return _merge_heads(out.transpose(1, 2))
+
+
+def _q8i_attention(xq, kq, ks, vq, vs):
+    """The "q8i" step: int8 x int8 dots with q quantized per (b, head) and
+    the softmax weights (times the V scale) quantized per (b, head) on the
+    fly, as whisper_tpu's einsums with int32 results.
+
+    torch has no general int8/int32 matmul on the card, so the dots run in
+    f32 on integer values, where they are exact: q.k sums 64 products of at
+    most 127^2, ~1.03e6 < 2^24.  w.v over Ta = 1500 keys can reach
+    1500 * 127^2 ~ 2.4e7 > 2^24, so the weights are split into high and
+    low nibbles (w = 16 hi + lo, hi <= 7, lo <= 15): each partial sum stays
+    under 2^24 for Ta < 8808, and the two are combined in f64 before the
+    one rounding to f32 that the int32 -> f32 conversion makes."""
+    dh = xq.shape[-1]
+    amax = torch.amax(torch.abs(xq), dim=-1, keepdim=True)
+    # x * f32(1/127): XLA's form of the reference's division (see
+    # ops/cross_attention._quantize)
+    qs = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)         # (B, Tq, H, 1)
+    qi = torch.clamp(torch.round(xq / qs), -127, 127)
+    qk = torch.matmul(qi.transpose(1, 2), kq.float())        # (B, H, Tq, Ta)
+    qk = qk * qs.transpose(1, 2) * ks[:, :, None, :] * (dh ** -0.5)
+    w = torch.softmax(qk, dim=-1)
+    wv = w * vs[:, :, None, :]
+    wsc = (torch.clamp_min(torch.amax(wv, dim=-1, keepdim=True), 1e-20)
+           * (1.0 / 127.0))
+    wi = torch.clamp(torch.round(wv / wsc), 0, 127)
+    hi = torch.floor(wi / 16.0)
+    vt = vq.float().transpose(-1, -2)                        # (B, H, Ta, Dh)
+    out = (torch.matmul(hi, vt).double() * 16.0
+           + torch.matmul(wi - 16.0 * hi, vt).double()).float()
+    return _merge_heads((out * wsc).transpose(1, 2))
+
+
+def _q4e_attention(xq, kq, ks, vq, vs, compute_dtype):
+    """The "q4e" step on nibble-packed K/V: the low and high nibble halves
+    contract separately against the even and odd channels, as in
+    whisper_tpu (plain torch; whisper_tpu leaves it to XLA)."""
+    cd = compute_dtype
+    dh = xq.shape[-1]
+
+    def nibbles(p):
+        return (((p & 0xF).to(torch.int8) - 8).to(cd),
+                ((p >> 4).to(torch.int8) - 8).to(cd))
+
+    xe = xq[..., 0::2].to(cd).transpose(1, 2)                # (B, H, Tq, Dh/2)
+    xo = xq[..., 1::2].to(cd).transpose(1, 2)
+    klo, khi = nibbles(kq)
+    qk = (torch.matmul(xe, klo).float() + torch.matmul(xo, khi).float())
+    qk = qk * ks[:, :, None, :] * (dh ** -0.5)
+    w = torch.softmax(qk, dim=-1)
+    wv = (w * vs[:, :, None, :]).to(cd)
+    vlo, vhi = nibbles(vq)
+    oe = torch.matmul(wv, vlo.transpose(-1, -2)).float()    # (B, H, Tq, Dh/2)
+    oo = torch.matmul(wv, vhi.transpose(-1, -2)).float()
+    out = torch.stack([oe, oo], dim=-1).reshape(oe.shape[:-1] + (dh,))
+    return _merge_heads(out.transpose(1, 2))
+
+
 def _cross_attn_step(xq, kc, vc, compute_dtype):
     """Cross attention for one decode step; kc/vc select the path:
 
-      * array (B, H, Dh, Ta)                        — the einsum (plain)
-      * ("q8e", int8 (B, H, Dh, Ta), scales (B, H, Ta)) — K2
-      * ("bhtd", k (B, H, Ta, Dh))                  — K4
-      * {"q": int8 (B, H, Ta, Dh), "s": (B, H, Ta, 1)} — K5
-    Kernels run on CUDA tensors, their plain versions on the CPU.
-    xq (B, 1, H, Dh) -> (B, 1, D)."""
+      * array (B, H, Dh, Ta)                               — the einsum
+      * ("q8e" | "q8dt", int8 (B, H, Dh, Ta), scales (B, H, Ta)) — K2;
+        "q8e" in another compute dtype than bf16 is the einsum in that
+        dtype (K2 rounds the weights to bf16, as the q8e einsum does only
+        in bf16)
+      * ("q8i", int8 (B, H, Dh, Ta), scales (B, H, Ta))    — int8 dots
+      * ("q4e", uint8 (B, H, Dh/2, Ta), scales (B, H, Ta)) — nibble dots
+      * ("bhtd", k (B, H, Ta, Dh))                         — K4
+      * {"q": int8 (B, H, Ta, Dh), "s": (B, H, Ta, 1)}     — K5
+    Kernels run on CUDA tensors, their plain versions on the CPU; the
+    einsum, "q8i" and "q4e" are plain torch on both, as whisper_tpu leaves
+    them to XLA.  xq (B, 1, H, Dh) -> (B, 1, D)."""
     if isinstance(kc, torch.Tensor):
         return _cross_attention(xq, kc, vc, compute_dtype)
+    if (isinstance(kc, tuple) and kc[0] == "q8e"
+            and compute_dtype != torch.bfloat16):
+        return _q8e_attention(xq, kc[1], kc[2], vc[1], vc[2], compute_dtype)
+    if isinstance(kc, tuple) and kc[0] == "q8i":
+        return _q8i_attention(xq, kc[1], kc[2], vc[1], vc[2])
+    if isinstance(kc, tuple) and kc[0] == "q4e":
+        return _q4e_attention(xq, kc[1], kc[2], vc[1], vc[2], compute_dtype)
     q = xq.transpose(1, 2).to(compute_dtype).contiguous()   # (B, H, 1, Dh)
     if isinstance(kc, dict):
         out = cross_attention_decode_q8(q, kc["q"], kc["s"], vc["q"], vc["s"])
-    elif kc[0] == "q8e":
+    elif kc[0] in ("q8e", "q8dt"):
         out = cross_attention_decode_q8dt(q, kc[1], kc[2], vc[1], vc[2])
     elif kc[0] == "bhtd":
         out = cross_attention_decode(q, kc[1], vc[1])
     else:
-        raise NotImplementedError(
-            f"decode_step: cross-KV tag {kc[0]!r} is not ported")
+        raise ValueError(f"decode_step: unknown cross-KV tag {kc[0]!r}")
     return _merge_heads(out.transpose(1, 2))
 
 

@@ -38,6 +38,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     # q, k, v, out, B, T, H, Dh, stream
     "wtt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, out, B, H, Dh, Tp, t_valid, stream
+    "wtt_encoder_attention_bhdt": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, B, Tp, H, Dh, t_valid, stream
+    "wtt_encoder_attention_btd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # rows0, ld0, rows1, ld1, rows2, ld2, hann, cos, sin, filters_t, out,
+    # n_frames, n_mel, stream
+    "wtt_log_mel": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     # q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, stream
     "wtt_cross_attention_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, codes, scales, mins (or 0), work, out, M, N, K, splits,

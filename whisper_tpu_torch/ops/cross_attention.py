@@ -2,11 +2,11 @@
 quantizer of their K/V.
 
 K2 (csrc/cross_attention_q8.cu) replaces whisper_tpu/ops/cross_attention.py
-`cross_attention_decode_q8dt` / `_xattn_kernel_q8dt`, which computes the
-same function as the serving path's "q8e" einsum
-(whisper_tpu/models/whisper.py `_cross_attn_step`): per (batch, head),
+`cross_attention_decode_q8dt` / `_xattn_kernel_q8dt`: per (batch, head),
 logits = (q . k_q) * k_s * Dh^-1/2, an f32 softmax, weights w * v_s
-rounded to the query dtype, and their sum against v_q.
+rounded to bf16, and their sum against v_q.  With a bf16 query this is
+the function of the serving path's "q8e" einsum
+(whisper_tpu/models/whisper.py `_cross_attn_step`) too.
 
 What bounds it on the H100: each decode step reads the whole int8
 cross-KV of every layer, 2 * H * Dh * Ta bytes per (batch row, layer),
@@ -36,47 +36,81 @@ import torch
 DH = 64   # every Whisper model; K4 and K5 are written for it
 
 
-def quantize_kv(k: torch.Tensor, axis: int = -1):
-    """Per-position int8 quantization over the channel axis `axis`:
-    -> (int8 codes, same layout; f32 scales with `axis` kept as 1).
-    axis=-1 is whisper_tpu.ops.cross_attention.quantize_kv on
-    (..., Ta, Dh) K/V.  Arithmetic stays in the input dtype; torch.round
-    rounds half to even, like jnp.round."""
+def _quantize(k: torch.Tensor, axis: int, lo: int, hi: int):
+    """The one per-position K/V quantizer: codes round(k / scale) clipped to
+    [lo, hi], still in k's dtype, and f32 scales max(amax, 1e-8) / hi with
+    `axis` kept as 1, amax taken over the channel axis `axis`.  Arithmetic
+    stays in the input dtype; torch.round rounds half to even, like
+    jnp.round.
+
+    The scale is x * f32(1/hi), not x / hi: XLA rewrites the reference's
+    division by a constant into this product, and the scales must match bit
+    for bit (a true divide matches XLA's scales 96% of the time at hi = 127,
+    46% at hi = 7)."""
     amax = torch.amax(torch.abs(k), dim=axis, keepdim=True).float()
-    # x * f32(1/127), not x / 127: XLA rewrites the reference's division
-    # by a constant into this product, and the scales must match bit for bit
-    scale = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)
+    scale = torch.clamp_min(amax, 1e-8) * (1.0 / hi)
     inv = (1.0 / scale).to(k.dtype)
-    q = torch.clamp(torch.round(k * inv), -127, 127).to(torch.int8)
-    return q, scale
+    return torch.clamp(torch.round(k * inv), lo, hi), scale
+
+
+def quantize_kv(k: torch.Tensor):
+    """(..., Ta, Dh) -> (int8 codes, same layout; (..., Ta, 1) f32
+    per-position scales), as whisper_tpu's quantize_kv."""
+    q, scale = _quantize(k, -1, -127, 127)
+    return q.to(torch.int8), scale
 
 
 def quantize_kv_bhdt(k: torch.Tensor):
     """(..., H, Dh, Ta) -> (int8 codes, same layout; (..., H, Ta) f32
     per-(head, position) scales), as whisper_tpu's quantize_kv_bhdt."""
-    q, scale = quantize_kv(k, axis=-2)
-    return q, scale[..., 0, :]
+    q, scale = _quantize(k, -2, -127, 127)
+    return q.to(torch.int8), scale[..., 0, :]
+
+
+def quantize_kv_bhdt_q4(k: torch.Tensor):
+    """(..., H, Dh, Ta) -> (uint8 (..., H, Dh/2, Ta) nibble-packed codes;
+    (..., H, Ta) f32 scales), as whisper_tpu's quantize_kv_bhdt_q4: codes
+    in [-8, 7] stored offset-binary (+8), even channels in the low nibble,
+    odd ones in the high."""
+    q, scale = _quantize(k, -2, -8, 7)
+    q = (q.to(torch.int8) + 8).to(torch.uint8)
+    return q[..., 0::2, :] | (q[..., 1::2, :] << 4), scale[..., 0, :]
+
+
+def unpack_q4_bhdt(packed: torch.Tensor, dtype=torch.bfloat16):
+    """Inverse of quantize_kv_bhdt_q4's packing, codes only (unscaled):
+    (..., H, Dh/2, Ta) uint8 -> (..., H, Dh, Ta) in `dtype`, in [-8, 7]."""
+    lo = ((packed & 0xF).to(torch.int8) - 8).to(dtype)
+    hi = ((packed >> 4).to(torch.int8) - 8).to(dtype)
+    stacked = torch.stack([lo, hi], dim=-2)         # (..., Dh/2, 2, Ta)
+    return stacked.reshape(packed.shape[:-2] + (2 * packed.shape[-2],
+                                                packed.shape[-1]))
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16, computed on as f32."""
+    return t.to(torch.bfloat16).float()
 
 
 def cross_attention_decode_q8dt_ref(q, k_q, k_s, v_q, v_s):
-    """Plain PyTorch version (the q8e einsum), computed in q's dtype:
-    q (B, H, 1, Dh); k_q/v_q (B, H, Dh, Ta) int8; k_s/v_s (B, H, Ta) f32
-    -> (B, H, 1, Dh) f32."""
-    cd = q.dtype
+    """Plain PyTorch version of K2, in f32 with the TPU kernel's one bf16
+    rounding: q (B, H, 1, Dh) as given (bf16 for K2); k_q/v_q (B, H, Dh,
+    Ta) int8; k_s/v_s (B, H, Ta) f32 -> (B, H, 1, Dh) f32.  The softmax
+    weights times the V scale are rounded to bf16, whatever q's dtype."""
     dh = q.shape[-1]
-    qk = torch.matmul(q, k_q.to(cd)).float()               # (B, H, 1, Ta)
+    qk = torch.matmul(q.float(), k_q.float())              # (B, H, 1, Ta)
     qk = qk * k_s[:, :, None, :] * (dh ** -0.5)
     w = torch.softmax(qk, dim=-1)
-    wv = w * v_s[:, :, None, :]
-    return torch.matmul(wv.to(cd), v_q.to(cd).transpose(-1, -2)).float()
+    wv = _bf16(w * v_s[:, :, None, :])
+    return torch.matmul(wv, v_q.float().transpose(-1, -2))
 
 
 def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
     """q (B, H, 1, Dh) bf16; k_q/v_q (B, H, Dh, Ta) int8; k_s/v_s
     (B, H, Ta) f32 -> (B, H, 1, Dh) f32.
 
-    CPU tensors take the plain version (in q's dtype); CUDA tensors go
-    through K2, which takes a bfloat16 query only.
+    CPU tensors take the plain version; CUDA tensors go through K2, which
+    takes a bfloat16 query only.
     """
     if q.device.type == "cpu":
         return cross_attention_decode_q8dt_ref(q, k_q, k_s, v_q, v_s)
@@ -115,11 +149,6 @@ def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
 
 
 cross_attention_decode_q8dt.launches = 0
-
-
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    """Round to bf16, computed on as f32."""
-    return t.to(torch.bfloat16).float()
 
 
 def cross_attention_decode_ref(q, k_t, v_t):

@@ -11,10 +11,11 @@ is int16) is uploaded once; per iteration only row indices and sample
 offsets choose the windows, which are cut, converted to f32 and turned
 into log-mel on the device.
 
-The port decodes greedily at temperature 0 with the int8 cross-KV
-("einsum_q8"), over dense or block-quantized (K3) decoder weights.
-Everything else the JAX class offers is refused with an error rather than
-run on another path.
+The port decodes greedily at temperature 0 in every cross mode of
+whisper_tpu (decode/loop.CROSS_MODES), over dense or block-quantized (K3)
+decoder weights; the batched encode produces the cross-KV each mode reads
+(`_cross_fn_for`).  Everything else the JAX class offers is refused with
+an error rather than run on another path.
 """
 
 from __future__ import annotations
@@ -36,12 +37,20 @@ from ..languages import lang_id as _lang_id
 from ..models import whisper as wm
 
 
+def _cross_fn_for(cross_mode: str):
+    """Which cross-KV producer the batched encode uses for a cross_mode:
+    the quantization is fused into the layer loop for the quantized modes,
+    so their bf16 (L, B, H, Dh, Ta) stack never exists."""
+    if cross_mode == "einsum_q4":
+        return wm.cross_kv_q4
+    if cross_mode in ("einsum_q8", "pallas_q8dt", "einsum_q8i"):
+        return wm.cross_kv_q8
+    return wm.cross_kv
+
+
 def _check_supported(ctx: WhisperContext, p: FullParams, mesh) -> None:
     """Refuse what the port has not ported yet, with the reason."""
     refused = []
-    if ctx.cross_mode != "einsum_q8":
-        refused.append(f"cross_mode {ctx.cross_mode!r} (the batched path "
-                       "runs einsum_q8)")
     if mesh is not None:
         refused.append("a device mesh")
     if p.strategy == SamplingStrategy.BEAM_SEARCH:
@@ -135,7 +144,8 @@ class BatchTranscriber:
     # -- batched encode ----------------------------------------------------
 
     def _encode_batch(self, pcm_windows: torch.Tensor):
-        """(B, S) padded PCM windows on the device -> int8 cross-KV."""
+        """(B, S) padded PCM windows on the device -> the cross-KV of the
+        context's cross mode."""
         ctx = self.ctx
         n_ctx = ctx.config.n_audio_ctx
         with torch.no_grad():
@@ -146,9 +156,9 @@ class BatchTranscriber:
             mel = mel[:, :2 * n_ctx]
             enc = wm.encode(ctx.params, mel, n_head=ctx.config.n_audio_head,
                             compute_dtype=ctx.compute_dtype)
-            return wm.cross_kv_q8(ctx.params, enc,
-                                  n_head=ctx.config.n_text_head,
-                                  compute_dtype=ctx.compute_dtype)
+            return _cross_fn_for(ctx.cross_mode)(
+                ctx.params, enc, n_head=ctx.config.n_text_head,
+                compute_dtype=ctx.compute_dtype)
 
     def _build_prompts(self, states, batch):
         """Carried-past prompts for the streams in batch (reference prompt

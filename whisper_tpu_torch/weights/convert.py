@@ -17,6 +17,7 @@ import torch
 
 from ..models.whisper import WhisperConfig
 from ..ops.quantized import unpack_to_codes
+from ..utils.device import resolve_device
 from . import quant
 from .ggml_reader import GgmlModelFile
 
@@ -134,7 +135,7 @@ def _keeps_packed(name: str, rt) -> bool:
 
 def params_from_ggml(mf: GgmlModelFile, dtype: torch.dtype = torch.bfloat16,
                      keep_quantized: bool = True,
-                     device: str | torch.device = "cpu"):
+                     device: str | torch.device = "cuda"):
     """-> (params dict on `device`, WhisperConfig), leaf for leaf what
     whisper_tpu.weights.convert.params_from_ggml gives.
 
@@ -148,6 +149,7 @@ def params_from_ggml(mf: GgmlModelFile, dtype: torch.dtype = torch.bfloat16,
     never holds a dense copy of a whole stack.  A file with no tensors (the
     reference's stub-model test path) gives zero parameters.
     """
+    device = resolve_device(device)
     cfg = WhisperConfig.from_hparams(mf.hparams)
     if len(mf.tensors) == 0:
         return zero_params(cfg, dtype=dtype, device=device), cfg
@@ -212,9 +214,11 @@ def params_from_ggml(mf: GgmlModelFile, dtype: torch.dtype = torch.bfloat16,
 
 
 def zero_params(cfg: WhisperConfig, dtype: torch.dtype = torch.bfloat16,
-                device: str | torch.device = "cpu") -> dict:
+                device: str | torch.device = "cuda") -> dict:
     """Zero-weight parameters with the right shapes (the stub-model path;
     whisper_tpu.weights.convert.zero_params)."""
+    device = resolve_device(device)
+
     def build(tree):
         return {key: build(val) if isinstance(val, dict)
                 else torch.zeros(val, dtype=_leaf_dtype(key, dtype),
@@ -226,7 +230,7 @@ def zero_params(cfg: WhisperConfig, dtype: torch.dtype = torch.bfloat16,
 
 def random_params(cfg: WhisperConfig, seed: int = 0,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: str | torch.device = "cpu",
+                  device: str | torch.device = "cuda",
                   scale: float = 0.02) -> dict:
     """Random-weight parameters drawn on `device` from a torch.Generator.
 
@@ -235,8 +239,9 @@ def random_params(cfg: WhisperConfig, seed: int = 0,
     scales are one); the numbers differ, since the generators differ.
     device="meta" gives the shapes and dtypes without allocating.
     """
+    device = resolve_device(device)
     gen = None
-    if torch.device(device).type != "meta":
+    if device.type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
 
@@ -268,7 +273,7 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def from_jax(params_np: dict, device: str | torch.device = "cpu",
+def from_jax(params_np: dict, device: str | torch.device = "cuda",
              dtype: torch.dtype | None = None) -> dict:
     """Build the port's params from whisper_tpu's pytree given as numpy
     arrays (``jax.tree_util.tree_map(np.asarray, params)``).
@@ -278,6 +283,7 @@ def from_jax(params_np: dict, device: str | torch.device = "cpu",
     block-quantized weight ({"q", "s"[, "m"]}) is carried bit for bit
     whatever `dtype` says.
     """
+    device = resolve_device(device)
     out = {}
     for key, val in params_np.items():
         if isinstance(val, dict):
