@@ -142,6 +142,37 @@ def test_k6_btd_matches_pallas(dtype, tol, n_head):
     assert _rel_err(got.numpy(), ref) <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-5)])
+@pytest.mark.parametrize("t_valid", [1, 63, 64, 65, 255, 256])
+@pytest.mark.parametrize("entry", ["bhdt", "btd"])
+def test_padded_plain_versions_mask_pad_keys(entry, t_valid, dtype, tol):
+    """The plain versions that the card holds K1's (B, H, Dh, Tp) entry and
+    K6 against, against the Pallas kernels in interpret mode at Tp = 256:
+    one valid key, t_valid around a 64-key edge, one key short and none
+    padded.  The pad keys and values are 1e4, so only a mask by index (not
+    by the data) keeps them out."""
+    shape = (1, 2, 64, 256) if entry == "bhdt" else (1, 256, 128)
+    q, k, v = _qkv(shape, 7)
+    for x in (k, v):
+        if entry == "bhdt":
+            x[..., t_valid:] = 1e4
+        else:
+            x[:, t_valid:] = 1e4
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(x).astype(jd) for x in (q, k, v))
+    tq, tk, tv = (_t(x).to(td) for x in (q, k, v))
+    if entry == "bhdt":
+        ref = jea.encoder_attention(jq, jk, jv, t_valid=t_valid,
+                                    interpret=True)
+        got = tea.encoder_attention_ref(tq, tk, tv, t_valid)
+    else:
+        ref = jea.encoder_attention_btd(jq, jk, jv, n_head=2,
+                                        t_valid=t_valid, interpret=True)
+        got = tea.encoder_attention_btd_ref(tq, tk, tv, 2, t_valid)
+    assert got.dtype == torch.float32 and np.isfinite(got.numpy()).all()
+    assert _rel_err(got.numpy(), ref) <= tol
+
+
 def test_wrappers_route_and_refuse():
     """CPU tensors run the plain versions and launch nothing; another device
     or a t_valid outside [1, Tp] is refused."""

@@ -1,4 +1,5 @@
-"""Kernels K1-K7 on the card against their plain PyTorch versions, the
+"""Kernels K1-K7 on the card against their plain PyTorch versions (K1 and
+K6 also at ragged lengths, pad keys of 1e4, batch 4, and for determinism), the
 serving slice through K1 and K2 (and in 4-bit cross-KV), from_file + full
 over block-quantized files through K1, K3 and K2, K4 or K5 in every cross
 mode, and the encoder's attention variants through K1 and K6.  Every test
@@ -289,6 +290,93 @@ def test_k1_bhdt_entry_matches_plain_on_card(gen, B, H, Tp, t_valid):
     assert ea.encoder_attention.launches == n + 1
     assert got.shape == q.shape and got.dtype == torch.float32
     assert _rel_err(got, ea.encoder_attention_ref(q, k, v, t_valid)) <= TOL
+
+
+def _padded_entry(gen, entry, B, H, Tp, t_valid, pad=1e4):
+    """q/k/v of K6 ("btd", (B, Tp, H*64)) or K1's Dh-major entry ("bhdt",
+    (B, H, 64, Tp)) with the keys and values at or past t_valid set to
+    `pad`: a kernel that masked by data, not by index, would let them in.
+    -> (kernel output, plain output)."""
+    if entry == "btd":
+        q, k, v = (_bf16_randn(gen, B, Tp, H * 64) for _ in range(3))
+        for x in (k, v):
+            x[:, t_valid:] = pad
+        return (ea.encoder_attention_btd(q, k, v, n_head=H, t_valid=t_valid),
+                ea.encoder_attention_btd_ref(q, k, v, H, t_valid))
+    q, k, v = (_bf16_randn(gen, B, H, 64, Tp) for _ in range(3))
+    for x in (k, v):
+        x[..., t_valid:] = pad
+    return (ea.encoder_attention(q, k, v, t_valid=t_valid),
+            ea.encoder_attention_ref(q, k, v, t_valid))
+
+
+@pytest.mark.parametrize("t_valid", [1, 127, 128, 129, 1500])
+@pytest.mark.parametrize("entry", ["btd", "bhdt"])
+def test_padded_entries_mask_keys_by_index(gen, entry, t_valid):
+    """K6 and K1's Dh-major entry at Tp = 1536: t_valid inside, at and just
+    past a 128-key tile's edge, one key, the encoder's 1500; pad keys 1e4."""
+    got, ref = _padded_entry(gen, entry, 1, 3, 1536, t_valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("T", [1, 17, 129, 1500])
+def test_k1_rows_entry_ragged_T(gen, T):
+    """K1's (B, T, H, Dh) entry: TMA zero-fills the rows past T of the last
+    tile and the kernel masks them; only rows < T are written."""
+    q, k, v = (_bf16_randn(gen, 1, T, 3, 64) for _ in range(3))
+    got = ea.self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (1, T, 192) and torch.isfinite(got).all()
+    assert _rel_err(got, ea.self_attention_ref(q, k, v)) <= TOL
+
+
+@pytest.mark.parametrize("entry", ["rows", "btd", "bhdt"])
+def test_attention_entries_at_batch_4(gen, entry):
+    """B = 4 in every entry: each batch's rows come from its own tensor-map
+    coordinate."""
+    if entry == "rows":
+        q, k, v = (_bf16_randn(gen, 4, 1500, 3, 64) for _ in range(3))
+        got, ref = ea.self_attention(q, k, v), ea.self_attention_ref(q, k, v)
+    else:
+        got, ref = _padded_entry(gen, entry, 4, 3, 1536, 1500)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= TOL
+    # each batch on its own, too: a batch offset error would mix them
+    for i in range(4):
+        assert _rel_err(got[i], ref[i]) <= TOL
+
+
+@pytest.mark.parametrize("entry", ["rows", "btd", "bhdt"])
+def test_attention_kernel_is_deterministic(gen, entry):
+    """Two launches on the same inputs give the same bits."""
+    if entry == "rows":
+        q, k, v = (_bf16_randn(gen, 2, 1500, 4, 64) for _ in range(3))
+        outs = [ea.self_attention(q, k, v) for _ in range(2)]
+    elif entry == "btd":
+        q, k, v = (_bf16_randn(gen, 2, 1536, 256) for _ in range(3))
+        outs = [ea.encoder_attention_btd(q, k, v, n_head=4, t_valid=1500)
+                for _ in range(2)]
+    else:
+        q, k, v = (_bf16_randn(gen, 2, 4, 64, 1536) for _ in range(3))
+        outs = [ea.encoder_attention(q, k, v, t_valid=1500) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_linear_bias_add_rounds_once_on_card(gen, out_dtype):
+    """The encoder's projections: the bf16 product widened, plus the f32
+    bias, rounded once to out_dtype in the add, bit for bit what a
+    separate widening, add and cast give."""
+    x = torch.randn(300, 256, generator=gen, device="cuda")
+    w = _bf16_randn(gen, 384, 256)
+    b = torch.randn(384, generator=gen, device="cuda")
+    got = wm._linear(x, w, b, torch.bfloat16, out_dtype)
+    y = torch.nn.functional.linear(x.to(torch.bfloat16), w)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, (y.float() + b).to(out_dtype))
 
 
 @pytest.mark.parametrize("n_mels", [80, 128])

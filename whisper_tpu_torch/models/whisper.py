@@ -83,10 +83,13 @@ class WhisperConfig:
         return self.n_text_state // self.n_text_head
 
 
-def _layer(blocks: dict, l: int) -> dict:
-    """Layer l of a stacked block dict (quantized weights are dicts)."""
-    return {key: _layer(w, l) if isinstance(w, dict) else w[l]
-            for key, w in blocks.items()}
+def _layers(blocks: dict) -> list[dict]:
+    """Each layer's views of a stacked block dict (quantized weights are
+    dicts), every stacked tensor unbound once."""
+    views = {key: _layers(w) if isinstance(w, dict) else w.unbind(0)
+             for key, w in blocks.items()}
+    n_layer = len(next(iter(views.values())))
+    return [{key: v[l] for key, v in views.items()} for l in range(n_layer)]
 
 
 def _layernorm(x, w, b, eps: float = 1e-5):
@@ -94,7 +97,12 @@ def _layernorm(x, w, b, eps: float = 1e-5):
     return F.layer_norm(x, (x.shape[-1],), w.float(), b.float(), eps)
 
 
-def _linear(x, w, b=None, compute_dtype=torch.bfloat16):
+def _linear(x, w, b=None, compute_dtype=torch.bfloat16,
+            out_dtype=torch.float32):
+    """x @ w.T (+ b) -> out_dtype: the product in the compute dtype, plus
+    the bias in float32, rounded once to out_dtype.  out_dtype = the
+    compute dtype gives what a following `.float().to(compute_dtype)`
+    would, in one kernel (the bias add casts on its way out)."""
     if isinstance(w, dict):
         # block-quantized weight {"q": (K, N) int8, "s": (K/32, N)[, "m"]}
         # -> K3, which rounds x to bf16 whatever the compute dtype and
@@ -104,10 +112,12 @@ def _linear(x, w, b=None, compute_dtype=torch.bfloat16):
                              w["q"], w["s"], w.get("m"))
         y = y.reshape(shape[:-1] + (w["q"].shape[-1],))
     else:
-        y = F.linear(x.to(compute_dtype), w.to(compute_dtype)).float()
-    if b is not None:
-        y = y + b
-    return y
+        y = F.linear(x.to(compute_dtype), w.to(compute_dtype))
+    if b is None:
+        return y.to(out_dtype)
+    # float32 sum of the (exact) widened product and bias, then one rounding
+    return torch.add(y, b.float(), out=torch.empty(
+        y.shape, dtype=out_dtype, device=y.device))
 
 
 def _gelu(x):
@@ -167,12 +177,13 @@ def _flash_self_attention(q, k, v, compute_dtype):
 
 
 def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum"):
-    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
-    q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], compute_dtype),
-                     n_head)
-    k = _split_heads(_linear(ln, blk["k_w"], None, compute_dtype), n_head)
-    v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], compute_dtype),
-                     n_head)
+    cd = compute_dtype
+    # rounded to the compute dtype once for the three projections, whose
+    # results come out in it: every attention impl casts q/k/v to it first
+    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"]).to(cd)
+    q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd, cd), n_head)
+    k = _split_heads(_linear(ln, blk["k_w"], None, cd, cd), n_head)
+    v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], cd, cd), n_head)
     if attn_impl == "pallas":
         attn = self_attention(q, k, v, compute_dtype)
     elif attn_impl == "pallas_interpret":
@@ -260,10 +271,10 @@ def _encoder_block_btd(x, blk, n_head, compute_dtype, t_valid: int,
     attn_fn = encoder_attention_btd_ref if interpret else \
         encoder_attention_btd
     cd = compute_dtype
-    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
-    q = _linear(ln, blk["q_w"], blk["q_b"], cd).to(cd)
-    k = _linear(ln, blk["k_w"], None, cd).to(cd)             # K has no bias
-    v = _linear(ln, blk["v_w"], blk["v_b"], cd).to(cd)
+    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"]).to(cd)
+    q = _linear(ln, blk["q_w"], blk["q_b"], cd, cd)
+    k = _linear(ln, blk["k_w"], None, cd, cd)                # K has no bias
+    v = _linear(ln, blk["v_w"], blk["v_b"], cd, cd)
     attn = attn_fn(q, k, v, n_head, t_valid)
     x = x + _linear(attn, blk["o_w"], blk["o_b"], cd)
 
@@ -307,7 +318,10 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
     enc = params["encoder"]
     x = conv_stem(enc, mel, compute_dtype)
     n_ctx = x.shape[1]
-    x = x + enc["pos"][:n_ctx]
+    # row-major from here: the stem's (B, T, D) is a transposed view, and
+    # every elementwise op would carry its strides on, each layernorm then
+    # copying its input back to rows first
+    x = (x + enc["pos"][:n_ctx]).contiguous()
     if attn_impl is None:
         attn_impl = default_encoder_attn_impl(x)
     base = attn_impl.removesuffix("_interpret")
@@ -315,8 +329,7 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
         raise ValueError(f"unknown out_layout {out_layout!r}")
     if out_layout == "bdt" and base != "pallas_dt":
         raise ValueError("out_layout='bdt' requires attn_impl='pallas_dt'")
-    blocks = enc["blocks"]
-    n_layer = blocks["q_w"].shape[0]
+    layers = _layers(enc["blocks"])
 
     if base in _PADDED_BLOCKS:
         block_fn, channels_first = _PADDED_BLOCKS[base]
@@ -325,9 +338,9 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
         x = F.pad(x, (0, 0, 0, Tp - n_ctx))                 # (B, Tp, D)
         if channels_first:
             x = x.transpose(1, 2)                           # (B, D, Tp)
-        for l in range(n_layer):
-            x = block_fn(x, _layer(blocks, l), n_head, compute_dtype,
-                         t_valid=n_ctx, interpret=interpret)
+        for blk in layers:
+            x = block_fn(x, blk, n_head, compute_dtype, t_valid=n_ctx,
+                         interpret=interpret)
         if channels_first:
             x = x[..., :n_ctx]
             if out_layout == "bdt":
@@ -335,9 +348,8 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
             x = x.transpose(1, 2)
         return _layernorm(x[:, :n_ctx], enc["ln_post_w"], enc["ln_post_b"])
 
-    for l in range(n_layer):
-        x = _encoder_block(x, _layer(blocks, l), n_head, compute_dtype,
-                           attn_impl)
+    for blk in layers:
+        x = _encoder_block(x, blk, n_head, compute_dtype, attn_impl)
     return _layernorm(x, enc["ln_post_w"], enc["ln_post_b"])
 
 
@@ -377,14 +389,14 @@ def _stack_layers(params, proj, per_layer):
     """Run per_layer(*proj(blk)) for each decoder layer, writing each
     layer's outputs into preallocated (L, ...) stacks, so only one layer's
     projection is live at a time."""
-    blocks = params["decoder"]["blocks"]
-    L = blocks["xk_w"].shape[0]
+    layers = _layers(params["decoder"]["blocks"])
     stacks = None
-    for l in range(L):
-        outs = per_layer(*proj(_layer(blocks, l)))
+    for l, blk in enumerate(layers):
+        outs = per_layer(*proj(blk))
         if stacks is None:
-            stacks = [torch.empty((L,) + tuple(o.shape), dtype=o.dtype,
-                                  device=o.device) for o in outs]
+            stacks = [torch.empty((len(layers),) + tuple(o.shape),
+                                  dtype=o.dtype, device=o.device)
+                      for o in outs]
         for st, o in zip(stacks, outs):
             st[l] = o
     return stacks
@@ -478,8 +490,7 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
 
     x = (dec["tok_emb"][tokens] + dec["pos"][positions]).float()
     ks_out, vs_out = [], []
-    for l in range(blocks["attn_ln_w"].shape[0]):
-        blk = _layer(blocks, l)
+    for l, blk in enumerate(_layers(blocks)):
         if tagged:
             kc = _dequant(k_cross[0], k_cross[1][l], k_cross[2][l], cd)
             vc = _dequant(v_cross[0], v_cross[1][l], v_cross[2][l], cd)
@@ -658,8 +669,7 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
         valid = valid & (idx[None, :] >= pad_len[:, None])
     attn_mask = torch.where(valid, 0.0, float("-inf"))[:, None, None, :]
 
-    for l in range(blocks["attn_ln_w"].shape[0]):
-        blk = _layer(blocks, l)
+    for l, blk in enumerate(_layers(blocks)):
         ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
         q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd), nh)
         k_new = _split_heads(_linear(ln, blk["k_w"], None, cd), nh)

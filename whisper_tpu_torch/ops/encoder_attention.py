@@ -9,12 +9,15 @@ beyond `t_valid` masked, bf16 inputs, f32 output.
 What bounds them on the H100: at T=1500, Dh=64 the work is two (T x T x 64)
 products per (batch, head), about 0.58 GFLOP, against 0.6 MB of q/k/v
 reads — far above the card's ~295 FLOP/byte bf16 ridge, so it is
-tensor-core bound.  The TPU kernel keeps one head's K and V resident in
-VMEM (~384 KB in bf16), more than the 227 KB a Hopper block can hold, and
-materializes each (256 x T) score block.  The kernel instead streams
-64-key K/V tiles through shared memory with an online softmax (one block
-per (b, h, 64-query tile), bf16 wmma with f32 accumulation), so neither the
-scores nor any padded or transposed copy of q/k/v reach device memory.
+tensor-core bound, and at Dh=64 the softmax's one exp2 a score costs about
+as much as the score's products.  The TPU kernel keeps one head's K and V
+resident in VMEM (~384 KB in bf16), more than the 227 KB a Hopper block can
+hold, and materializes each (256 x T) score block.  The kernel instead
+streams 128-key K/V tiles by TMA into a two-stage ring in shared memory
+(one CTA per (b, h, 128 queries), two warpgroups of 64 query rows) and
+runs Q K^T and P V on `wgmma` with the scores, the online softmax and the
+output in registers, so neither the scores nor any padded or transposed
+copy of q/k/v reach device memory.
 
 Entries, each with its own launch count:
   * `self_attention` (K1): the JAX layout (B, T, H, Dh) read in place, the
@@ -52,7 +55,7 @@ def _stream(x: torch.Tensor) -> int:
 
 def _check_bf16(fn_name, shape, tensors) -> None:
     """Every operand bf16 of `shape`, on the first one's device, contiguous
-    and 16-byte aligned (the kernel reads 8 elements at once)."""
+    and 16-byte aligned (a TMA tensor map's base address must be)."""
     dev = tensors[0][1].device
     for name, x in tensors:
         if (tuple(x.shape) != tuple(shape) or x.dtype != torch.bfloat16
