@@ -13,10 +13,14 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      replay between CUDA events, median of 20 runs after 3 warm-ups, L2
      flushed before each run), and where one PyTorch call computes the same
      function (scaled_dot_product_attention for K1 in both layouts, K4, K6)
-     that call too; each kernel's bound (the least time the card could
-     take) is computed from its first shape and the card's data-sheet
-     peaks, and each attention kernel's TFLOP/s and share of its bound are
-     printed
+     that call too, and for K3 the `dense_ms` yardstick (F.linear of the
+     bf16 x over the dequantized bf16 weight: it reads twice K3's bytes, so
+     it is no library call of the same function); each kernel's bound (the
+     least time the card could take) is computed from its first shape and
+     the card's data-sheet peaks, and each attention kernel's TFLOP/s and
+     every kernel's share of its bound are printed at every shape; the
+     kernel and its yardsticks are timed once more back to back on cold
+     inputs of their own (stream_ms: no graph launch latency in the count)
   4. model checks, bf16 on the card against float32 on the CPU (plain
      versions): large-v3 width cut to 2+2 layers, the prompt pass and one
      decode step in the serving path's einsum_q8 (K1, K2) and in cross
@@ -51,7 +55,9 @@ line is {"ok": true, "device": {...}}.
 seconds (default 30) of its PCM: with the packed decoder (K3) and with the
 same file densified (keep_quantized=False), timed in turns after a warm-up
 each, then once more packed under torch.profiler, and prints device time
-by kernel and the device's idle share.
+by kernel, the device's idle share, and launches and device busy time per
+decode step (the window's encode and prompt pass spread over its steps;
+tools/profile_encoder_torch.py step times the step alone).
 """
 
 from __future__ import annotations
@@ -125,8 +131,8 @@ def time_ms(fn, n_warm: int = 3, n_runs: int = 20) -> float:
     """Median device time of one call: the call is captured once in a CUDA
     graph and each run replays it between two CUDA events, so the host's
     time to issue it (the Python wrapper, tens of microseconds) is not
-    counted.  The 50 MB L2 is flushed before each run: on the serving path
-    every layer's inputs arrive cold."""
+    counted.  The 50 MB L2 is flushed before each run by writing 128 MB:
+    on the serving path every layer's inputs arrive cold."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(n_warm):
         fn()
@@ -148,10 +154,42 @@ def time_ms(fn, n_warm: int = 3, n_runs: int = 20) -> float:
     return statistics.median(times)
 
 
-def compare(name, tol, kernel, plain, args, library=None):
-    """-> (max abs err, rel err, kernel ms, plain ms, library ms or None);
-    raises past tol.  `library` is one PyTorch call that computes the same
-    function on the same inputs: timed only, as a yardstick."""
+def stream_ms(make_call, nbytes: int, n_runs: int = 5) -> float:
+    """Device time of one call among many back to back, each on inputs of
+    its own: make_call() gives a call on fresh inputs; enough of them that
+    their bytes (nbytes each) exceed the 50 MB L2 twice over, so every call
+    finds its inputs cold, as each layer of a decode step does; all of them
+    captured in one CUDA graph, replayed between two CUDA events, the time
+    over their count (median of n_runs).  Unlike time_ms, the latency of
+    launching the graph (~5 us for an empty kernel on an H100) is spread
+    over the calls, not added to each."""
+    n = min(256, max(2, -(-(100 << 20) // nbytes)))
+    calls = [make_call() for _ in range(n)]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    times = []
+    for _ in range(n_runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph, calls
+    return statistics.median(times)
+
+
+def compare(name, tol, kernel, plain, args, library=None, dense=None):
+    """-> (max abs err, rel err, kernel ms, plain ms, library ms or None,
+    dense ms or None); raises past tol.  `library` is one PyTorch call that
+    computes the same function on the same inputs, `dense` (K3) a dense
+    product of the same shape: both timed only, as yardsticks."""
     out = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
@@ -162,12 +200,14 @@ def compare(name, tol, kernel, plain, args, library=None):
     ms = time_ms(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args))
     lib_ms = time_ms(library) if library is not None else None
+    dense_ms = time_ms(dense) if dense is not None else None
     log(f"{name}: max_abs_err {err:.3e} rel {rel:.3e} (tol {tol}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+        + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
+        + (f", dense {dense_ms:.4f} ms" if dense_ms is not None else ""))
     if rel > tol:
         raise AssertionError(f"{name}: rel err {rel:.3e} > {tol}")
-    return err, rel, ms, plain_ms, lib_ms
+    return err, rel, ms, plain_ms, lib_ms, dense_ms
 
 
 def path_shapes() -> dict:
@@ -327,6 +367,14 @@ def check_kernels(gen):
             return [x, codes, scales, -16 * scales if mins else None], None
         return make
 
+    def k3_dense(x, codes, scales, mins):
+        """The yardstick: the bf16 x over the dequantized bf16 (N, K)
+        weight, one cuBLAS product."""
+        xb = x.to(torch.bfloat16)
+        w = qm.dequantize_t(codes, scales, mins).t().contiguous().to(
+            torch.bfloat16)
+        return lambda: F.linear(xb, w)
+
     def k4(B, H, Ta, Dh):
         q, k, v = bf16(B, H, 1, Dh), bf16(B, H, Ta, Dh), bf16(B, H, Ta, Dh)
         return [q, k, v], lambda: F.scaled_dot_product_attention(q, k, v)
@@ -375,13 +423,32 @@ def check_kernels(gen):
         rows = []
         for shape in shapes:
             args, library = make(*shape)
+            is_k3 = key in ("K3", "K3+mins")
+            dense = k3_dense(*args) if is_k3 else None
             rows.append(compare(f"{key} {name} {shape}", KERNEL_TOL[key],
-                                kernel, plain, args, library))
-            del args, library
-            if key in ATTENTION:
-                ms, (b_ms, _) = rows[-1][2], bound(key, shape)
-                log(f"{key} {shape}: {work(key, shape)[1] / ms / 1e9:.1f} "
-                    f"TFLOP/s, {b_ms / ms:.3f} of the bound")
+                                kernel, plain, args, library, dense))
+            del args, library, dense
+
+            # the same calls back to back on cold inputs of their own
+            def fresh(which, shape=shape, make=make, kernel=kernel):
+                def make_call():
+                    a, lib = make(*shape)
+                    return {"kernel": lambda: kernel(*a), "library": lib,
+                            "dense": k3_dense(*a) if is_k3 else None}[which]
+                return make_call
+            nbytes = work(key, shape)[0]
+            streams = [stream_ms(fresh("kernel"), nbytes),
+                       stream_ms(fresh("library"), nbytes)
+                       if rows[-1][4] is not None else None,
+                       stream_ms(fresh("dense"), nbytes) if is_k3 else None]
+            rows[-1] = rows[-1] + tuple(streams)
+            ms, (b_ms, _) = rows[-1][2], bound(key, shape)
+            log(f"{key} {shape}: {work(key, shape)[1] / ms / 1e9:.1f} "
+                f"TFLOP/s, {b_ms / ms:.3f} of the bound ({b_ms:.5f} ms); "
+                f"back to back on cold inputs: kernel {streams[0]:.4f} ms "
+                f"({b_ms / streams[0]:.3f} of the bound)"
+                + (f", library {streams[1]:.4f} ms" if streams[1] else "")
+                + (f", dense {streams[2]:.4f} ms" if streams[2] else ""))
         bound_ms, bound_by = bound(key, shapes[0])
         ms = rows[0][2]
         res[key] = {"max_abs_err": max(r[0] for r in rows),
@@ -392,7 +459,16 @@ def check_kernels(gen):
                     "share_of_bound": bound_ms / ms,
                     "tflops": work(key, shapes[0])[1] / ms / 1e9,
                     "shape": list(shapes[0]),
-                    "shapes": [list(x) for x in shapes]}
+                    "shapes": [list(x) for x in shapes],
+                    # back to back on cold inputs (stream_ms)
+                    "ms_stream": rows[0][6], "library_ms_stream": rows[0][7],
+                    "share_of_bound_stream": bound_ms / rows[0][6],
+                    # at every shape: kernel, plain, library, dense ms, then
+                    # kernel, library, dense back to back on cold inputs
+                    "ms_by_shape": [list(r[2:]) for r in rows]}
+        if key in ("K3", "K3+mins"):
+            res[key]["dense_ms"] = rows[0][5]
+            res[key]["dense_ms_stream"] = rows[0][8]
         log(f"{key} bound at {shapes[0]}: {bound_ms:.4f} ms ({bound_by}), "
             f"{bound_ms / ms:.3f} of it reached")
     torch.cuda.empty_cache()
@@ -674,11 +750,15 @@ def run_full(label: str, path: Path, cross_mode: str, need, card_line,
     return counts
 
 
-# device kernels by name fragment, for --profile
-PROFILE_GROUPS = (("K3 split sum", "sum_splits_kernel"),
-                  ("K3", "quantized_matmul_kernel"),
+# device kernels by name fragment, for --profile: K3's one-launch path at
+# M <= 8, and at M > 8 its split kernel and split sum (small's M = 232
+# linears split K in two)
+PROFILE_GROUPS = (("K3 M<=8", "qmm_decode_kernel"),
+                  ("K3 M>8 split sum", "sum_splits_kernel"),
+                  ("K3 M>8", "quantized_matmul_kernel"),
                   ("K2", "cross_attention_q8_kernel"),
-                  ("K4/K5", "cross_attention_kernel"),
+                  ("K4", "xattn_cluster_kernel"),
+                  ("K5", "cross_attention_kernel"),
                   ("K1/K6", "encoder_attention_kernel"),
                   ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet")))
 
@@ -747,7 +827,7 @@ def profile(card_line: str, seconds: int) -> dict:
 
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        wall_prof, _ = run("packed")
+        wall_prof, steps_prof = run("packed")
     kernels = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -768,8 +848,16 @@ def profile(card_line: str, seconds: int) -> dict:
     for kname, (t, n) in top:
         log(f"{t * 1e3:10.3f} ms {n:8d} x {t * 1e6 / n:9.3f} us  {kname[:90]}")
     median_wall = statistics.median(runs["packed"]["walls"])
+    launches = sum(n for _, n in kernels.values())
+    log(f"[{card_line}] profile packed: {launches / steps_prof:.1f} device "
+        f"launches and {busy * 1e3 / steps_prof:.4f} ms device busy per decode "
+        f"step ({launches} and {busy * 1e3:.3f} ms over {steps_prof} steps, "
+        "the windows' encode and prompt passes included)")
     out = {"card": card_line, "seconds": seconds, "runs": runs,
            "profiled_wall_s": wall_prof, "device_busy_s": busy,
+           "profiled_steps": steps_prof,
+           "launches_per_step": launches / steps_prof,
+           "device_busy_ms_per_step": busy * 1e3 / steps_prof,
            "idle_vs_profiled_wall": 1 - busy / wall_prof,
            "idle_vs_median_unprofiled_wall": 1 - busy / median_wall,
            "groups": {g: {"s": t, "launches": n, "share": t / busy}
@@ -1013,8 +1101,9 @@ def main() -> int:
               {"max_abs_err": max(k3["max_abs_err"], k3m["max_abs_err"]),
                "max_rel_err": max(k3["max_rel_err"], k3m["max_rel_err"]),
                "ms_mins": k3m["ms"], "plain_ms_mins": k3m["plain_ms"],
-               "bound_ms_mins": k3m["bound_ms"], "shape_mins": k3m["shape"],
-               "shapes_mins": k3m["shapes"]}),
+               "bound_ms_mins": k3m["bound_ms"], "dense_ms_mins": k3m["dense_ms"],
+               "shape_mins": k3m["shape"], "shapes_mins": k3m["shapes"],
+               "ms_by_shape_mins": k3m["ms_by_shape"]}),
         entry("K4", "cross_attention_decode", "cross_attention.cu",
               "whisper_tpu/ops/cross_attention.py:68"),
         entry("K5", "cross_attention_decode_q8", "cross_attention.cu",

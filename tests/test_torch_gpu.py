@@ -146,15 +146,19 @@ def _packed(gen, K, N, mins):
     return codes, scales, offs
 
 
+K3_SHAPES = [(1280, 1280), (1280, 5120), (5120, 1280), (768, 768),
+             (768, 3072), (3072, 768), (128, 384)]
+
+
 @pytest.mark.parametrize("mins", [False, True])
-@pytest.mark.parametrize("M", [1, 4, 232])
-@pytest.mark.parametrize("K,N", [(1280, 1280), (1280, 5120), (5120, 1280),
-                                 (768, 768), (768, 3072), (3072, 768),
-                                 (128, 384)])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 232])
+@pytest.mark.parametrize("K,N", K3_SHAPES)
 def test_k3_matches_plain_on_card(gen, K, N, M, mins):
-    """large-v3's and small's decoder shapes (one K split and several) and
-    a micro one; M = 1 and 4 as in decode, 232 as in the carried-prompt
-    pass."""
+    """large-v3's and small's decoder shapes (clusters of 1-16 CTAs at
+    M <= 8; one K split and several at M = 232) and a micro one; M = 1..8
+    each (M = 1 as in `full`, 4 as in serving: every M tile of the
+    one-launch path and its padding), 232 as in the carried-prompt pass.
+    Two launches give the same bits."""
     codes, scales, offs = _packed(gen, K, N, mins)
     x = torch.randn(M, K, generator=gen, device="cuda")
     n = qm.quantized_matmul.launches
@@ -164,6 +168,34 @@ def test_k3_matches_plain_on_card(gen, K, N, M, mins):
     assert got.shape == (M, N) and got.dtype == torch.float32
     ref = qm.quantized_matmul_ref(x, codes, scales, offs)
     assert _rel_err(got, ref) <= TOL_K3
+    assert torch.equal(got, qm.quantized_matmul(x, codes, scales, offs))
+
+
+@pytest.mark.parametrize("mins", [False, True])
+@pytest.mark.parametrize("M", [1, 3, 8, 232])
+@pytest.mark.parametrize("K,N", [(1280, 1280), (3072, 768)])
+def test_k3_rounds_x_itself(gen, K, N, M, mins):
+    """K3 reads x in its own dtype and rounds it to bf16 first: an f32 x
+    and the same x rounded to bf16 beforehand give the same bits."""
+    codes, scales, offs = _packed(gen, K, N, mins)
+    x = torch.randn(M, K, generator=gen, device="cuda")
+    got = qm.quantized_matmul(x, codes, scales, offs)
+    assert torch.equal(got, qm.quantized_matmul(x.to(torch.bfloat16), codes,
+                                                scales, offs))
+
+
+@pytest.mark.parametrize("M", [1, 4, 232])
+def test_linear_packed_passes_x_uncast(gen, M):
+    """`_linear` over a packed weight hands x to K3 uncast: the same bits
+    as K3 on x cast to the compute dtype first, plus the bias."""
+    codes, scales, offs = _packed(gen, 768, 3072, True)
+    x = torch.randn(M, 1, 768, generator=gen, device="cuda")
+    b = torch.randn(3072, generator=gen, device="cuda")
+    w = {"q": codes, "s": scales, "m": offs}
+    for cd in (torch.bfloat16, torch.float32):
+        got = wm._linear(x, w, b, cd)
+        y = qm.quantized_matmul(x[:, 0].to(cd), codes, scales, offs)
+        assert torch.equal(got, (y + b)[:, None])
 
 
 def _bhtd(gen, B, H, Ta, Dh=64):
@@ -193,6 +225,24 @@ def test_k4_k5_match_plain_on_card(gen, shape):
     assert _rel_err(got, ref) <= TOL_XATTN
 
 
+@pytest.mark.parametrize("Ta", [1, 37, 64, 65, 1500, 16384])
+@pytest.mark.parametrize("B,H", [(1, 12), (1, 20), (4, 20)])
+def test_k4_cluster_matches_plain_on_card(gen, B, H, Ta):
+    """K4's cluster split of Ta: one CTA (Ta <= 64), ranges of 32 and
+    33 keys (65), ranges of up to 96 keys in one copy each (1500
+    at batch 1), and 384-key (1500 at (4,20)) or 1,024-key ranges (16384)
+    through the 4-stage ring of 128 keys.  Two launches give the same
+    bits."""
+    q, k, v = _bhtd(gen, B, H, Ta)
+    n = xa.cross_attention_decode.launches
+    got = xa.cross_attention_decode(q, k, v)
+    torch.cuda.synchronize()
+    assert xa.cross_attention_decode.launches == n + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert _rel_err(got, xa.cross_attention_decode_ref(q, k, v)) <= TOL_XATTN
+    assert torch.equal(got, xa.cross_attention_decode(q, k, v))
+
+
 def test_new_wrappers_refuse_on_card(gen):
     codes, scales, offs = _packed(gen, 256, 256, True)
     x = torch.randn(2, 256, device="cuda")
@@ -214,6 +264,9 @@ def test_new_wrappers_refuse_on_card(gen):
         xa.cross_attention_decode(q[..., :32].contiguous(),
                                   k[..., :32].contiguous(),
                                   v[..., :32].contiguous())
+    q, k, v = _bhtd(gen, 1, 2, 16385)
+    with pytest.raises(ValueError):          # Ta past 16384
+        xa.cross_attention_decode(q, k, v)
     kq, ks = xa.quantize_kv(k.float())
     with pytest.raises(ValueError):          # scales without the last axis
         xa.cross_attention_decode_q8(q, kq, ks[..., 0], kq, ks[..., 0])

@@ -98,16 +98,57 @@ def test_k3_plain_rounds_like_the_kernel():
 
 
 def test_k3_splits_cover_k():
-    """K3's grid: split K only while it adds blocks, never below one 32-row
-    block per warp, and the splits cover every block exactly once."""
-    for M, N, K in ((1, 1280, 1280), (1, 5120, 1280), (1, 1280, 5120),
-                    (232, 1280, 5120), (4, 128, 128), (5, 512, 128)):
+    """K3's grid at M > 8 (the carried-prompt pass) keeps its plan: split K
+    only while it adds blocks, never below one 32-row block per warp, and
+    the splits cover every block exactly once."""
+    assert tq.DECODE_M == 8
+    for M, N, K in ((232, 1280, 1280), (232, 5120, 1280), (232, 1280, 5120),
+                    (232, 768, 768), (9, 128, 128), (40, 512, 128),
+                    (1, 1280, 1280)):
         splits, per = tq._splits(M, N, K)
         kblocks = K // 32
         assert splits >= 1 and (splits - 1) * per < kblocks <= splits * per
         assert splits == 1 or per >= tq.WARPS
-    assert tq._splits(1, 1280, 1280)[0] > 1
+    assert tq._splits(232, 768, 768) == (2, 12)
     assert tq._splits(232, 1280, 5120)[0] == 1
+
+
+# (K, N) of large-v3's and small's decoder linears, the micro shape of the
+# GPU tests, and the edges: one 32-row block, and K far past 16 blocks a
+# CTA
+K3_DECODE_SHAPES = [(1280, 1280), (1280, 5120), (5120, 1280), (768, 768),
+                    (768, 3072), (3072, 768), (128, 384), (32, 128),
+                    (16384, 128)]
+
+
+@pytest.mark.parametrize("K,N", K3_DECODE_SHAPES)
+def test_k3_cluster_slices_cover_k(K, N):
+    """K3 at M <= 8: one launch, the K slices of a column tile on one
+    cluster of at most 16 CTAs (a power of two, never more than K's 32-row
+    blocks), as many as it takes to bring the grid to two CTAs an SM; the
+    slices cover every 32-row block exactly once, none empty."""
+    kblocks, tiles = K // 32, N // tq.DECODE_TILE_N
+    c = tq._cluster(N, K)
+    assert 1 <= c <= tq.MAX_CLUSTER and c <= kblocks and c & (c - 1) == 0
+    assert tiles * c >= tq.TARGET_BLOCKS or 2 * c > min(tq.MAX_CLUSTER,
+                                                        kblocks)
+    assert c == 1 or tiles * c // 2 < tq.TARGET_BLOCKS
+    covered = []
+    for rank in range(c):
+        begin, end = tq._k_slice(rank, c, kblocks)
+        assert end > begin
+        covered += range(begin, end)
+    assert covered == list(range(kblocks))
+
+
+def test_k3_cluster_sizes_at_whisper_shapes():
+    """64-column tiles: 20 x 16 CTAs at large-v3's square linear and fc2,
+    80 x 4 at its fc1."""
+    assert tq.DECODE_TILE_N == 64
+    assert tq._cluster(1280, 1280) == 16
+    assert tq._cluster(5120, 1280) == 4
+    assert tq._cluster(1280, 5120) == 16
+    assert tq._cluster(128, 32) == 1
 
 
 def _kv_inputs(seed=0, B=2, H=4, Ta=37, Dh=64):
@@ -133,6 +174,44 @@ def test_k4_plain_matches_pallas(dtype, Ta):
     assert got.dtype == torch.float32 and got.shape == q.shape
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL,
                                atol=RTOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("Ta", [1, 37, 64, 65, 1500, 16384])
+@pytest.mark.parametrize("bh", [1, 12, 20, 80])
+def test_k4_plan_covers_ta(bh, Ta):
+    """K4's cluster: C CTAs (a power of two, at most 16 and at most one a
+    64 keys, so C = 1 at Ta <= 64) whose ranges of whole 16-key chunks
+    cover Ta exactly once, none empty; a range arrives in one tile when it
+    is short, else through the ring."""
+    c, tile, stages = txa._xattn_plan(bh, Ta)
+    assert 1 <= c <= txa.MAX_CLUSTER and c <= -(-Ta // 64) and c & (c - 1) == 0
+    if Ta <= 64:
+        assert c == 1
+    covered = []
+    for rank in range(c):
+        t0, t1 = txa._key_range(rank, c, Ta)
+        assert t1 > t0 and t0 % txa.KEY_CHUNK == 0
+        covered += range(t0, t1)
+    assert covered == list(range(Ta))
+    longest = max(t1 - t0 for t0, t1 in (txa._key_range(r, c, Ta)
+                                         for r in range(c)))
+    if longest <= txa.ONE_SHOT_KEYS:     # one tile holds any range
+        assert stages == 2 and longest <= tile <= txa.ONE_SHOT_KEYS
+    else:
+        assert (tile, stages) == (txa.RING_KEYS, txa.RING_STAGES)
+    assert 2 <= stages <= 8 and stages * tile * 128 <= 96 * 1024
+
+
+def test_k4_plan_fills_the_card():
+    """16 CTAs a (b, h) at batch 1 (B*H = 12 or 20), 96 keys each at most,
+    their K and V in one copy each; 4-8 at (4, 20), through the ring."""
+    assert txa._xattn_plan(12, 1500) == (16, 96, 2)
+    assert txa._xattn_plan(20, 1500) == (16, 96, 2)
+    c, tile, stages = txa._xattn_plan(80, 1500)
+    assert c in (4, 8) and (tile, stages) == (txa.RING_KEYS, txa.RING_STAGES)
+    for bh in (12, 20, 80):
+        c, _, _ = txa._xattn_plan(bh, 1500)
+        assert bh * c >= txa.TARGET_CTAS or c == txa.MAX_CLUSTER
 
 
 @pytest.mark.parametrize("Ta", [37, 128])

@@ -105,11 +105,12 @@ def _linear(x, w, b=None, compute_dtype=torch.bfloat16,
     would, in one kernel (the bias add casts on its way out)."""
     if isinstance(w, dict):
         # block-quantized weight {"q": (K, N) int8, "s": (K/32, N)[, "m"]}
-        # -> K3, which rounds x to bf16 whatever the compute dtype and
-        # returns f32
+        # -> K3, which rounds x to bf16 itself whatever the compute dtype
+        # (so x goes in uncast: a cast to bf16 or f32 first changes no bit)
+        # and returns f32
         shape = x.shape
-        y = quantized_matmul(x.reshape(-1, shape[-1]).to(compute_dtype),
-                             w["q"], w["s"], w.get("m"))
+        y = quantized_matmul(x.reshape(-1, shape[-1]), w["q"], w["s"],
+                             w.get("m"))
         y = y.reshape(shape[:-1] + (w["q"].shape[-1],))
     else:
         y = F.linear(x.to(compute_dtype), w.to(compute_dtype))

@@ -19,21 +19,39 @@ and weights in shared memory, so no bf16 copy of K/V and no score tensor
 ever reaches device memory — the einsum path writes and re-reads both.
 One block per (b, h); splitting Ta over several blocks is later work.
 
-K4 and K5 (csrc/cross_attention.cu) are the same design on the
-(B, H, Ta, Dh) layout of cross modes "pallas" and "pallas_q8", where Dh is
-contiguous: a group of 8 lanes reads one key row, 8 channels a lane.
-K4 replaces `cross_attention_decode` / `_xattn_kernel` (bf16 K/V), K5
+K4 and K5 (csrc/cross_attention.cu) work on the (B, H, Ta, Dh) layout of
+cross modes "pallas" and "pallas_q8", where Dh is contiguous: a group of 8
+lanes reads one key row, 8 channels a lane.  K4 replaces
+`cross_attention_decode` / `_xattn_kernel` (bf16 K/V), K5
 `cross_attention_decode_q8` / `_xattn_kernel_q8` (int8 K/V, (B, H, Ta, 1)
 scales).  As in those TPU kernels, the query and K/V are rounded to bf16
 inside the kernel whatever the compute dtype, and so are the softmax
-weights (times the V scale, for K5) before the product with V.
+weights (times the V scale, for K5) before the product with V.  K5 is K2's
+design (one block per (b, h)).  K4 puts each (b, h) on a thread-block
+cluster of CTAs that split Ta into ranges of whole 16-key chunks, at most
+one CTA per 64 keys (`_xattn_plan`, `_key_range`), each range's K and V
+brought into shared memory by 1-D TMA, in one copy each (up to 128 keys)
+or through a 4-stage ring of 128 keys; the CTAs
+agree on the softmax's global max and sum through distributed shared
+memory before any weight is rounded, and their partial outputs are added
+in rank 0 in rank order.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 DH = 64   # every Whisper model; K4 and K5 are written for it
+MAX_TA = 16384        # K4/K5 keep the (Ta,) logits in shared memory
+KEY_CHUNK = 16        # a K4 CTA's key range is whole chunks of this many keys
+MIN_KEYS = 64         # and at least this many keys
+MAX_CLUSTER = 16      # CTAs in a cluster (non-portable above 8)
+TARGET_CTAS = 264     # two CTAs per SM of the H100's 132
+ONE_SHOT_KEYS = 128   # a K4 range up to this lands in one copy each for K, V
+RING_KEYS = 128       # a longer one streams through a ring of this many keys
+RING_STAGES = 4       # in this many stages (64 KB)
 
 
 def _quantize(k: torch.Tensor, axis: int, lo: int, hi: int):
@@ -191,11 +209,40 @@ def _check(fn_name, q, tensors):
                              f"{align}-byte aligned")
 
 
+@functools.lru_cache(maxsize=None)
+def _xattn_plan(bh: int, ta: int) -> tuple[int, int, int]:
+    """K4's grid for B*H = bh and Ta = ta: (cluster size C, keys a K/V
+    tile, stages).  C is the smallest power of two that brings the grid
+    (bh x C CTAs) to TARGET_CTAS, at most MAX_CLUSTER and at most one CTA
+    per MIN_KEYS keys (so C = 1 at Ta <= 64).  The longest range lands in
+    one copy each for K and V (two stages) when it has at most
+    ONE_SHOT_KEYS keys; a longer one streams through RING_STAGES stages of
+    RING_KEYS, so a CTA's shared memory stays small and the whole grid is
+    resident at once."""
+    chunks = -(-ta // KEY_CHUNK)
+    c = 1
+    while 2 * c <= min(MAX_CLUSTER, -(-ta // MIN_KEYS)) and bh * c < TARGET_CTAS:
+        c *= 2
+    longest = min(-(-chunks // c) * KEY_CHUNK, ta)
+    if longest <= ONE_SHOT_KEYS:
+        return c, longest, 2
+    return c, RING_KEYS, RING_STAGES
+
+
+def _key_range(rank: int, cluster: int, ta: int) -> tuple[int, int]:
+    """The keys [t0, t1) that CTA `rank` of a K4 cluster takes (the kernel
+    computes the same)."""
+    chunks = -(-ta // KEY_CHUNK)
+    return (rank * chunks // cluster * KEY_CHUNK,
+            min((rank + 1) * chunks // cluster * KEY_CHUNK, ta))
+
+
 def cross_attention_decode(q, k_t, v_t):
     """q (B, H, 1, Dh); k_t/v_t (B, H, Ta, Dh) -> (B, H, 1, Dh) f32.
 
     CPU tensors take the plain version; CUDA tensors go through K4, which
-    takes bfloat16 q and K/V only (the roundings the TPU kernel makes)."""
+    takes bfloat16 q and K/V only (the roundings the TPU kernel makes) and
+    Ta up to MAX_TA."""
     if q.device.type == "cpu":
         return cross_attention_decode_ref(q, k_t, v_t)
     if q.device.type != "cuda":
@@ -208,10 +255,14 @@ def cross_attention_decode(q, k_t, v_t):
         "q": (q, (B, H, 1, Dh), torch.bfloat16, 16),
         "k_t": (k_t, kv, torch.bfloat16, 16),
         "v_t": (v_t, kv, torch.bfloat16, 16)})
+    if not 1 <= Ta <= MAX_TA:
+        raise ValueError(f"cross_attention_decode: K4 takes 1 <= Ta <= "
+                         f"{MAX_TA}, got {Ta}")
     from ._build import library
     out = torch.empty((B, H, 1, Dh), dtype=torch.float32, device=q.device)
     library().call("wtt_cross_attention", q.data_ptr(), k_t.data_ptr(),
                    v_t.data_ptr(), out.data_ptr(), B, H, Dh, Ta,
+                   *_xattn_plan(B * H, Ta),
                    torch.cuda.current_stream(q.device).cuda_stream)
     cross_attention_decode.launches += 1
     return out

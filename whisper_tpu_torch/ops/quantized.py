@@ -3,18 +3,22 @@
 K3 replaces whisper_tpu/ops/quantized.py `quantized_matmul` / `_qmm_kernel`
 and `_qmm_kernel_mins`: y = x @ W^T for W = codes * scales (+ mins) with
 32-element blocks, held K-major as in the JAX package:
-    x:       (M, K), rounded to bf16
+    x:       (M, K), rounded to bf16 (in the kernel, from f32 or bf16)
     codes_t: (K, N) int8     — W^T codes
     scales_t:(K/32, N) f32   — block scales, rounded to bf16 in the kernel
     mins_t:  (K/32, N) f32 or None — block offsets (q4_1/q5_1)
     w = bf16(code * scale_bf16) [then bf16(w + min_bf16)], f32 sums.
 
 What bounds it on the H100: in the token loop M is the batch (1 in
-`full`), so each call streams K*N code bytes for 2*M FLOP a byte: memory
-bound.  K3 gives each warp 128 output columns, one char4 of codes per lane
-per K row (128 contiguous bytes a warp: coalesced), loads a block's scales
-once per 32 rows, keeps up to 8 rows of x per block in registers and
-splits K over blocks when the columns alone cannot fill the card, with a
+`full`, 4 in serving), so each call streams K*N code bytes for 2*M FLOP a
+byte: memory bound, and over in microseconds, so the bytes in flight and
+the launches per call decide its time.  At M <= 8 (`DECODE_M`) K3 is one
+launch: each CTA takes 64 columns and a slice of K, the K slices of a
+column tile form one thread-block cluster (`_cluster`), all of a slice's
+codes and scales are requested by TMA (one 2-D box a 32-row block) before
+the math, and the slices' partial sums meet in the cluster's rank 0 through distributed
+shared memory, in rank order.  At M > 8 (the carried-prompt pass) each
+block keeps 8 rows of x and K is split over blocks (`_splits`) with a
 second pass that sums the splits in a fixed order.  No dequantized copy of
 W ever reaches device memory.  Codes stay one byte each, as in the TPU
 representation; nibble codes are later work.
@@ -22,6 +26,7 @@ representation; nibble codes are later work.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -31,9 +36,12 @@ from ..weights import quant
 
 QK = quant.QK            # 32
 TILE_N = 128             # output columns per block in K3
-TILE_M = 8               # rows of x per block in K3
+TILE_M = 8               # rows of x per block in K3 at M > 8
 WARPS = 8                # warps per block, each taking whole 32-row blocks
 TARGET_BLOCKS = 264      # two blocks per SM of the H100's 132
+DECODE_M = 8             # up to this many rows of x: the one-launch path
+DECODE_TILE_N = 64       # output columns per CTA there
+MAX_CLUSTER = 16         # CTAs in a cluster (non-portable above 8)
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +136,9 @@ def quantized_matmul_ref(x, codes_t, scales_t, mins_t=None):
 
 
 def _splits(M: int, N: int, K: int) -> tuple[int, int]:
-    """(number of K splits, 32-row blocks per split) for K3's grid: split K
-    only as far as it takes to reach TARGET_BLOCKS blocks, and no further
-    than one 32-row block per warp."""
+    """(number of K splits, 32-row blocks per split) for K3's grid at
+    M > DECODE_M: split K only as far as it takes to reach TARGET_BLOCKS
+    blocks, and no further than one 32-row block per warp."""
     kblocks = K // QK
     tiles = (N // TILE_N) * math.ceil(M / TILE_M)
     want = math.ceil(TARGET_BLOCKS / tiles)
@@ -139,14 +147,55 @@ def _splits(M: int, N: int, K: int) -> tuple[int, int]:
     return math.ceil(kblocks / per), per
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster(N: int, K: int) -> int:
+    """K3's cluster size C at M <= DECODE_M: the CTAs that split one
+    column tile's K, the smallest power of two that brings the grid
+    ((N / 64) x C CTAs) to TARGET_BLOCKS, at most MAX_CLUSTER and at most
+    one 32-row block a CTA."""
+    kblocks, tiles = K // QK, N // DECODE_TILE_N
+    c = 1
+    while tiles * c < TARGET_BLOCKS and 2 * c <= min(MAX_CLUSTER, kblocks):
+        c *= 2
+    return c
+
+
+def _k_slice(rank: int, cluster: int, kblocks: int) -> tuple[int, int]:
+    """The 32-row blocks [begin, end) that CTA `rank` of a K3 cluster takes
+    (the kernel computes the same)."""
+    return rank * kblocks // cluster, (rank + 1) * kblocks // cluster
+
+
+def _refuse(x, codes_t, scales_t, mins_t, M, K, N) -> str | None:
+    """Why K3 cannot take these operands, or None."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        return f"x is {x.dtype}, not float32 or bfloat16"
+    if M < 1 or K % QK or N % TILE_N:
+        return (f"K3 takes M >= 1, K a multiple of {QK} and N of {TILE_N} "
+                f"(got M={M}, K={K}, N={N})")
+    for name, t, shape, dtype in (
+            ("codes_t", codes_t, (K, N), torch.int8),
+            ("scales_t", scales_t, (K // QK, N), torch.float32),
+            ("mins_t", mins_t, (K // QK, N), torch.float32)):
+        if t is None:
+            continue
+        if t.shape != shape or t.dtype != dtype or t.device != x.device:
+            return (f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                    f"expected {shape} {dtype} on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            return f"{name} must be contiguous and 16-byte aligned"
+    return None
+
+
 def quantized_matmul(x, codes_t, scales_t, mins_t=None):
     """x (M, K); codes_t (K, N) int8; scales_t/mins_t (K/32, N) f32
     -> (M, N) f32.
 
-    CPU tensors take `quantized_matmul_ref`.  CUDA tensors go through K3:
-    x is rounded to bf16 first (the TPU kernel's first step); the codes
-    and scales must already be int8 and float32, contiguous, with N a
-    multiple of 128 and K of 32.
+    CPU tensors take `quantized_matmul_ref`.  CUDA tensors go through K3,
+    which reads x as it is (float32 or bfloat16) and rounds it to bf16
+    itself (the TPU kernel's first step); the codes and scales must already
+    be int8 and float32, contiguous and 16-byte aligned, with N a multiple
+    of 128 and K of 32.  At M <= DECODE_M that is one launch.
     """
     if x.device.type == "cpu":
         return quantized_matmul_ref(x, codes_t, scales_t, mins_t)
@@ -157,33 +206,24 @@ def quantized_matmul(x, codes_t, scales_t, mins_t=None):
                          f"{tuple(x.shape)}")
     M, K = x.shape
     N = codes_t.shape[-1]
-    expect = {"codes_t": (codes_t, (K, N), torch.int8, 4),
-              "scales_t": (scales_t, (K // QK, N), torch.float32, 16)}
-    if mins_t is not None:
-        expect["mins_t"] = (mins_t, (K // QK, N), torch.float32, 16)
-    for name, (t, shape, dtype, align) in expect.items():
-        if (tuple(t.shape) != shape or t.dtype != dtype
-                or t.device != x.device):
-            raise ValueError(
-                f"quantized_matmul: {name} is {tuple(t.shape)} {t.dtype} on "
-                f"{t.device}, expected {shape} {dtype} on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"quantized_matmul: {name} must be contiguous "
-                             f"and {align}-byte aligned")
-    if M < 1 or K % QK or N % TILE_N:
-        raise ValueError(f"K3 takes M >= 1, K a multiple of {QK} and N of "
-                         f"{TILE_N} (got M={M}, K={K}, N={N})")
+    why = _refuse(x, codes_t, scales_t, mins_t, M, K, N)
+    if why is not None:
+        raise ValueError(f"quantized_matmul: {why}")
     from ._build import library
-    xb = x.to(torch.bfloat16).contiguous()
+    x = x.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    splits, per = _splits(M, N, K)
-    work = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else out)
-    library().call("wtt_quantized_matmul", xb.data_ptr(), codes_t.data_ptr(),
-                   scales_t.data_ptr(),
-                   0 if mins_t is None else mins_t.data_ptr(),
-                   work.data_ptr(), out.data_ptr(), M, N, K, splits, per,
-                   torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), int(x.dtype == torch.bfloat16), codes_t.data_ptr(),
+            scales_t.data_ptr(), 0 if mins_t is None else mins_t.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if M <= DECODE_M:
+        library().call("wtt_quantized_matmul_decode", *args, out.data_ptr(),
+                       M, N, K, _cluster(N, K), stream)
+    else:
+        splits, per = _splits(M, N, K)
+        work = (torch.empty((splits, M, N), dtype=torch.float32,
+                            device=x.device) if splits > 1 else out)
+        library().call("wtt_quantized_matmul", *args, work.data_ptr(),
+                       out.data_ptr(), M, N, K, splits, per, stream)
     quantized_matmul.launches += 1
     if mins_t is not None:
         quantized_matmul.launches_mins += 1
@@ -192,4 +232,3 @@ def quantized_matmul(x, codes_t, scales_t, mins_t=None):
 
 quantized_matmul.launches = 0
 quantized_matmul.launches_mins = 0     # the launches with mins (q4_1/q5_1)
-
