@@ -15,7 +15,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      function (scaled_dot_product_attention for K1 in both layouts, K4, K6)
      that call too, and for K3 the `dense_ms` yardstick (F.linear of the
      bf16 x over the dequantized bf16 weight: it reads twice K3's bytes, so
-     it is no library call of the same function); each kernel's bound (the
+     it is no library call of the same function), for K2 and K5 the same
+     (scaled_dot_product_attention over the dequantized bf16 K/V in
+     (B, H, Ta, Dh), twice their bytes); each kernel's bound (the
      least time the card could take) is computed from its first shape and
      the card's data-sheet peaks, and each attention kernel's TFLOP/s and
      every kernel's share of its bound are printed at every shape; the
@@ -76,6 +78,7 @@ import torch
 # K3's rows: 1 (one token of `full`), 4 (the serving batch) and 232
 # (n_text_ctx // 2 + 8, the carried-prompt pass)
 K3_M = (1, 4, 232)
+BENCH_BATCH = 64     # bench.py's default serving batch (K2's largest shape)
 # max |kernel - plain| / max |plain|, per kernel.  K2, K3, K4 and K5 round
 # to bf16 exactly where their plain versions do, so only the f32 summation
 # order differs.  K3 read <= 3.8e-7 on the card; the plain version against
@@ -188,8 +191,9 @@ def stream_ms(make_call, nbytes: int, n_runs: int = 5) -> float:
 def compare(name, tol, kernel, plain, args, library=None, dense=None):
     """-> (max abs err, rel err, kernel ms, plain ms, library ms or None,
     dense ms or None); raises past tol.  `library` is one PyTorch call that
-    computes the same function on the same inputs, `dense` (K3) a dense
-    product of the same shape: both timed only, as yardsticks."""
+    computes the same function on the same inputs, `dense` (K2, K3, K5) the
+    library call of the same shape over dequantized bf16 operands: both
+    timed only, as yardsticks."""
     out = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
@@ -215,8 +219,9 @@ def path_shapes() -> dict:
     shape of the path that runs it first (its time is the one reported):
     K1 (B, T, H, Dh) of the encoders, K1dt (B, H, Dh, Tp, t_valid) and K6
     (B, Tp, D, H, t_valid) of path D's padded encoders (and K6 at small's
-    width and the serving batch); K2 (B, H, Dh, Ta) of the serving batch;
-    K3 (M, K, N) of the decoder linears; K4/K5 (B, H, Ta, Dh); K7 (seconds
+    width and the serving batch); K2 (B, H, Dh, Ta) of the serving batch,
+    of path C (batch 1) and of bench.py's batch of 64; K3 (M, K, N) of the
+    decoder linears; K4/K5 (B, H, Ta, Dh); K7 (seconds
     of PCM, n_mels)."""
     from whisper_tpu_torch.models.whisper import MODEL_DIMS, WhisperConfig
     from whisper_tpu_torch.ops.encoder_attention import BLOCK_Q
@@ -239,11 +244,14 @@ def path_shapes() -> dict:
         return [(M, K, N) for c in cfgs for d in (c.n_text_state,)
                 for M in K3_M for K, N in ((d, d), (d, 4 * d), (4 * d, d))]
 
-    B, H, Ta, Dh = xattn(big, N_STREAMS)
+    def q8dt(B):
+        B, H, Ta, Dh = xattn(big, B)
+        return (B, H, Dh, Ta)
+
     b, tp, d, h, tv = padded(big, 1)
     return {"K1": [enc(big, 1), enc(small, 1), enc(big, N_STREAMS)],
             "K1dt": [(b, h, d // h, tp, tv)],
-            "K2": [(B, H, Dh, Ta)],
+            "K2": [q8dt(N_STREAMS), q8dt(1), q8dt(BENCH_BATCH)],
             "K3": linears(big, small),           # path A: large-v3 q5_0
             "K3+mins": linears(small, big),      # path B: small q5_1
             "K4": [xattn(small, 1), xattn(big, 1), xattn(big, N_STREAMS)],
@@ -379,6 +387,18 @@ def check_kernels(gen):
         q, k, v = bf16(B, H, 1, Dh), bf16(B, H, Ta, Dh), bf16(B, H, Ta, Dh)
         return [q, k, v], lambda: F.scaled_dot_product_attention(q, k, v)
 
+    def xattn_dense(q, k_q, k_s, v_q, v_s):
+        """The yardstick of K2 and K5: SDPA over the dequantized bf16 K/V in
+        (B, H, Ta, Dh), twice their bytes and without their rounding of
+        the weights."""
+        if k_s.dim() == 3:          # K2's (B, H, Dh, Ta) codes
+            k, v = ((c.float() * s[..., None, :]).transpose(-1, -2)
+                    for c, s in ((k_q, k_s), (v_q, v_s)))
+        else:
+            k, v = (c.float() * s for c, s in ((k_q, k_s), (v_q, v_s)))
+        k, v = (x.to(torch.bfloat16).contiguous() for x in (k, v))
+        return lambda: F.scaled_dot_product_attention(q, k, v)
+
     def k5(B, H, Ta, Dh):
         (q, k, v), _ = k4(B, H, Ta, Dh)
         (kq, ks), (vq, vs) = (xa.quantize_kv(t.float()) for t in (k, v))
@@ -417,30 +437,36 @@ def check_kernels(gen):
         "K7": ("log_mel (_mel_blocks)", mp._mel_blocks, mp._mel_blocks_ref,
                k7),
     }
+    dense_of = {"K2": xattn_dense, "K3": k3_dense, "K3+mins": k3_dense,
+                "K5": xattn_dense}
     res = {}
     for key, shapes in path_shapes().items():
         name, kernel, plain, make = cases[key]
+        to_dense = dense_of.get(key)
         rows = []
         for shape in shapes:
             args, library = make(*shape)
-            is_k3 = key in ("K3", "K3+mins")
-            dense = k3_dense(*args) if is_k3 else None
+            dense = to_dense(*args) if to_dense else None
             rows.append(compare(f"{key} {name} {shape}", KERNEL_TOL[key],
                                 kernel, plain, args, library, dense))
             del args, library, dense
 
             # the same calls back to back on cold inputs of their own
-            def fresh(which, shape=shape, make=make, kernel=kernel):
+            def fresh(which, shape=shape, make=make, kernel=kernel,
+                      to_dense=to_dense):
                 def make_call():
                     a, lib = make(*shape)
-                    return {"kernel": lambda: kernel(*a), "library": lib,
-                            "dense": k3_dense(*a) if is_k3 else None}[which]
+                    if which == "dense":
+                        return to_dense(*a)
+                    return {"kernel": lambda: kernel(*a),
+                            "library": lib}[which]
                 return make_call
             nbytes = work(key, shape)[0]
             streams = [stream_ms(fresh("kernel"), nbytes),
                        stream_ms(fresh("library"), nbytes)
                        if rows[-1][4] is not None else None,
-                       stream_ms(fresh("dense"), nbytes) if is_k3 else None]
+                       stream_ms(fresh("dense"), nbytes) if to_dense
+                       else None]
             rows[-1] = rows[-1] + tuple(streams)
             ms, (b_ms, _) = rows[-1][2], bound(key, shape)
             log(f"{key} {shape}: {work(key, shape)[1] / ms / 1e9:.1f} "
@@ -466,7 +492,7 @@ def check_kernels(gen):
                     # at every shape: kernel, plain, library, dense ms, then
                     # kernel, library, dense back to back on cold inputs
                     "ms_by_shape": [list(r[2:]) for r in rows]}
-        if key in ("K3", "K3+mins"):
+        if to_dense:
             res[key]["dense_ms"] = rows[0][5]
             res[key]["dense_ms_stream"] = rows[0][8]
         log(f"{key} bound at {shapes[0]}: {bound_ms:.4f} ms ({bound_by}), "
@@ -752,13 +778,17 @@ def run_full(label: str, path: Path, cross_mode: str, need, card_line,
 
 # device kernels by name fragment, for --profile: K3's one-launch path at
 # M <= 8, and at M > 8 its split kernel and split sum (small's M = 232
-# linears split K in two)
+# linears split K in two); K4 and K5, the two instances of one template, by
+# their template arguments as the profiler prints them (demangled or not)
 PROFILE_GROUPS = (("K3 M<=8", "qmm_decode_kernel"),
                   ("K3 M>8 split sum", "sum_splits_kernel"),
                   ("K3 M>8", "quantized_matmul_kernel"),
-                  ("K2", "cross_attention_q8_kernel"),
-                  ("K4", "xattn_cluster_kernel"),
-                  ("K5", "cross_attention_kernel"),
+                  ("K2", "xattn_q8dt_kernel"),
+                  ("K5", ("xattn_cluster_kernel<signed char",
+                          "xattn_cluster_kernelIaLb1")),
+                  ("K4", ("xattn_cluster_kernel<__nv_bfloat16",
+                          "xattn_cluster_kernelI13__nv_bfloat16")),
+                  ("K4/K5 (name not matched)", "xattn_cluster_kernel"),
                   ("K1/K6", "encoder_attention_kernel"),
                   ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet")))
 
@@ -1094,7 +1124,7 @@ def main() -> int:
                "share_of_bound_bhdt": k1dt["share_of_bound"],
                "tflops_bhdt": k1dt["tflops"], "shape_bhdt": k1dt["shape"],
                "shapes_bhdt": k1dt["shapes"]}),
-        entry("K2", "cross_attention_q8", "cross_attention_q8.cu",
+        entry("K2", "cross_attention_q8", "cross_attention.cu",
               "whisper_tpu/ops/cross_attention.py:142"),
         entry("K3", "quantized_matmul", "quantized_matmul.cu",
               "whisper_tpu/ops/quantized.py:179",

@@ -110,6 +110,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         xa.cross_attention_decode_q8dt(q, codes.transpose(-1, -2).contiguous()
                                        .transpose(-1, -2), scales, codes,
                                        scales)
+    big = torch.zeros(1, 2, 64, 16385, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):          # Ta past 16384
+        xa.cross_attention_decode_q8dt(q, big, big[:, :, 0].float(), big,
+                                       big[:, :, 0].float())
+    # K2's plan arguments, straight to its entry point: clusters of 0, 17,
+    # and 2 at Ta = 8 (more than one CTA per 64 keys); the word path on
+    # codes one byte past a word boundary
+    from whisper_tpu_torch.ops._build import library
+    odd = torch.zeros(codes.numel() + 1, dtype=torch.int8,
+                      device="cuda")[1:].view(codes.shape)
+    out = torch.empty(1, 2, 1, 64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for k_codes, cluster, words in ((codes, 0, 0), (codes, 17, 0),
+                                    (codes, 2, 0), (odd, 1, 1)):
+        with pytest.raises(RuntimeError):
+            library().call("wtt_cross_attention_q8", q.data_ptr(),
+                           k_codes.data_ptr(), scales.data_ptr(),
+                           k_codes.data_ptr(), scales.data_ptr(),
+                           out.data_ptr(), 1, 2, 64, 8, cluster, words, stream)
 
 
 def test_batch_transcriber_on_card_runs_both_kernels(gen):
@@ -243,6 +262,112 @@ def test_k4_cluster_matches_plain_on_card(gen, B, H, Ta):
     assert torch.equal(got, xa.cross_attention_decode(q, k, v))
 
 
+XATTN_TA = [1, 37, 64, 65, 1500, 16384]
+XATTN_BH = [(1, 12), (1, 20), (4, 20), (64, 20)]
+
+
+def _codes(gen, *shape):
+    """Random int8 codes in [-127, 127]."""
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def _scales(gen, *shape):
+    """Per-position scales such that the logits spread over a few units."""
+    return torch.rand(*shape, generator=gen, device="cuda") * 0.04 + 0.005
+
+
+@pytest.mark.parametrize("Ta", XATTN_TA)
+@pytest.mark.parametrize("B,H", XATTN_BH)
+def test_k2_cluster_matches_plain_on_card(gen, B, H, Ta):
+    """K2's cluster split of Ta on its (B, H, Dh, Ta) layout: one CTA
+    (Ta <= 64, and every Ta at B*H = 1280), else up to 16 ranges of whole
+    16-key chunks; the word path at Ta % 4 == 0 (64, 1500, 16384), the
+    byte path at 1, 37 and 65.  Two launches give the same bits."""
+    q = _bf16_randn(gen, B, H, 1, 64)
+    kq, vq = _codes(gen, B, H, 64, Ta), _codes(gen, B, H, 64, Ta)
+    ks, vs = _scales(gen, B, H, Ta), _scales(gen, B, H, Ta)
+    assert xa._q8dt_words(Ta, kq.data_ptr(), vq.data_ptr()) == (Ta % 4 == 0)
+    n = xa.cross_attention_decode_q8dt.launches
+    got = xa.cross_attention_decode_q8dt(q, kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    assert xa.cross_attention_decode_q8dt.launches == n + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    ref = xa.cross_attention_decode_q8dt_ref(q, kq, ks, vq, vs)
+    assert _rel_err(got, ref) <= TOL_XATTN
+    assert torch.equal(got, xa.cross_attention_decode_q8dt(q, kq, ks, vq, vs))
+
+
+@pytest.mark.parametrize("B,H,Ta", [(1, 20, 1500), (4, 20, 1500),
+                                    (2, 3, 64)])
+def test_k2_byte_path_on_unaligned_codes(gen, B, H, Ta):
+    """Codes one byte past a word boundary take K2's byte path even at
+    Ta % 4 == 0, and give the word path's bits: the same sums in the same
+    order, only the loads differ."""
+    q = _bf16_randn(gen, B, H, 1, 64)
+    kq, vq = _codes(gen, B, H, 64, Ta), _codes(gen, B, H, 64, Ta)
+    ks, vs = _scales(gen, B, H, Ta), _scales(gen, B, H, Ta)
+    odd = []
+    for x in (kq, vq):
+        y = torch.empty(x.numel() + 1, dtype=torch.int8,
+                        device="cuda")[1:].view(x.shape)
+        y.copy_(x)
+        odd.append(y)
+    assert not xa._q8dt_words(Ta, odd[0].data_ptr(), odd[1].data_ptr())
+    got = xa.cross_attention_decode_q8dt(q, odd[0], ks, odd[1], vs)
+    words = xa.cross_attention_decode_q8dt(q, kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, words)
+    ref = xa.cross_attention_decode_q8dt_ref(q, kq, ks, vq, vs)
+    assert _rel_err(got, ref) <= TOL_XATTN
+
+
+@pytest.mark.parametrize("Ta", XATTN_TA)
+@pytest.mark.parametrize("B,H", XATTN_BH)
+def test_k5_cluster_matches_plain_on_card(gen, B, H, Ta):
+    """K5, the int8 instance of K4's cluster template: one CTA (Ta <= 64,
+    and every Ta at B*H = 1280), ranges of up to 96 keys in one copy each
+    (1500 at batch 1), 384-key ranges (1500 at (4,20)) and longer through
+    the 4-stage ring of 256 keys.  Two launches give the same bits."""
+    q = _bf16_randn(gen, B, H, 1, 64)
+    kq, vq = _codes(gen, B, H, Ta, 64), _codes(gen, B, H, Ta, 64)
+    ks, vs = _scales(gen, B, H, Ta, 1), _scales(gen, B, H, Ta, 1)
+    n = xa.cross_attention_decode_q8.launches
+    got = xa.cross_attention_decode_q8(q, kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    assert xa.cross_attention_decode_q8.launches == n + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    ref = xa.cross_attention_decode_q8_ref(q, kq, ks, vq, vs)
+    assert _rel_err(got, ref) <= TOL_XATTN
+    assert torch.equal(got, xa.cross_attention_decode_q8(q, kq, ks, vq, vs))
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K5"])
+@pytest.mark.parametrize("Ta", [37, 1501])
+def test_q8_kernels_on_layer_slices(gen, kernel, Ta):
+    """decode_step hands K2 and K5 layer l of the stacked cross-KV: at odd
+    Ta and an odd number of heads, layer 1's scales start 4-byte aligned
+    only (and K2's codes 1-byte aligned)."""
+    L, B, H = 3, 1, 5
+    q = _bf16_randn(gen, B, H, 1, 64)
+    if kernel == "K2":
+        kq, vq = _codes(gen, L, B, H, 64, Ta), _codes(gen, L, B, H, 64, Ta)
+        ks, vs = _scales(gen, L, B, H, Ta), _scales(gen, L, B, H, Ta)
+        fn, plain = (xa.cross_attention_decode_q8dt,
+                     xa.cross_attention_decode_q8dt_ref)
+    else:
+        kq, vq = _codes(gen, L, B, H, Ta, 64), _codes(gen, L, B, H, Ta, 64)
+        ks, vs = _scales(gen, L, B, H, Ta, 1), _scales(gen, L, B, H, Ta, 1)
+        fn, plain = (xa.cross_attention_decode_q8,
+                     xa.cross_attention_decode_q8_ref)
+    assert ks[1].data_ptr() % 16 != 0
+    for layer in range(L):
+        args = (q, kq[layer], ks[layer], vq[layer], vs[layer])
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert _rel_err(got, plain(*args)) <= TOL_XATTN
+
+
 def test_new_wrappers_refuse_on_card(gen):
     codes, scales, offs = _packed(gen, 256, 256, True)
     x = torch.randn(2, 256, device="cuda")
@@ -270,6 +395,22 @@ def test_new_wrappers_refuse_on_card(gen):
     kq, ks = xa.quantize_kv(k.float())
     with pytest.raises(ValueError):          # scales without the last axis
         xa.cross_attention_decode_q8(q, kq, ks[..., 0], kq, ks[..., 0])
+    with pytest.raises(ValueError):          # Ta past 16384
+        xa.cross_attention_decode_q8(q, kq, ks, kq, ks)
+    # K5's plan arguments, straight to its entry point: a cluster of 17, a
+    # cluster past one CTA per 64 keys, 1 and 9 stages, stages past 64 KB
+    from whisper_tpu_torch.ops._build import library
+    q, k, v = _bhtd(gen, 1, 2, 256)
+    kq, ks = xa.quantize_kv(k.float())
+    out = torch.empty(1, 2, 1, 64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for plan in ((17, 16, 2), (5, 64, 2), (1, 128, 1), (1, 16, 9),
+                 (1, 512, 4)):
+        with pytest.raises(RuntimeError):
+            library().call("wtt_cross_attention_bhtd_q8", q.data_ptr(),
+                           kq.data_ptr(), ks.data_ptr(), kq.data_ptr(),
+                           ks.data_ptr(), out.data_ptr(), 1, 2, 64, 256,
+                           *plan, stream)
 
 
 @pytest.mark.parametrize("kind,cross_mode,audio_ctx", [

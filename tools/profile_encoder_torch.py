@@ -31,14 +31,15 @@ and K4 (csrc/cross_attention.cu) at their M = 1 / batch-1 shapes and B = 4:
 `empty` (each CTA returns at once: the launch of the same cluster grid),
 `no_cluster` (no cluster barrier and no exchange through distributed
 shared memory: each CTA keeps its own max, sum and output),
-`k4_no_exchange` (K4 without the softmax exchange), and `library`, the
+`k4_no_exchange` (K4 without the softmax exchange; the cut is in
+`cluster_softmax`, which K2 and K5 share, untimed here), and `library`, the
 yardsticks in place of the kernels (K3's shapes: a max over the codes, a
 read of the same bytes, and the dense bf16 GEMV of twice the bytes; K4's:
 scaled_dot_product_attention on the same q, K, V).  Each shape is timed as
 one call (time_ms) and back to back on cold inputs (stream_ms); the
 unchanged build runs first and last, so K4 and SDPA are read in turns.
 
-kernels: K3 (with and without mins), K4 and K5 timed at every shape that
+kernels: K2, K3 (with and without mins), K4 and K5 timed at every shape that
 chip_smoke.py checks them at (`path_shapes`, its `time_ms`: CUDA-graph
 replay, L2 flushed, median of 20), for whisper_tpu_torch imported from DIR
 (an unpacked older commit) and from this checkout in turns, DIR, this,
@@ -46,8 +47,9 @@ this, DIR, each in a process of its own (one kernel library each); then
 the medians side by side.
 
 step: one decode step (`decode_step`) of path A (large-v3 q5_0 file,
-cross mode pallas_q8: K3, K5) and of path B (small q5_1, pallas: K3 with
-mins, K4) at batch 1 after a prompt pass over the first window of noise,
+cross mode pallas_q8: K3, K5), of path B (small q5_1, pallas: K3 with
+mins, K4) and of path C (path A's file, einsum_q8: K3, K2) at batch 1
+after a prompt pass over the first window of noise,
 in the same turns.  Per tree: the step's host issue time (the call, timed
 before the fence) and fenced wall (medians of N steps), and N more steps
 under torch.profiler: device launches and device busy time per step.  The
@@ -140,13 +142,14 @@ def encode(root: Path, runs: int) -> None:
 
 # variant -> (source, old, new) replacements for ablate-decode
 QMM, XATTN = "quantized_matmul.cu", "cross_attention.cu"
+# the body of cluster_softmax, the exchange K2, K4 and K5 share
 K4_EXCHANGE = (
     "  cluster_wait();\n"
     "  if (threadIdx.x < n_ranks)\n"
     "    st_async(map_rank(smem_u32(&stats[rank]), threadIdx.x), make_float2(m_cta, "
     "s_cta),\n"
-    "             map_rank(smem_u32(&stats_bar), threadIdx.x));\n"
-    "  mbar_wait(smem_u32(&stats_bar), 0);\n"
+    "             map_rank(stats_bar, threadIdx.x));\n"
+    "  mbar_wait(stats_bar, 0);\n"
     "  float m = stats[0].x;\n"
     "#pragma unroll\n"
     "  for (int r = 1; r < kMaxCluster; ++r)\n"
@@ -154,7 +157,9 @@ K4_EXCHANGE = (
     "  float sum = 0.f;\n"
     "#pragma unroll\n"
     "  for (int r = 0; r < kMaxCluster; ++r)\n"
-    "    if (r < n_ranks) sum += stats[r].y * expf(stats[r].x - m);")
+    "    if (r < n_ranks) sum += stats[r].y * expf(stats[r].x - m);\n"
+    "  return make_float2(m, 1.f / sum);")
+K4_LOCAL_STATS = "  return make_float2(m_cta, 1.f / s_cta);"
 K4_MERGE_STORE = (
     "    st_async(map_rank(smem_u32(&parts[rank][4 * threadIdx.x]), 0),\n"
     "             make_float4(s[0], s[1], s[2], s[3]), "
@@ -179,11 +184,11 @@ DECODE_CUTS = {
         (QMM, "  if (rank != 0) return;\n  // rank 0: every slot is in; add them in "
               "rank order\n  mbar_wait(slots_bar, 0);", "  __syncthreads();"),
         (XATTN, "  cluster_arrive_relaxed();\n", ""),
-        (XATTN, K4_EXCHANGE, "  const float m = m_cta, sum = s_cta;"),
+        (XATTN, K4_EXCHANGE, K4_LOCAL_STATS),
         (XATTN, K4_MERGE_STORE, K4_LOCAL_STORE),
         (XATTN, K4_MERGE_WAIT, "  __syncthreads();")],
     "k4_no_exchange": [(XATTN, K4_EXCHANGE.replace("  cluster_wait();\n", "", 1),
-                        "  const float m = m_cta, sum = s_cta;")],
+                        K4_LOCAL_STATS)],
     "library": [],
 }
 
@@ -205,8 +210,8 @@ def _card() -> str:
 
 
 def kernels_one(root: Path) -> None:
-    """Time K3, K4 and K5 at their chip_smoke shapes with the package of
-    `root`; print one JSON line {kernel: [[shape, ms], ...]}."""
+    """Time K2, K3, K4 and K5 at their chip_smoke shapes with the package
+    of `root`; print one JSON line {kernel: [[shape, ms], ...]}."""
     sys.path.insert(0, str(root))
     import torch
 
@@ -238,6 +243,12 @@ def kernels_one(root: Path) -> None:
                               for _ in range(2))
         return lambda: xa.cross_attention_decode_q8(q, kq, ks, vq, vs)
 
+    def k2(B, H, Dh, Ta):
+        q = bf16(B, H, 1, Dh)
+        (kq, ks), (vq, vs) = (xa.quantize_kv_bhdt(bf16(B, H, Dh, Ta).float())
+                              for _ in range(2))
+        return lambda: xa.cross_attention_decode_q8dt(q, kq, ks, vq, vs)
+
     # K3 on an f32 x as chip_smoke gives it (an older wrapper casts it to
     # bf16 first, one more launch) and on a bf16 x (the kernel alone)
     f32, bf = torch.float32, torch.bfloat16
@@ -245,7 +256,7 @@ def kernels_one(root: Path) -> None:
               "K3 bf16 x": ("K3", lambda *s: k3(False, bf, *s)),
               "K3+mins": ("K3+mins", lambda *s: k3(True, f32, *s)),
               "K3+mins bf16 x": ("K3+mins", lambda *s: k3(True, bf, *s)),
-              "K4": ("K4", k4), "K5": ("K5", k5)}
+              "K4": ("K4", k4), "K5": ("K5", k5), "K2": ("K2", k2)}
     shapes = cs.path_shapes()
     # [shape, one call (time_ms), back to back on cold inputs (stream_ms)]
     out = {key: [[list(s), cs.time_ms(make(*s)),
@@ -256,7 +267,7 @@ def kernels_one(root: Path) -> None:
 
 
 def step_one(root: Path, path: str, cross_mode: str, steps: int) -> None:
-    """Path A's or B's decode step with the package of `root`: prompt pass
+    """Path A's, B's or C's decode step with the package of `root`: prompt pass
     over the first window, then `steps` timed steps and `steps` profiled
     ones; print one JSON line."""
     sys.path.insert(0, str(root))
@@ -376,12 +387,13 @@ def in_turns(what: str, other: Path, extra: list[str]) -> None:
 
 
 def step_files() -> list[tuple[str, str]]:
-    """(model file, cross mode) of paths A and B, written once by this
+    """(model file, cross mode) of paths A, B and C, written once by this
     checkout's chip_smoke.py."""
     sys.path.insert(0, str(ROOT))
     cs = _chip_smoke()
-    return [(str(cs.model_file("large-v3", "q5_0")), "pallas_q8"),
-            (str(cs.model_file("small", "q5_1")), "pallas")]
+    big = str(cs.model_file("large-v3", "q5_0"))
+    return [(big, "pallas_q8"), (str(cs.model_file("small", "q5_1")), "pallas"),
+            (big, "einsum_q8")]
 
 
 def ablate_one(variant: str) -> None:

@@ -17,8 +17,8 @@ caller asks for the CPU.  Two paths are ported:
       -> window decode loop (decode/loop.py); every packed decoder linear
          through kernel K3 (ops/quantized.py, csrc/quantized_matmul.cu),
          the per-token cross-attention through K2 ("einsum_q8",
-         "pallas_q8dt"; csrc/cross_attention_q8.cu), K4 ("pallas") or K5
-         ("pallas_q8") (csrc/cross_attention.cu), or plain torch
+         "pallas_q8dt"), K4 ("pallas") or K5 ("pallas_q8")
+         (csrc/cross_attention.cu), or plain torch
          ("einsum", "einsum_q8i", "einsum_q4")
       -> host segment assembly (api.py)
 

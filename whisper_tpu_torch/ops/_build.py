@@ -45,8 +45,9 @@ SIGNATURES = {
     # rows0, ld0, rows1, ld1, rows2, ld2, hann, cos, sin, filters_t, out,
     # n_frames, n_mel, stream
     "wtt_log_mel": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
-    # q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, stream
-    "wtt_cross_attention_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, cluster, words, stream
+    "wtt_cross_attention_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
     # x, x_bf16, codes, scales, mins (or 0), work, out, M, N, K, splits,
     # kb_per_split, stream
     "wtt_quantized_matmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -56,9 +57,10 @@ SIGNATURES = {
                                     _P],
     # q, k, v, out, B, H, Dh, Ta, cluster, tile_keys, n_stages, stream
     "wtt_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, stream
+    # q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, cluster, tile_keys,
+    # n_stages, stream
     "wtt_cross_attention_bhtd_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _P],
+                                    _I, _I, _I, _P],
 }
 
 

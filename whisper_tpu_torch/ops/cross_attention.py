@@ -1,40 +1,37 @@
 """Single-query cross-attention kernels and the per-position int8
 quantizer of their K/V.
 
-K2 (csrc/cross_attention_q8.cu) replaces whisper_tpu/ops/cross_attention.py
+K2 replaces whisper_tpu/ops/cross_attention.py
 `cross_attention_decode_q8dt` / `_xattn_kernel_q8dt`: per (batch, head),
 logits = (q . k_q) * k_s * Dh^-1/2, an f32 softmax, weights w * v_s
-rounded to bf16, and their sum against v_q.  With a bf16 query this is
-the function of the serving path's "q8e" einsum
-(whisper_tpu/models/whisper.py `_cross_attn_step`) too.
-
-What bounds it on the H100: each decode step reads the whole int8
-cross-KV of every layer, 2 * H * Dh * Ta bytes per (batch row, layer),
-~3.8 MB per row per layer at large-v3, for 2 FLOP per byte: memory bound,
-three orders of magnitude under the compute ridge.  K2 reads the
-(B, H, Dh, Ta) int8 layout of `cross_kv_q8` as it is, with consecutive
-threads on consecutive key positions (coalesced byte reads along the
-contiguous Ta axis), dequantizes in registers, and keeps the (Ta,) logits
-and weights in shared memory, so no bf16 copy of K/V and no score tensor
-ever reaches device memory — the einsum path writes and re-reads both.
-One block per (b, h); splitting Ta over several blocks is later work.
-
-K4 and K5 (csrc/cross_attention.cu) work on the (B, H, Ta, Dh) layout of
-cross modes "pallas" and "pallas_q8", where Dh is contiguous: a group of 8
-lanes reads one key row, 8 channels a lane.  K4 replaces
+rounded to bf16, and their sum against v_q, on the (B, H, Dh, Ta) int8
+layout of `cross_kv_q8`.  With a bf16 query this is the function of the
+serving path's "q8e" einsum (whisper_tpu/models/whisper.py
+`_cross_attn_step`) too.  K4 and K5 work on the (B, H, Ta, Dh) layout of
+cross modes "pallas" and "pallas_q8", where Dh is contiguous: K4 replaces
 `cross_attention_decode` / `_xattn_kernel` (bf16 K/V), K5
 `cross_attention_decode_q8` / `_xattn_kernel_q8` (int8 K/V, (B, H, Ta, 1)
-scales).  As in those TPU kernels, the query and K/V are rounded to bf16
-inside the kernel whatever the compute dtype, and so are the softmax
-weights (times the V scale, for K5) before the product with V.  K5 is K2's
-design (one block per (b, h)).  K4 puts each (b, h) on a thread-block
-cluster of CTAs that split Ta into ranges of whole 16-key chunks, at most
-one CTA per 64 keys (`_xattn_plan`, `_key_range`), each range's K and V
-brought into shared memory by 1-D TMA, in one copy each (up to 128 keys)
-or through a 4-stage ring of 128 keys; the CTAs
-agree on the softmax's global max and sum through distributed shared
-memory before any weight is rounded, and their partial outputs are added
-in rank 0 in rank order.
+scales, K2's function).  As in those TPU kernels, the query and K/V are
+rounded to bf16 inside the kernel whatever the compute dtype, and so are
+the softmax weights (times the V scale, for K2 and K5) before the product
+with V.
+
+What bounds them on the H100: each decode step reads the whole cross-KV
+of every layer, 2 * H * Dh * Ta elements per (batch row, layer), ~3.8 MB
+per row per layer at large-v3 in int8, for 2 FLOP an element: memory
+bound, three orders of magnitude under the compute ridge.  All three
+(csrc/cross_attention.cu) put each (b, h) on a thread-block cluster of
+CTAs that split Ta into ranges of whole 16-key chunks, at most one CTA
+per 64 keys (`_cluster_size`, `_key_range`), keep the range's logits in
+shared memory, agree on the softmax's global max and sum through
+distributed shared memory before any weight is rounded, and add their
+partial outputs in rank 0 in rank order.  K4 and K5 bring a range's K and
+V into shared memory by 1-D TMA, in one copy each (up to 16 KB: 128 keys
+of bf16, 256 of int8) or through a 4-stage ring of such tiles
+(`_xattn_plan`).  K2 reads its d-rows, Ta bytes apart, a 32-bit word of 4
+keys a thread, or byte by byte where Ta % 4 != 0 or the codes are not
+4-byte aligned (`_q8dt_words`).  No bf16 copy of K/V and no score tensor
+ever reaches device memory.
 """
 
 from __future__ import annotations
@@ -44,14 +41,15 @@ import functools
 import torch
 
 DH = 64   # every Whisper model; K4 and K5 are written for it
-MAX_TA = 16384        # K4/K5 keep the (Ta,) logits in shared memory
-KEY_CHUNK = 16        # a K4 CTA's key range is whole chunks of this many keys
+MAX_DH = 128          # K2 takes head dims up to this
+MAX_TA = 16384        # K2/K4/K5 keep the (Ta,) logits in shared memory
+KEY_CHUNK = 16        # a CTA's key range is whole chunks of this many keys
 MIN_KEYS = 64         # and at least this many keys
 MAX_CLUSTER = 16      # CTAs in a cluster (non-portable above 8)
 TARGET_CTAS = 264     # two CTAs per SM of the H100's 132
 ONE_SHOT_KEYS = 128   # a K4 range up to this lands in one copy each for K, V
 RING_KEYS = 128       # a longer one streams through a ring of this many keys
-RING_STAGES = 4       # in this many stages (64 KB)
+RING_STAGES = 4       # in this many stages (64 KB); K5 takes twice the keys
 
 
 def _quantize(k: torch.Tensor, axis: int, lo: int, hi: int):
@@ -128,7 +126,7 @@ def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
     (B, H, Ta) f32 -> (B, H, 1, Dh) f32.
 
     CPU tensors take the plain version; CUDA tensors go through K2, which
-    takes a bfloat16 query only.
+    takes a bfloat16 query only, Dh up to MAX_DH and Ta up to MAX_TA.
     """
     if q.device.type == "cpu":
         return cross_attention_decode_q8dt_ref(q, k_q, k_s, v_q, v_s)
@@ -153,14 +151,16 @@ def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
         if not x.is_contiguous():
             raise ValueError(f"cross_attention_decode_q8dt: {name} must be "
                              "contiguous")
-    if one != 1 or Ta < 1:
-        raise ValueError(f"K2 takes one query per (b, h) and Ta >= 1 "
-                         f"(got {one}, Ta={Ta})")
+    if one != 1 or not 1 <= Ta <= MAX_TA or not 1 <= Dh <= MAX_DH:
+        raise ValueError(f"K2 takes one query per (b, h), 1 <= Ta <= {MAX_TA} "
+                         f"and 1 <= Dh <= {MAX_DH} (got {one}, Ta={Ta}, "
+                         f"Dh={Dh})")
     from ._build import library
     out = torch.empty((B, H, 1, Dh), dtype=torch.float32, device=q.device)
     library().call("wtt_cross_attention_q8", q.data_ptr(), k_q.data_ptr(),
                    k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-                   out.data_ptr(), B, H, Dh, Ta,
+                   out.data_ptr(), B, H, Dh, Ta, _cluster_size(B * H, Ta),
+                   int(_q8dt_words(Ta, k_q.data_ptr(), v_q.data_ptr())),
                    torch.cuda.current_stream(q.device).cuda_stream)
     cross_attention_decode_q8dt.launches += 1
     return out
@@ -209,29 +209,44 @@ def _check(fn_name, q, tensors):
                              f"{align}-byte aligned")
 
 
-@functools.lru_cache(maxsize=None)
-def _xattn_plan(bh: int, ta: int) -> tuple[int, int, int]:
-    """K4's grid for B*H = bh and Ta = ta: (cluster size C, keys a K/V
-    tile, stages).  C is the smallest power of two that brings the grid
-    (bh x C CTAs) to TARGET_CTAS, at most MAX_CLUSTER and at most one CTA
-    per MIN_KEYS keys (so C = 1 at Ta <= 64).  The longest range lands in
-    one copy each for K and V (two stages) when it has at most
-    ONE_SHOT_KEYS keys; a longer one streams through RING_STAGES stages of
-    RING_KEYS, so a CTA's shared memory stays small and the whole grid is
-    resident at once."""
-    chunks = -(-ta // KEY_CHUNK)
+def _cluster_size(bh: int, ta: int) -> int:
+    """CTAs a (b, h) for B*H = bh and Ta = ta, in K2, K4 and K5: the
+    smallest power of two that brings the grid (bh x C CTAs) to
+    TARGET_CTAS, at most MAX_CLUSTER and at most one CTA per MIN_KEYS keys
+    (so C = 1 at Ta <= 64)."""
     c = 1
     while 2 * c <= min(MAX_CLUSTER, -(-ta // MIN_KEYS)) and bh * c < TARGET_CTAS:
         c *= 2
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def _xattn_plan(bh: int, ta: int, elem: int = 2) -> tuple[int, int, int]:
+    """K4's (elem = 2, bf16) or K5's (elem = 1, int8) grid for B*H = bh and
+    Ta = ta: (cluster size C, keys a K/V tile, stages).  The longest range
+    lands in one copy each for K and V (two stages) when it has at most
+    ONE_SHOT_KEYS keys (times 2 / elem: 16 KB either way); a longer one
+    streams through RING_STAGES stages of RING_KEYS (times 2 / elem), so a
+    CTA's shared memory stays small and the whole grid is resident at
+    once."""
+    c = _cluster_size(bh, ta)
+    chunks = -(-ta // KEY_CHUNK)
     longest = min(-(-chunks // c) * KEY_CHUNK, ta)
-    if longest <= ONE_SHOT_KEYS:
+    if longest <= ONE_SHOT_KEYS * 2 // elem:
         return c, longest, 2
-    return c, RING_KEYS, RING_STAGES
+    return c, RING_KEYS * 2 // elem, RING_STAGES
+
+
+def _q8dt_words(ta: int, k_ptr: int, v_ptr: int) -> bool:
+    """Whether K2 reads its codes a 32-bit word (4 keys) at a time: every
+    d-row of k_q and v_q (Ta bytes apart) and every range in it (whole
+    16-key chunks) then starts 4-byte aligned.  Else byte by byte."""
+    return ta % 4 == 0 and k_ptr % 4 == 0 and v_ptr % 4 == 0
 
 
 def _key_range(rank: int, cluster: int, ta: int) -> tuple[int, int]:
-    """The keys [t0, t1) that CTA `rank` of a K4 cluster takes (the kernel
-    computes the same)."""
+    """The keys [t0, t1) that CTA `rank` of a K2/K4/K5 cluster takes (the
+    kernels compute the same)."""
     chunks = -(-ta // KEY_CHUNK)
     return (rank * chunks // cluster * KEY_CHUNK,
             min((rank + 1) * chunks // cluster * KEY_CHUNK, ta))
@@ -276,7 +291,7 @@ def cross_attention_decode_q8(q, k_q, k_s, v_q, v_s):
     f32 -> (B, H, 1, Dh) f32.
 
     CPU tensors take the plain version; CUDA tensors go through K5, which
-    takes a bfloat16 query only."""
+    takes a bfloat16 query only and Ta up to MAX_TA."""
     if q.device.type == "cpu":
         return cross_attention_decode_q8_ref(q, k_q, k_s, v_q, v_s)
     if q.device.type != "cuda":
@@ -291,11 +306,15 @@ def cross_attention_decode_q8(q, k_q, k_s, v_q, v_s):
         "k_s": (k_s, scales, torch.float32, 4),
         "v_q": (v_q, codes, torch.int8, 16),
         "v_s": (v_s, scales, torch.float32, 4)})
+    if not 1 <= Ta <= MAX_TA:
+        raise ValueError(f"cross_attention_decode_q8: K5 takes 1 <= Ta <= "
+                         f"{MAX_TA}, got {Ta}")
     from ._build import library
     out = torch.empty((B, H, 1, Dh), dtype=torch.float32, device=q.device)
     library().call("wtt_cross_attention_bhtd_q8", q.data_ptr(),
                    k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
                    v_s.data_ptr(), out.data_ptr(), B, H, Dh, Ta,
+                   *_xattn_plan(B * H, Ta, 1),
                    torch.cuda.current_stream(q.device).cuda_stream)
     cross_attention_decode_q8.launches += 1
     return out
