@@ -8,7 +8,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
   2. build kernels K1-K7 from whisper_tpu_torch/csrc with nvcc (one process
      per source, in parallel)
   3. compare each kernel with its plain PyTorch version on the card at
-     every shape the paths below give it, taken from the models they load,
+     every shape the paths below give it, taken from the models they load
+     (and K3 at the prompt passes of serving batches of 4 and 64 streams),
      each within its own bound (KERNEL_TOL), and time both (CUDA-graph
      replay between CUDA events, median of 20 runs after 3 warm-ups, L2
      flushed before each run), and where one PyTorch call computes the same
@@ -79,11 +80,17 @@ import torch
 # (n_text_ctx // 2 + 8, the carried-prompt pass)
 K3_M = (1, 4, 232)
 BENCH_BATCH = 64     # bench.py's default serving batch (K2's largest shape)
+# a serving batch's prompt pass through K3: B streams x 232 rows
+# (parallel/batch.py `_prompt_bucket` at the default n_max_text_ctx), at
+# the serving path's 4 streams and bench.py's 64, over large-v3's linears
+K3_SERVE_M = (4 * 232, BENCH_BATCH * 232)
 # max |kernel - plain| / max |plain|, per kernel.  K2, K3, K4 and K5 round
 # to bf16 exactly where their plain versions do, so only the f32 summation
-# order differs.  K3 read <= 3.8e-7 on the card; the plain version against
-# a copy of itself that drops one rounding (x, a scale, a weight, or adds
-# the min before rounding) reads >= 9.7e-4 at these shapes.  In K2/K4/K5 a
+# order differs.  K3 reads <= 8.1e-7 on the card up to M = 232 and <= 6.3e-6
+# at the serving prompt passes (the largest at (14848, 5120, 1280), sums of
+# 5120 products in wgmma's order); the plain version against a copy of
+# itself that drops one rounding (x, a scale, a weight, or adds the min
+# before rounding) reads >= 9.7e-4 at these shapes.  In K2/K4/K5 a
 # softmax weight a summation order apart can round to the neighbouring
 # bf16 value: they read <= 1.4e-4, and dropping the rounding of the
 # weights (times the V scale, in K2 and K5) reads >= 1.7e-3.
@@ -221,8 +228,9 @@ def path_shapes() -> dict:
     (B, Tp, D, H, t_valid) of path D's padded encoders (and K6 at small's
     width and the serving batch); K2 (B, H, Dh, Ta) of the serving batch,
     of path C (batch 1) and of bench.py's batch of 64; K3 (M, K, N) of the
-    decoder linears; K4/K5 (B, H, Ta, Dh); K7 (seconds
-    of PCM, n_mels)."""
+    decoder linears, and of large-v3's at the prompt passes of serving
+    batches of 4 and 64 streams; K4/K5 (B, H, Ta, Dh); K7 (seconds of
+    PCM, n_mels)."""
     from whisper_tpu_torch.models.whisper import MODEL_DIMS, WhisperConfig
     from whisper_tpu_torch.ops.encoder_attention import BLOCK_Q
     big, small = (WhisperConfig(*MODEL_DIMS[s]) for s in ("large-v3",
@@ -240,9 +248,9 @@ def path_shapes() -> dict:
         return (B, c.n_text_head, c.n_audio_ctx,
                 c.n_text_state // c.n_text_head)
 
-    def linears(*cfgs):
+    def linears(*cfgs, ms=K3_M):
         return [(M, K, N) for c in cfgs for d in (c.n_text_state,)
-                for M in K3_M for K, N in ((d, d), (d, 4 * d), (4 * d, d))]
+                for M in ms for K, N in ((d, d), (d, 4 * d), (4 * d, d))]
 
     def q8dt(B):
         B, H, Ta, Dh = xattn(big, B)
@@ -252,8 +260,10 @@ def path_shapes() -> dict:
     return {"K1": [enc(big, 1), enc(small, 1), enc(big, N_STREAMS)],
             "K1dt": [(b, h, d // h, tp, tv)],
             "K2": [q8dt(N_STREAMS), q8dt(1), q8dt(BENCH_BATCH)],
-            "K3": linears(big, small),           # path A: large-v3 q5_0
-            "K3+mins": linears(small, big),      # path B: small q5_1
+            # path A: large-v3 q5_0; then serving prompt passes
+            "K3": linears(big, small) + linears(big, ms=K3_SERVE_M),
+            # path B: small q5_1
+            "K3+mins": linears(small, big) + linears(big, ms=K3_SERVE_M),
             "K4": [xattn(small, 1), xattn(big, 1), xattn(big, N_STREAMS)],
             "K5": [xattn(big, 1), xattn(small, 1), xattn(big, N_STREAMS)],
             "K6": [padded(big, 1), padded(small, 1), padded(big, N_STREAMS)],
@@ -776,13 +786,12 @@ def run_full(label: str, path: Path, cross_mode: str, need, card_line,
     return counts
 
 
-# device kernels by name fragment, for --profile: K3's one-launch path at
-# M <= 8, and at M > 8 its split kernel and split sum (small's M = 232
-# linears split K in two); K4 and K5, the two instances of one template, by
-# their template arguments as the profiler prints them (demangled or not)
+# device kernels by name fragment, for --profile: K3's one-launch paths at
+# M <= 8 and at M > 8 (the prompt pass, wgmma); K4 and K5, the two
+# instances of one template, by their template arguments as the profiler
+# prints them (demangled or not)
 PROFILE_GROUPS = (("K3 M<=8", "qmm_decode_kernel"),
-                  ("K3 M>8 split sum", "sum_splits_kernel"),
-                  ("K3 M>8", "quantized_matmul_kernel"),
+                  ("K3 M>8", "qmm_prompt_kernel"),
                   ("K2", "xattn_q8dt_kernel"),
                   ("K5", ("xattn_cluster_kernel<signed char",
                           "xattn_cluster_kernelIaLb1")),

@@ -170,14 +170,15 @@ K3_SHAPES = [(1280, 1280), (1280, 5120), (5120, 1280), (768, 768),
 
 
 @pytest.mark.parametrize("mins", [False, True])
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 232])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 9, 40, 232, 2000])
 @pytest.mark.parametrize("K,N", K3_SHAPES)
 def test_k3_matches_plain_on_card(gen, K, N, M, mins):
     """large-v3's and small's decoder shapes (clusters of 1-16 CTAs at
-    M <= 8; one K split and several at M = 232) and a micro one; M = 1..8
-    each (M = 1 as in `full`, 4 as in serving: every M tile of the
-    one-launch path and its padding), 232 as in the carried-prompt pass.
-    Two launches give the same bits."""
+    M <= 8, of 1-8 at M > 8) and a micro one; M = 1..8 each (M = 1 as in
+    `full`, 4 as in serving: every M tile of the one-launch path and its
+    padding), 232 as in the carried-prompt pass, 9, 40 and 2000 (a serving
+    batch's prompt pass) on the wgmma path, every one of them with a
+    ragged last 128-row tile.  Two launches give the same bits."""
     codes, scales, offs = _packed(gen, K, N, mins)
     x = torch.randn(M, K, generator=gen, device="cuda")
     n = qm.quantized_matmul.launches
@@ -413,6 +414,27 @@ def test_new_wrappers_refuse_on_card(gen):
                            *plan, stream)
 
 
+def test_k3_prompt_entry_refuses_bad_plans(gen):
+    """K3's M > 8 entry point takes clusters of 1, 2, 4 or 8 CTAs, never
+    more than K's 32-row blocks: 0, 3, 16, and 8 at K = 128 are refused
+    before anything launches."""
+    from whisper_tpu_torch.ops._build import library
+    codes, scales, _ = _packed(gen, 128, 128, False)
+    x = torch.randn(40, 128, generator=gen, device="cuda")
+    out = torch.empty(40, 128, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for cluster in (0, 3, 16, 8):
+        with pytest.raises(RuntimeError):
+            library().call("wtt_quantized_matmul", x.data_ptr(), 0,
+                           codes.data_ptr(), scales.data_ptr(), 0,
+                           out.data_ptr(), 40, 128, 128, cluster, stream)
+    library().call("wtt_quantized_matmul", x.data_ptr(), 0, codes.data_ptr(),
+                   scales.data_ptr(), 0, out.data_ptr(), 40, 128, 128, 4,
+                   stream)
+    torch.cuda.synchronize()
+    assert _rel_err(out, qm.quantized_matmul_ref(x, codes, scales)) <= TOL_K3
+
+
 @pytest.mark.parametrize("kind,cross_mode,audio_ctx", [
     ("q5_0", "pallas_q8", 0), ("q5_1", "pallas", 0),
     ("q5_0", "pallas_q8", 37)])
@@ -573,23 +595,37 @@ def test_linear_bias_add_rounds_once_on_card(gen, out_dtype):
     assert torch.equal(got, (y.float() + b).to(out_dtype))
 
 
+@pytest.mark.parametrize("n_frames", [None, 37, 100])
 @pytest.mark.parametrize("n_mels", [80, 128])
 @pytest.mark.parametrize("seconds", [5, 60])
-def test_k7_matches_plain_on_card(gen, n_mels, seconds):
+def test_k7_matches_plain_on_card(gen, n_mels, seconds, n_frames):
     """K7 on a padded signal's row views (not copies), and log_mel_pallas
-    through it."""
+    through it.  n_frames: the first 37 or 100 frames only, not a multiple
+    of the 36 frames of a CTA: the same bits as those frames of the whole
+    signal, held against the plain version's rows of the whole signal
+    (cuBLAS takes another algorithm at so few rows: at 5 s, 100 frames,
+    128 mels its log-mel lay 2.6e-4 from a float64 reference where K7's
+    lay 8.1e-5, as on the whole signal)."""
     from whisper_tpu_torch.audio.mel import pad_audio
     pcm = (np.random.RandomState(seconds).randn(16000 * seconds) * 0.1
            ).astype(np.float32)
     padded = torch.from_numpy(pad_audio(pcm)[0]).cuda()
     args = mp.mel_block_inputs(padded, mel_filterbank(n_mels))
+    ref = mp._mel_blocks_ref(*args)
+    if n_frames is not None:
+        whole = mp._mel_blocks(*args)
+        args = [a[:n_frames] for a in args[:3]] + list(args[3:])
+        ref = ref[:n_frames]
     n = mp._mel_blocks.launches
     got = mp._mel_blocks(*args)
     torch.cuda.synchronize()
     assert mp._mel_blocks.launches == n + 1
     assert got.shape == (args[0].shape[0], n_mels)
     assert torch.isfinite(got).all()
-    assert _rel_err(got, mp._mel_blocks_ref(*args)) <= TOL_K7
+    assert _rel_err(got, ref) <= TOL_K7
+    if n_frames is not None:
+        assert torch.equal(got, whole[:n_frames])
+        return
     mel = mp.log_mel_pallas(padded, mel_filterbank(n_mels))
     assert mp._mel_blocks.launches == n + 2
     assert float(mel.max()) == pytest.approx(
@@ -609,8 +645,8 @@ def test_k6_k7_refuse_what_the_kernels_do_not_take(gen):
     args = list(mp.mel_block_inputs(padded, mel_filterbank(80)))
     with pytest.raises(ValueError):          # 64 mels
         mp._mel_blocks(*args[:-1], args[-1][:, :64].contiguous())
-    with pytest.raises(ValueError):          # frames not a multiple of 64
-        mp._mel_blocks(*(a[:100] for a in args[:3]), *args[3:])
+    with pytest.raises(ValueError):          # no frames
+        mp._mel_blocks(*(a[:0] for a in args[:3]), *args[3:])
 
 
 def test_encoder_variants_on_card(gen):

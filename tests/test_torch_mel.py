@@ -70,3 +70,19 @@ def test_mel_blocks_routes_and_refuses():
     assert tmp._mel_blocks.launches == n
     with pytest.raises(ValueError):
         tmp._mel_blocks(*(a.to("meta") for a in args))
+
+
+@pytest.mark.parametrize("n", [1, 35, 36, 37, 100, 3072, 8960])
+def test_k7_grid_covers_frames(n):
+    """K7's grid: CTAs of 36 frames, the last one ragged, covering every
+    frame exactly once; 60 s (8,960 frames) fills the H100's 264 slots of
+    two CTAs an SM in one wave (32 frames a CTA would leave a second wave
+    of 16)."""
+    ranges = tmp._k7_frame_ranges(n)
+    assert tmp.K7_FRAMES == 36
+    assert len(ranges) == -(-n // 36)
+    covered = [f for begin, end in ranges for f in range(begin, end)]
+    assert covered == list(range(n))
+    assert all(0 < end - begin <= 36 for begin, end in ranges)
+    if n == 8960:
+        assert 0.9 * 2 * 132 <= len(ranges) <= 2 * 132

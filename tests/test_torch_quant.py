@@ -59,7 +59,7 @@ def _packed(qtype, K, N, seed):
 
 
 @pytest.mark.parametrize("K,N", [(256, 128), (128, 512)])
-@pytest.mark.parametrize("M", [1, 5, 40])
+@pytest.mark.parametrize("M", [1, 5, 40, 232])
 @pytest.mark.parametrize("qtype", QTYPES)
 def test_k3_plain_matches_pallas(qtype, M, K, N):
     codes, scales, mins = _packed(qtype, K, N, seed=M + K + qtype)
@@ -97,20 +97,47 @@ def test_k3_plain_rounds_like_the_kernel():
     torch.testing.assert_close(got, t[0].to(bf).float() @ wt, rtol=0, atol=0)
 
 
-def test_k3_splits_cover_k():
-    """K3's grid at M > 8 (the carried-prompt pass) keeps its plan: split K
-    only while it adds blocks, never below one 32-row block per warp, and
-    the splits cover every block exactly once."""
-    assert tq.DECODE_M == 8
-    for M, N, K in ((232, 1280, 1280), (232, 5120, 1280), (232, 1280, 5120),
-                    (232, 768, 768), (9, 128, 128), (40, 512, 128),
-                    (1, 1280, 1280)):
-        splits, per = tq._splits(M, N, K)
-        kblocks = K // 32
-        assert splits >= 1 and (splits - 1) * per < kblocks <= splits * per
-        assert splits == 1 or per >= tq.WARPS
-    assert tq._splits(232, 768, 768) == (2, 12)
-    assert tq._splits(232, 1280, 5120)[0] == 1
+# (M, K, N) of K3's prompt path: the GPU tests' shapes at M = 9, 40, 232 and
+# 2000, large-v3's linears at serving prompt passes of 4 and 64 streams
+# (P = 232 rows each, parallel/batch.py `_prompt_bucket`), and the edges
+K3_PROMPT_SHAPES = (
+    [(M, K, N) for M in (9, 40, 232, 2000)
+     for K, N in ((1280, 1280), (1280, 5120), (5120, 1280), (768, 768),
+                  (768, 3072), (3072, 768), (128, 384))]
+    + [(M, K, N) for M in (4 * 232, 64 * 232)
+       for K, N in ((1280, 1280), (1280, 5120), (5120, 1280))]
+    + [(9, 32, 128), (130, 64, 256), (129, 16384, 128)])
+
+
+@pytest.mark.parametrize("M,K,N", K3_PROMPT_SHAPES)
+def test_k3_prompt_plan_covers_tiles(M, K, N):
+    """K3 at M > 8 (the carried-prompt pass): one launch of 128 x 128
+    output tiles, each tile's K split over a cluster of 1, 2, 4 or 8 CTAs
+    (never more than K's 32-row blocks), as many as it takes to bring the
+    grid to one CTA an SM; every (row tile, column tile, 32-row block) is
+    taken by exactly one CTA, and each rank's slice of the tile's rows is
+    whole."""
+    assert M > tq.DECODE_M
+    kblocks = K // 32
+    c = tq._prompt_cluster(M, N, K)
+    assert c in (1, 2, 4, 8) and c <= kblocks
+    row_tiles = -(-M // tq.PROMPT_TILE)
+    tiles = row_tiles * (N // tq.PROMPT_TILE)
+    assert tiles * c >= tq.SMS or 2 * c > min(tq.PROMPT_MAX_CLUSTER, kblocks)
+    assert c == 1 or tiles * c // 2 < tq.SMS
+    assert tq.PROMPT_TILE % c == 0          # the owners' row slices
+    taken = {}
+    for mt in range(row_tiles):
+        for nt in range(N // tq.PROMPT_TILE):
+            for rank in range(c):
+                begin, end = tq._k_slice(rank, c, kblocks)
+                assert end > begin
+                for kb in range(begin, end):
+                    key = (mt, nt, kb)
+                    taken[key] = taken.get(key, 0) + 1
+    assert len(taken) == tiles * kblocks and set(taken.values()) == {1}
+    if M == 232 and (K, N) in ((1280, 1280), (1280, 5120), (5120, 1280)):
+        assert tiles * c >= tq.SMS          # large-v3's prompt pass fills the card
 
 
 # (K, N) of large-v3's and small's decoder linears, the micro shape of the

@@ -39,12 +39,16 @@ scaled_dot_product_attention on the same q, K, V).  Each shape is timed as
 one call (time_ms) and back to back on cold inputs (stream_ms); the
 unchanged build runs first and last, so K4 and SDPA are read in turns.
 
-kernels: K2, K3 (with and without mins), K4 and K5 timed at every shape that
-chip_smoke.py checks them at (`path_shapes`, its `time_ms`: CUDA-graph
-replay, L2 flushed, median of 20), for whisper_tpu_torch imported from DIR
-(an unpacked older commit) and from this checkout in turns, DIR, this,
-this, DIR, each in a process of its own (one kernel library each); then
-the medians side by side.
+kernels: K2, K3 (with and without mins, f32 and bf16 x), K4, K5 and K7 (80
+and 128 mels) timed at every shape that this checkout's chip_smoke.py
+checks them at (`path_shapes`: K3 at M = 1, 4, 232 and the serving prompt
+passes of 4 x 232 and 64 x 232 rows; its `time_ms`: CUDA-graph replay, L2
+flushed, median of 20; and `stream_ms`, back to back on cold inputs), with
+K3's dense yardstick (F.linear of the bf16 x over the dequantized bf16
+weight) beside it, for whisper_tpu_torch imported from DIR (an unpacked
+older commit) and from this checkout in turns, DIR, this, this, DIR, each
+in a process of its own (one kernel library each); then the medians side
+by side.
 
 step: one decode step (`decode_step`) of path A (large-v3 q5_0 file,
 cross mode pallas_q8: K3, K5), of path B (small q5_1, pallas: K3 with
@@ -52,7 +56,11 @@ mins, K4) and of path C (path A's file, einsum_q8: K3, K2) at batch 1
 after a prompt pass over the first window of noise,
 in the same turns.  Per tree: the step's host issue time (the call, timed
 before the fence) and fenced wall (medians of N steps), and N more steps
-under torch.profiler: device launches and device busy time per step.  The
+under torch.profiler: device launches and device busy time per step.
+Then the carried-prompt pass of the same path (`decode_prompt` over 232
+tokens, n_text_ctx // 2 + 8 as `full` pads a carried prompt: every decoder
+linear at M = 232): its fenced wall (median of N) and, over N more under
+torch.profiler, launches and device busy time per pass.  The
 model files are chip_smoke.py's (random valid blocks, seed 0, written once
 into build/chip_smoke/).
 """
@@ -210,14 +218,19 @@ def _card() -> str:
 
 
 def kernels_one(root: Path) -> None:
-    """Time K2, K3, K4 and K5 at their chip_smoke shapes with the package
-    of `root`; print one JSON line {kernel: [[shape, ms], ...]}."""
+    """Time K2, K3 (and its dense yardstick), K4, K5 and K7 at their
+    chip_smoke shapes with the package of `root`; print one JSON line
+    {kernel: [[shape, ms, back-to-back ms], ...]}."""
     sys.path.insert(0, str(root))
     import torch
 
     cs = _chip_smoke()
+    from whisper_tpu_torch.audio.filters import mel_filterbank
+    from whisper_tpu_torch.audio.mel import full_f32_matmuls, pad_audio
     from whisper_tpu_torch.ops import cross_attention as xa
+    from whisper_tpu_torch.ops import mel_pallas as mp
     from whisper_tpu_torch.ops import quantized as qm
+    full_f32_matmuls()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
@@ -243,6 +256,19 @@ def kernels_one(root: Path) -> None:
                               for _ in range(2))
         return lambda: xa.cross_attention_decode_q8(q, kq, ks, vq, vs)
 
+    def k3_dense(M, K, N):
+        codes = torch.randint(-16, 16, (K, N), generator=gen, device="cuda",
+                              dtype=torch.int8)
+        scales = torch.rand(K // 32, N, generator=gen, device="cuda") * 2e-3 + 1e-4
+        xb = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        w = qm.dequantize_t(codes, scales).t().contiguous().to(torch.bfloat16)
+        return lambda: torch.nn.functional.linear(xb, w)
+
+    def k7(seconds, n_mel):
+        padded = torch.from_numpy(pad_audio(cs.mel_pcm(seconds))[0]).cuda()
+        args = mp.mel_block_inputs(padded, mel_filterbank(n_mel))
+        return lambda: mp._mel_blocks(*args)
+
     def k2(B, H, Dh, Ta):
         q = bf16(B, H, 1, Dh)
         (kq, ks), (vq, vs) = (xa.quantize_kv_bhdt(bf16(B, H, Dh, Ta).float())
@@ -256,7 +282,9 @@ def kernels_one(root: Path) -> None:
               "K3 bf16 x": ("K3", lambda *s: k3(False, bf, *s)),
               "K3+mins": ("K3+mins", lambda *s: k3(True, f32, *s)),
               "K3+mins bf16 x": ("K3+mins", lambda *s: k3(True, bf, *s)),
-              "K4": ("K4", k4), "K5": ("K5", k5), "K2": ("K2", k2)}
+              "K3 dense": ("K3", k3_dense),
+              "K4": ("K4", k4), "K5": ("K5", k5), "K2": ("K2", k2),
+              "K7": ("K7", k7)}
     shapes = cs.path_shapes()
     # [shape, one call (time_ms), back to back on cold inputs (stream_ms)]
     out = {key: [[list(s), cs.time_ms(make(*s)),
@@ -269,11 +297,10 @@ def kernels_one(root: Path) -> None:
 def step_one(root: Path, path: str, cross_mode: str, steps: int) -> None:
     """Path A's, B's or C's decode step with the package of `root`: prompt pass
     over the first window, then `steps` timed steps and `steps` profiled
-    ones; print one JSON line."""
+    ones, then the carried-prompt pass; print one JSON line."""
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from whisper_tpu_torch import WhisperContext
@@ -330,13 +357,39 @@ def step_one(root: Path, path: str, cross_mode: str, steps: int) -> None:
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            t, n = kernels.get(ev.name, (0.0, 0))
-            kernels[ev.name] = (t + ev.time_range.elapsed_us() / 1e3, n + 1)
+    kernels = _device_kernels(prof)
     busy = sum(t for t, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+
+    # the carried-prompt pass: 232 tokens, every decoder linear at M = 232
+    Pc = ctx.config.n_text_ctx // 2 + 8
+    ptok = torch.from_numpy(np.random.RandomState(1).randint(
+        0, v.token_eot, (1, Pc))).to(dev)
+    ppos = torch.arange(Pc, device=dev)
+    pmask = wm.make_causal_mask(Pc, device=dev)
+
+    def prompt():
+        wm.decode_prompt(ctx.params, ptok, ppos, kc, vc, nh, self_mask=pmask,
+                         compute_dtype=cd)
+
+    with torch.no_grad():
+        for _ in range(2):              # warm-up
+            prompt()
+        torch.cuda.synchronize()
+        pwalls = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            prompt()
+            torch.cuda.synchronize()
+            pwalls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pprof:
+            for _ in range(steps):
+                prompt()
+            torch.cuda.synchronize()
+    pk = _device_kernels(pprof)
+    pbusy = sum(t for t, _ in pk.values())
+    ptop = sorted(pk.items(), key=lambda kv: -kv[1][0])[:6]
     print("STEP " + json.dumps({
         "root": str(root), "file": Path(path).name, "cross_mode": cross_mode,
         "load_s": load_s, "steps": steps,
@@ -344,8 +397,25 @@ def step_one(root: Path, path: str, cross_mode: str, steps: int) -> None:
         "wall_ms": statistics.median(walls) * 1e3,
         "launches_per_step": sum(n for _, n in kernels.values()) / steps,
         "device_busy_ms_per_step": busy / steps,
-        "top": [[name[:80], t / steps, n / steps] for name, (t, n) in top]}),
+        "top": [[name[:80], t / steps, n / steps] for name, (t, n) in top],
+        "prompt_rows": Pc,
+        "prompt_wall_ms": statistics.median(pwalls) * 1e3,
+        "prompt_launches": sum(n for _, n in pk.values()) / steps,
+        "prompt_device_busy_ms": pbusy / steps,
+        "prompt_top": [[name[:80], t / steps, n / steps]
+                       for name, (t, n) in ptop]}),
         flush=True)
+
+
+def _device_kernels(prof) -> dict:
+    """{device kernel name: (ms, launches)} of a torch.profiler run."""
+    from torch.autograd import DeviceType
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            t, n = kernels.get(ev.name, (0.0, 0))
+            kernels[ev.name] = (t + ev.time_range.elapsed_us() / 1e3, n + 1)
+    return kernels
 
 
 def in_turns(what: str, other: Path, extra: list[str]) -> None:
@@ -380,7 +450,8 @@ def in_turns(what: str, other: Path, extra: list[str]) -> None:
         for j, rec in enumerate(lines[0]):
             runs = [run[j] for run in lines]
             for field in ("launches_per_step", "device_busy_ms_per_step",
-                          "host_issue_ms", "wall_ms"):
+                          "host_issue_ms", "wall_ms", "prompt_launches",
+                          "prompt_device_busy_ms", "prompt_wall_ms"):
                 print(f"[{card}] step {rec['file']} {rec['cross_mode']} {field}: "
                       + " / ".join(f"{n} {r[field]:.4f}" for n, r in zip(names, runs)),
                       flush=True)

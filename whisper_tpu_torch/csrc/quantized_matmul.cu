@@ -9,11 +9,15 @@
 // K-major; scales/mins (K/32, N) f32; y (M, N) f32.  The roundings are the
 // TPU kernel's, so only the order of the f32 sums differs.
 //
-// Bound on the H100: device-memory bandwidth.  In the token loop M is the
-// batch (1 in whisper_full, 4 in serving), so every call streams K*N code
-// bytes for 2*M FLOP each: at (1, 1280, 1280) 1.8 MB, 0.55 us at 3.35 TB/s.
-// Such a call is over in microseconds, so what bounds it in practice is how
-// many bytes are in flight at once and how many launches it takes.
+// Bound on the H100.  In the token loop M is the batch (1 in whisper_full,
+// 4 in serving), so every call streams K*N code bytes for 2*M FLOP each:
+// device-memory bandwidth, at (1, 1280, 1280) 1.8 MB, 0.55 us at 3.35
+// TB/s.  Such a call is over in microseconds, so what bounds it in
+// practice is how many bytes are in flight at once and how many launches
+// it takes.  The carried-prompt pass (M = 232 rows, n_text_ctx / 2 + 8;
+// B times that in a serving batch's prompt pass) does 2*M FLOP per code
+// byte: past ~150 rows the bf16 tensor cores bound it, and only `wgmma`
+// reaches them.
 //
 // Two device paths:
 //   * M <= 8, every decode step (`qmm_decode_kernel`, templated on the M
@@ -41,11 +45,27 @@
 //     barrier); rank 0 waits on that mbarrier and adds the slots in rank
 //     order, so two launches give the same bits; no workspace, no second
 //     kernel.
-//   * M > 8, the carried-prompt pass (`quantized_matmul_kernel`): a block
-//     takes 128 columns and 8 rows of x, its 8 warps whole 32-row blocks of
-//     K; when the column tiles alone cannot fill the card, K is split over
-//     blocks that write partial sums to a workspace, which a second kernel
-//     adds in a fixed order.
+//   * M > 8, the carried-prompt pass (`qmm_prompt_kernel`): one launch
+//     of `wgmma` tiles.  A CTA of two warpgroups owns 128 rows x 128
+//     columns of y and walks K in 32-row blocks: one thread keeps a ring
+//     of 3 blocks in flight by TMA (x's 128 x 32 box in its own dtype,
+//     swizzled so each row is one swizzle span, and the codes and scales
+//     boxes the decode path's tensor maps give); every thread rounds x to
+//     bf16 into the A buffer (K-major, 64-byte swizzle) and dequantizes 16
+//     codes into the B buffer (MN-major, 128-byte swizzle: the codes are
+//     N-contiguous and `wgmma` reads B transposed), as the decode path
+//     computes them; then each warpgroup runs two m64n128k16 `wgmma` into
+//     f32 registers, which overlap the next block's preparation (three
+//     operand buffers, one barrier a block; 112 KB of shared memory, so
+//     two CTAs share an SM and overlap each other's barriers).  So W is
+//     dequantized once per 128 rows, not once per 8 as before.  Where the
+//     output tiles alone leave the card short of 132 CTAs, K is split over
+//     a cluster of 2-8 CTAs, and each CTA owns a 128 / C-row slice of the
+//     tile: after one cluster barrier every CTA pushes its partial rows
+//     into their owner's slots (over its own finished ring) with
+//     `st.async`, the owner adds them in rank order, so two launches give
+//     the same bits; no workspace, no second kernel.  Rows past M are read
+//     as zero by TMA and not stored.
 // No dequantized copy of W is ever written to device memory.
 //
 // Plain C entry points for ctypes; each launches on the given stream and
@@ -67,10 +87,24 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kQK = 32;        // quantization block
-constexpr int kTileN = 128;    // output columns per block: 32 lanes x 4
-constexpr int kTileM = 8;      // rows of x per block (M > 8 path)
+constexpr int kTileN = 128;    // N must be a multiple of this (both paths)
+constexpr int kDecodeM = 8;    // rows of x the decode path takes at most
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+// prompt path (M > 8): a CTA's output tile, its ring of raw blocks as TMA
+// lands them, and its bf16 operand buffers
+constexpr int kPrM = 128;                   // rows: two warpgroups of 64
+constexpr int kPrN = 128;                   // columns: two 64-column halves
+constexpr int kPrStages = 3;                // raw 32-row blocks in flight
+constexpr int kPrBufs = 3;                  // bf16 A/B buffers
+constexpr int kPrMaxCluster = 8;
+constexpr int kPrBBytes = kQK * kPrN * 2;   // B: [2 halves][32 k][64 n] bf16
+constexpr int kPrABytes = kPrM * kQK * 2;   // A: [128 m][32 k] bf16
+constexpr int kPrBufBytes = kPrBBytes + kPrABytes;
+constexpr int kPrXBytes = kPrM * kQK * 4;   // raw x, f32 (bf16 uses half)
+constexpr int kPrCodeBytes = kQK * kPrN;    // raw codes [2 halves][32][64]
+constexpr int kPrStageBytes = kPrXBytes + kPrCodeBytes + 2 * kPrN * 4;
+constexpr int kPrTileBytes = kPrM * kPrN * 4;   // the f32 tile, split K's slots
 // decode path
 constexpr int kMaxCluster = 16;
 constexpr int kMaxPassKb = 16;              // 32-row blocks a CTA holds at once
@@ -88,119 +122,6 @@ __device__ __forceinline__ float round_bf16(float v) {
 __device__ __forceinline__ float bf16_of(float v) { return round_bf16(v); }
 __device__ __forceinline__ float bf16_of(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// ---- M > 8 --------------------------------------------------------------
-
-template <bool kMins, typename XT>
-__global__ void __launch_bounds__(kThreads)
-quantized_matmul_kernel(const XT* __restrict__ x,
-                        const int8_t* __restrict__ codes,
-                        const float* __restrict__ scales,
-                        const float* __restrict__ mins,
-                        float* __restrict__ dst, int M, int N, int K,
-                        int kb_per_split) {
-  __shared__ float xs[kWarps][kTileM][kQK];        // each warp's x slice
-  __shared__ float red[kWarps][kTileM][kTileN];    // per-warp partial sums
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int n = blockIdx.x * kTileN + lane * 4;
-  const int m0 = blockIdx.z * kTileM;
-  const int rows = min(kTileM, M - m0);
-  const int kb_begin = blockIdx.y * kb_per_split;
-  const int kb_end = min(kb_begin + kb_per_split, K / kQK);
-
-  float acc[kTileM][4];
-#pragma unroll
-  for (int m = 0; m < kTileM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int kb = kb_begin + warp; kb < kb_end; kb += kWarps) {
-    const int k0 = kb * kQK;
-    for (int i = lane; i < kTileM * kQK; i += 32) {
-      const int m = i / kQK, kk = i % kQK;
-      xs[warp][m][kk] = m < rows ? bf16_of(x[(size_t)(m0 + m) * K + k0 + kk]) : 0.f;
-    }
-    __syncwarp();
-
-    const float4 s4 = *reinterpret_cast<const float4*>(scales + (size_t)kb * N + n);
-    const float s[4] = {round_bf16(s4.x), round_bf16(s4.y), round_bf16(s4.z),
-                        round_bf16(s4.w)};
-    float mn[4] = {0.f, 0.f, 0.f, 0.f};
-    if (kMins) {
-      const float4 m4 = *reinterpret_cast<const float4*>(mins + (size_t)kb * N + n);
-      mn[0] = round_bf16(m4.x);
-      mn[1] = round_bf16(m4.y);
-      mn[2] = round_bf16(m4.z);
-      mn[3] = round_bf16(m4.w);
-    }
-
-#pragma unroll 8
-    for (int r = 0; r < kQK; ++r) {
-      const char4 c = *reinterpret_cast<const char4*>(codes + (size_t)(k0 + r) * N + n);
-      float w[4] = {round_bf16((float)c.x * s[0]), round_bf16((float)c.y * s[1]),
-                    round_bf16((float)c.z * s[2]), round_bf16((float)c.w * s[3])};
-      if (kMins) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = round_bf16(w[j] + mn[j]);
-      }
-#pragma unroll
-      for (int m = 0; m < kTileM; ++m) {
-        const float xv = xs[warp][m][r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int m = 0; m < kTileM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[warp][m][lane * 4 + j] = acc[m][j];
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < kTileM * kTileN; i += kThreads) {
-    const int m = i / kTileN, col = i % kTileN;
-    if (m >= rows) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[w][m][col];
-    dst[(size_t)blockIdx.y * M * N + (size_t)(m0 + m) * N + blockIdx.x * kTileN + col] = sum;
-  }
-}
-
-// out[i] = sum over s of work[s][i], in order of s
-__global__ void sum_splits_kernel(const float* __restrict__ work,
-                                  float* __restrict__ out, size_t count,
-                                  int splits) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float sum = 0.f;
-    for (int s = 0; s < splits; ++s) sum += work[(size_t)s * count + i];
-    out[i] = sum;
-  }
-}
-
-template <bool kMins, typename XT>
-int launch_split(const void* x, const void* codes, const void* scales,
-                 const void* mins, void* work, void* out, int M, int N, int K,
-                 int splits, int kb_per_split, cudaStream_t st) {
-  const dim3 grid(N / kTileN, splits, (M + kTileM - 1) / kTileM);
-  float* dst = static_cast<float*>(splits > 1 ? work : out);
-  quantized_matmul_kernel<kMins, XT><<<grid, kThreads, 0, st>>>(
-      static_cast<const XT*>(x), static_cast<const int8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<const float*>(mins), dst,
-      M, N, K, kb_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t count = (size_t)M * N;
-  const int blocks = (int)((count + 255) / 256 < 1024 ? (count + 255) / 256 : 1024);
-  sum_splits_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(work),
-                                             static_cast<float*>(out), count, splits);
-  return (int)cudaGetLastError();
 }
 
 // ---- M <= 8 -------------------------------------------------------------
@@ -464,7 +385,325 @@ qmm_decode_kernel(const XT* __restrict__ x,
   }
 }
 
-// ---- host side of the decode path ---------------------------------------
+// ---- M > 8: the prompt pass on wgmma ------------------------------------
+
+// Shared-memory matrix descriptor of `wgmma`: start address, leading and
+// stride byte offsets, swizzle mode (1: 128-byte, 2: 64-byte).  K-major:
+// SBO is the stride between 8-row groups (LBO unused).  MN-major: LBO is
+// the stride between 64-element MN blocks, SBO between groups of 8 K rows.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Wait until at most `kPending` committed groups of this warpgroup run.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
+}
+
+// Keep the compiler from touching accumulators across an async wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WTT_F8(op, d, i)                                                   \
+  op(d[i]), op(d[i + 1]), op(d[i + 2]), op(d[i + 3]), op(d[i + 4]),        \
+      op(d[i + 5]), op(d[i + 6]), op(d[i + 7])
+#define WTT_F64(op, d)                                                     \
+  WTT_F8(op, d, 0), WTT_F8(op, d, 8), WTT_F8(op, d, 16), WTT_F8(op, d, 24), \
+      WTT_F8(op, d, 32), WTT_F8(op, d, 40), WTT_F8(op, d, 48),             \
+      WTT_F8(op, d, 56)
+#define WTT_INOUT(x) "+f"(x)
+#define WTT_D64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// D (64 x 128 f32 a warpgroup) += A B over 16 of K: A K-major, B MN-major
+// (the transpose bit), both bf16 in shared memory.
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WTT_D64
+      ", %64, %65, p, 1, 1, 0, 1;\n\t}"
+      : WTT_F64(WTT_INOUT, d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two floats into another CTA's shared memory, counted on its mbarrier
+// `bar` (see st_async)
+__device__ __forceinline__ void st_async2(uint32_t addr, float a, float b,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32"
+      " [%0], {%1, %2}, [%3];" ::"r"(addr), "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+// Shared memory of the prompt path, past 1 KB of slack that aligns it to
+// the swizzle pattern's 1024 bytes: the bf16 buffers and the raw stages
+// (112 KB with the mbarriers, so two CTAs share an SM), which the split-K
+// slots overlay once the cluster is past its main loops, then the
+// mbarriers.
+constexpr size_t kPrSmem = 1024 + kPrBufs * kPrBufBytes + kPrStages * kPrStageBytes +
+                           8 * (kPrStages + 1);
+static_assert(kPrTileBytes <= kPrBufs * kPrBufBytes + kPrStages * kPrStageBytes,
+              "the slots overlay the buffers and stages");
+
+// The whole cluster barrier, arrive (release) and wait (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Grid (C, N / 128, ceil(M / 128)), cluster (C, 1, 1): CTA rank r of a
+// cluster takes 32-row blocks [r * nkb / C, (r + 1) * nkb / C) of output
+// tile (blockIdx.z, blockIdx.y).  Per block: thread 0 requests by TMA x's
+// 128 rows x 32 columns in its own dtype (swizzled; rows past M read as
+// zero) and the block's codes and scales (and mins) for the tile's 128
+// columns, into stage i % 3 of a ring it keeps 3 blocks ahead; every
+// thread then writes 16 bytes of A (x rounded to bf16, K-major, 64-byte
+// swizzle) twice and 32 of B (16 dequantized bf16 weights of one K row,
+// MN-major, 128-byte swizzle) into buffer i % 3; after one barrier each
+// warpgroup issues two m64n128k16 wgmma on its 64 rows and lets them run
+// while the threads prepare the next block (wgmma.wait_group 1: the
+// buffer written next was last read two blocks ago, and the barrier that
+// follows each block's writes orders it after both warpgroups' waits).
+//   Epilogue: without a split each thread stores its fragment; with one,
+// rank r of the cluster owns rows [r R, (r + 1) R) of the tile (R = 128 /
+// C): once the whole cluster is past its main loops (one cluster barrier:
+// the slots overlay the buffers and stages), every CTA pushes each of its
+// partial rows into the slot of its rank in the owner (st.async), and each
+// owner adds its C slots in rank order and stores its rows.
+template <bool kMins, bool kBf16X>
+__global__ void __launch_bounds__(kThreads, 2)
+qmm_prompt_kernel(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_codes,
+                  const __grid_constant__ CUtensorMap tm_scales,
+                  const __grid_constant__ CUtensorMap tm_mins,
+                  float* __restrict__ out, int M, int N, int K, int n_split) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw_addr);
+  const uint32_t stages = base + kPrBufs * kPrBufBytes;
+  const uint32_t slots = base;   // split K: [C][128 / C rows][128] f32
+  const uint32_t bars = stages + kPrStages * kPrStageBytes;
+  const uint32_t slots_bar = bars + 8 * kPrStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int rank = blockIdx.x;
+  const int n0 = blockIdx.y * kPrN;
+  const int m0 = blockIdx.z * kPrM;
+  const int nkb = K / kQK;
+  const int kb_begin = (int)((long long)rank * nkb / n_split);
+  const int n_blocks = (int)((long long)(rank + 1) * nkb / n_split) - kb_begin;
+
+  // block i's x, codes, scales (and mins) into stage i % kPrStages
+  auto request = [&](int i) {
+    const uint32_t st = stages + (i % kPrStages) * kPrStageBytes;
+    const uint32_t bar = bars + 8 * (i % kPrStages);
+    const int kb = kb_begin + i;
+    mbar_expect_tx(bar, (kBf16X ? kPrXBytes / 2 : kPrXBytes) + kPrCodeBytes +
+                            (kMins ? 2 : 1) * kPrN * 4);
+    tma_load_2d(st, &tm_x, bar, kb * kQK, m0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + h * 64;
+      tma_load_2d(st + kPrXBytes + h * kDecCodeBytes, &tm_codes, bar, col, kb * kQK);
+      tma_load_2d(st + kPrXBytes + kPrCodeBytes + h * 256, &tm_scales, bar, col, kb);
+      if (kMins)
+        tma_load_2d(st + kPrXBytes + kPrCodeBytes + 512 + h * 256, &tm_mins, bar, col,
+                    kb);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s <= kPrStages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    // the bytes the cluster's CTAs will push into this one's slots
+    if (n_split > 1) mbar_expect_tx(slots_bar, kPrTileBytes);
+    for (int i = 0; i < kPrStages && i < n_blocks; ++i) request(i);
+  }
+  __syncthreads();
+
+  // this thread's share of B: K row krow, columns 64 half + 16 quad .. + 15
+  // (a quarter-warp covers two whole 64-byte rows of one half's codes)
+  const int half = (tid >> 3) & 1;
+  const int krow = 2 * (tid >> 4) + ((tid >> 2) & 1);
+  const int quad = tid & 3;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n_blocks; ++i) {
+    const int s = i % kPrStages;
+    const unsigned char* x_raw = sbase + (stages - base) + s * kPrStageBytes;
+    const unsigned char* codes = x_raw + kPrXBytes;
+    const float* scl = reinterpret_cast<const float*>(codes + kPrCodeBytes);
+    unsigned char* b_buf = sbase + (i % kPrBufs) * kPrBufBytes;
+    unsigned char* a_buf = b_buf + kPrBBytes;
+    mbar_wait(bars + 8 * s, (i / kPrStages) & 1);
+
+    // A: 512 chunks of 8 bf16, row r's chunk j at j ^ ((r >> 1) & 3)
+#pragma unroll
+    for (int p = tid; p < kPrM * 4; p += kThreads) {
+      if (kBf16X) {   // x landed in A's own layout
+        *reinterpret_cast<uint4*>(a_buf + p * 16) =
+            *reinterpret_cast<const uint4*>(x_raw + p * 16);
+      } else {        // f32 rows of 128 bytes: chunk c at c ^ (r & 7)
+        const int r = p >> 2, j = p & 3;
+        const unsigned char* row = x_raw + r * 128;
+        const float4 lo =
+            *reinterpret_cast<const float4*>(row + (((2 * j) ^ (r & 7)) << 4));
+        const float4 hi =
+            *reinterpret_cast<const float4*>(row + (((2 * j + 1) ^ (r & 7)) << 4));
+        *reinterpret_cast<uint4*>(a_buf + r * 64 + ((j ^ ((r >> 1) & 3)) << 4)) =
+            make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                       pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+      }
+    }
+
+    // B: 16 codes of row krow (one 16-byte load) and their bf16 scales, the
+    // weights as in the decode path, two 16-byte stores
+    {
+      const uint4 cw = *reinterpret_cast<const uint4*>(
+          codes + half * kDecCodeBytes + krow * 64 + quad * 16);
+      const float* sc = scl + half * 64 + quad * 16;
+      const float* mn = sc + 2 * 64;
+      const uint32_t words[4] = {cw.x, cw.y, cw.z, cw.w};
+      uint32_t packed[8];
+#pragma unroll
+      for (int wi = 0; wi < 4; ++wi) {
+        const float4 s4 = *reinterpret_cast<const float4*>(sc + 4 * wi);
+        float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+        round_pair(sv[0], sv[1]);
+        round_pair(sv[2], sv[3]);
+        const uint32_t u = words[wi] ^ 0x80808080u;
+        float w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + e)), sv[e],
+                      -8388736.f * sv[e]);
+        if (kMins) {
+          const float4 m4 = *reinterpret_cast<const float4*>(mn + 4 * wi);
+          float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+          round_pair(mv[0], mv[1]);
+          round_pair(mv[2], mv[3]);
+          round_pair(w[0], w[1]);
+          round_pair(w[2], w[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) w[e] += mv[e];
+        }
+        packed[2 * wi] = pack_bf16(w[0], w[1]);
+        packed[2 * wi + 1] = pack_bf16(w[2], w[3]);
+      }
+      unsigned char* row = b_buf + half * (kQK * 128) + krow * 128;
+      *reinterpret_cast<uint4*>(row + (((2 * quad) ^ (krow & 7)) << 4)) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      *reinterpret_cast<uint4*>(row + (((2 * quad + 1) ^ (krow & 7)) << 4)) =
+          make_uint4(packed[4], packed[5], packed[6], packed[7]);
+    }
+    // the generic proxy's writes, visible to wgmma's (async proxy) reads
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    // stage s is read: refill it with block i + kPrStages
+    if (tid == 0 && i + kPrStages < n_blocks) request(i + kPrStages);
+
+    // both warpgroups always (a warpgroup whose rows all lie past M adds
+    // zeros): a wgmma under a branch is serialized by ptxas
+    const uint32_t bb = base + (i % kPrBufs) * kPrBufBytes;
+    // B: two MN blocks of 64 columns (4 KB apart), 8-row groups 1 KB
+    // apart; A: this warpgroup's 64 rows, 8-row groups 512 bytes apart
+    const uint64_t db = smem_desc(bb, kQK * 128, 1024, 1);
+    const uint64_t da = smem_desc(bb + kPrBBytes + wg * 64 * 64, 16, 512, 2);
+    wgmma_fence();
+    wgmma_m64n128(acc, da, db);
+    wgmma_m64n128(acc, da + (32 >> 4), db + (2048 >> 4));   // k 16..31
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // fragment: thread (warp w of its warpgroup, lane l) holds rows 16 w +
+  // l / 4 (+ 8) of the warpgroup's 64, columns 8 j + 2 (l % 4) (+ 1)
+  const int lrow = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  const int lcol = 2 * (lane % 4);
+  if (n_split == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = m0 + lrow + 8 * hr;
+      if (r >= M) continue;
+      float* dst = out + (size_t)r * N + n0 + lcol;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+    }
+    return;
+  }
+
+  const int rows_each = kPrM / n_split;
+  // every CTA of the cluster is past its main loop (the slots overlay its
+  // buffers and stages) and has its mbarriers set up
+  cluster_sync();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = lrow + 8 * hr;
+    const int owner = r / rows_each;
+    const uint32_t dst = slots + ((rank * rows_each + r % rows_each) * kPrN + lcol) * 4;
+    const uint32_t rdst = map_rank(dst, owner);
+    const uint32_t rbar = map_rank(slots_bar, owner);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      st_async2(rdst + 32 * j, acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1], rbar);
+  }
+  // this CTA's rows: every rank's slot is in; add them in rank order
+  mbar_wait(slots_bar, 0);
+  const float* sl = reinterpret_cast<const float*>(sbase + (slots - base));
+  for (int e = tid; e < rows_each * kPrN / 4; e += kThreads) {
+    const int r = e / (kPrN / 4), c = 4 * (e % (kPrN / 4));
+    float4 sum = *reinterpret_cast<const float4*>(sl + r * kPrN + c);
+    for (int q = 1; q < n_split; ++q) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(sl + (q * rows_each + r) * kPrN + c);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int gr = m0 + rank * rows_each + r;
+    if (gr < M) *reinterpret_cast<float4*>(out + (size_t)gr * N + n0 + c) = sum;
+  }
+}
+
+// ---- host side ----------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -492,47 +731,62 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The tensor map of a row-major (rows, cols) array of int8 codes (box: 64
-// columns x 32 rows, one 32-row block of a column tile) or of f32 scales
-// or mins (box: 64 columns x 1 row), no swizzle.  A map depends on nothing
-// but these arguments, and a model's weights stay put, so the maps are
-// kept by pointer and shape: encoding them anew would add host time to
-// every call of the token loop.  A model holds a few hundred such arrays
-// (large-v3: 3 x 8 x 32); past kMaxMaps entries (weights freed and
-// reallocated, models reloaded) the table starts over.
+// What a tensor map reads: int8 codes (box: 64 columns x 32 rows, one
+// 32-row block of a column tile), f32 scales or mins (box: 64 columns x 1
+// row), both unswizzled; or x in f32 / bf16 (box: 32 columns x 128 rows,
+// one 32-wide K block of a prompt tile, rows past M read as zero) with the
+// 128- / 64-byte swizzle that makes each row one swizzle span.
+enum MapKind { kCodes, kScales, kXf32, kXbf16 };
+
+// The tensor map of a row-major (rows, cols) array of `kind`.  A map
+// depends on nothing but these arguments, and a model's weights stay put,
+// so the maps are kept by pointer, shape and kind: encoding them anew
+// would add host time to every call of the token loop.  A model holds a
+// few hundred such arrays (large-v3: 3 x 8 x 32); the prompt pass adds its
+// activations, which the caching allocator hands out at a few recurring
+// addresses.  Past kMaxMaps entries (weights freed and reallocated, models
+// reloaded) the table starts over.
 constexpr size_t kMaxMaps = 4096;
 struct MapKey {
   const void* ptr;
   int rows, cols;
-  bool f32;
+  MapKind kind;
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && rows == o.rows && cols == o.cols && f32 == o.f32;
+    return ptr == o.ptr && rows == o.rows && cols == o.cols && kind == o.kind;
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     return std::hash<const void*>()(k.ptr) ^ ((size_t)k.rows << 32) ^
-           ((size_t)k.cols << 1) ^ (size_t)k.f32;
+           ((size_t)k.cols << 2) ^ (size_t)k.kind;
   }
 };
 
-bool weight_map(const void* ptr, int rows, int cols, bool f32, CUtensorMap* out) {
+bool tensor_map(const void* ptr, int rows, int cols, MapKind kind, CUtensorMap* out) {
   static std::mutex lock;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
-  const MapKey key{ptr, rows, cols, f32};
+  const MapKey key{ptr, rows, cols, kind};
   std::lock_guard<std::mutex> guard(lock);
   auto it = maps.find(key);
   if (it == maps.end()) {
     const EncodeTiled encode = tensor_map_encoder();
     if (encode == nullptr) return false;
+    static const CUtensorMapDataType types[] = {
+        CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+        CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16};
+    static const int bytes[] = {1, 4, 4, 2};
+    static const cuuint32_t box_cols[] = {kDecCols, kDecCols, kQK, kQK};
+    static const cuuint32_t box_rows[] = {kQK, 1, kPrM, kPrM};
+    static const CUtensorMapSwizzle swizzles[] = {
+        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_SWIZZLE_64B};
     const cuuint32_t ones[2] = {1, 1};
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * (f32 ? 4 : 1)};
-    const cuuint32_t box[2] = {kDecCols, f32 ? 1u : (cuuint32_t)kQK};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes[kind]};
+    const cuuint32_t box[2] = {box_cols[kind], box_rows[kind]};
     CUtensorMap map;
-    if (encode(&map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-               2, const_cast<void*>(ptr), dims, strides, box, ones,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+    if (encode(&map, types[kind], 2, const_cast<void*>(ptr), dims, strides, box,
+               ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzles[kind],
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return false;
@@ -543,12 +797,19 @@ bool weight_map(const void* ptr, int rows, int cols, bool f32, CUtensorMap* out)
   return true;
 }
 
-struct DecodeMaps {
+struct WeightMaps {
   CUtensorMap codes, scales, mins;   // mins: the scales' when there are none
 };
 
+bool weight_maps(const void* codes, const void* scales, const void* mins, int N,
+                 int K, WeightMaps* maps) {
+  return tensor_map(codes, K, N, kCodes, &maps->codes) &&
+         tensor_map(scales, K / kQK, N, kScales, &maps->scales) &&
+         tensor_map(mins != nullptr ? mins : scales, K / kQK, N, kScales, &maps->mins);
+}
+
 template <int kM, bool kMins, typename XT>
-int launch_decode(const void* x, const DecodeMaps& maps, void* out, int M, int N,
+int launch_decode(const void* x, const WeightMaps& maps, void* out, int M, int N,
                   int K, int cluster, cudaStream_t st) {
   auto kernel = qmm_decode_kernel<kM, kMins, XT>;
   // attributes once per device and instance: the largest pass, clusters
@@ -589,12 +850,50 @@ int launch_decode(const void* x, const DecodeMaps& maps, void* out, int M, int N
 }
 
 template <bool kMins, typename XT>
-int dispatch_decode(const void* x, const DecodeMaps& maps, void* out, int M, int N,
+int dispatch_decode(const void* x, const WeightMaps& maps, void* out, int M, int N,
                     int K, int cluster, cudaStream_t st) {
   if (M == 1) return launch_decode<1, kMins, XT>(x, maps, out, M, N, K, cluster, st);
   if (M == 2) return launch_decode<2, kMins, XT>(x, maps, out, M, N, K, cluster, st);
   if (M <= 4) return launch_decode<4, kMins, XT>(x, maps, out, M, N, K, cluster, st);
   return launch_decode<8, kMins, XT>(x, maps, out, M, N, K, cluster, st);
+}
+
+template <bool kMins, bool kBf16X>
+int launch_prompt(const CUtensorMap& x_map, const WeightMaps& maps, void* out, int M,
+                  int N, int K, int cluster, cudaStream_t st) {
+  auto kernel = qmm_prompt_kernel<kMins, kBf16X>;
+  // the largest shared memory, once per device and instance
+  static int ready_on = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (ready_on != dev) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kPrSmem);
+    // all of the SM's 228 KB as shared memory: two CTAs (112 KB each)
+    // share an SM
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    ready_on = dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, N / kPrN, (M + kPrM - 1) / kPrM);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = kPrSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x_map, maps.codes, maps.scales, maps.mins,
+                           static_cast<float*>(out), M, N, K, cluster);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 bool bad_shape(int M, int N, int K) {
@@ -611,14 +910,11 @@ extern "C" int wtt_quantized_matmul_decode(const void* x, int x_bf16,
                                            const void* mins, void* out, int M,
                                            int N, int K, int cluster,
                                            void* stream) {
-  if (bad_shape(M, N, K) || M > kTileM || cluster < 1 || cluster > kMaxCluster ||
+  if (bad_shape(M, N, K) || M > kDecodeM || cluster < 1 || cluster > kMaxCluster ||
       cluster > K / kQK)
     return (int)cudaErrorInvalidValue;
-  DecodeMaps maps;
-  if (!weight_map(codes, K, N, false, &maps.codes) ||
-      !weight_map(scales, K / kQK, N, true, &maps.scales) ||
-      !weight_map(mins != nullptr ? mins : scales, K / kQK, N, true, &maps.mins))
-    return (int)cudaErrorInvalidValue;
+  WeightMaps maps;
+  if (!weight_maps(codes, scales, mins, N, K, &maps)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (mins != nullptr)
     return x_bf16 ? dispatch_decode<true, __nv_bfloat16>(x, maps, out, M, N, K, cluster, st)
@@ -627,24 +923,25 @@ extern "C" int wtt_quantized_matmul_decode(const void* x, int x_bf16,
                 : dispatch_decode<false, float>(x, maps, out, M, N, K, cluster, st);
 }
 
-// M > 8.  work: (splits, M, N) f32 scratch when splits > 1 (may alias out
-// when splits == 1).  x_bf16: x is bf16 (else f32).  mins may be null.
+// M > 8: one launch, output tiles of 128 x 128, K split over a cluster of
+// `cluster` CTAs (1, 2, 4 or 8, at most K / 32).  x_bf16: x is bf16 (else
+// f32); x 16-byte aligned.  mins may be null.
 extern "C" int wtt_quantized_matmul(const void* x, int x_bf16, const void* codes,
-                                    const void* scales, const void* mins,
-                                    void* work, void* out, int M, int N, int K,
-                                    int splits, int kb_per_split, void* stream) {
-  if (bad_shape(M, N, K) || splits < 1 || kb_per_split < 1 ||
-      (long long)splits * kb_per_split < K / kQK)
+                                    const void* scales, const void* mins, void* out,
+                                    int M, int N, int K, int cluster, void* stream) {
+  if (bad_shape(M, N, K) || cluster < 1 || cluster > kPrMaxCluster ||
+      (cluster & (cluster - 1)) || cluster > K / kQK ||
+      (M + kPrM - 1) / kPrM > 65535)
+    return (int)cudaErrorInvalidValue;
+  WeightMaps maps;
+  CUtensorMap x_map;
+  if (!weight_maps(codes, scales, mins, N, K, &maps) ||
+      !tensor_map(x, M, K, x_bf16 ? kXbf16 : kXf32, &x_map))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (mins != nullptr)
-    return x_bf16 ? launch_split<true, __nv_bfloat16>(x, codes, scales, mins, work, out,
-                                                      M, N, K, splits, kb_per_split, st)
-                  : launch_split<true, float>(x, codes, scales, mins, work, out, M, N,
-                                              K, splits, kb_per_split, st);
-  return x_bf16 ? launch_split<false, __nv_bfloat16>(x, codes, scales, nullptr, work,
-                                                     out, M, N, K, splits,
-                                                     kb_per_split, st)
-                : launch_split<false, float>(x, codes, scales, nullptr, work, out, M,
-                                             N, K, splits, kb_per_split, st);
+    return x_bf16 ? launch_prompt<true, true>(x_map, maps, out, M, N, K, cluster, st)
+                  : launch_prompt<true, false>(x_map, maps, out, M, N, K, cluster, st);
+  return x_bf16 ? launch_prompt<false, true>(x_map, maps, out, M, N, K, cluster, st)
+                : launch_prompt<false, false>(x_map, maps, out, M, N, K, cluster, st);
 }

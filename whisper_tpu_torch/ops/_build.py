@@ -48,10 +48,8 @@ SIGNATURES = {
     # q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, cluster, words, stream
     "wtt_cross_attention_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
-    # x, x_bf16, codes, scales, mins (or 0), work, out, M, N, K, splits,
-    # kb_per_split, stream
-    "wtt_quantized_matmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _P],
+    # x, x_bf16, codes, scales, mins (or 0), out, M, N, K, cluster, stream
+    "wtt_quantized_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, x_bf16, codes, scales, mins (or 0), out, M, N, K, cluster, stream
     "wtt_quantized_matmul_decode": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _P],

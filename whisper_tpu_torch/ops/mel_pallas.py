@@ -27,8 +27,14 @@ from ..constants import HOP_LENGTH, N_FFT
 
 FRAMES_PER_BLOCK = 256   # whisper_tpu's frame count granularity
 N_BINS = N_FFT // 2 + 1  # 201
-K7_FRAMES = 64           # frames per CUDA block; divides FRAMES_PER_BLOCK
+K7_FRAMES = 36           # frames per CTA of K7 (the last may be ragged)
 K7_N_MELS = (80, 128)    # the instances the kernel is built for
+
+
+def _k7_frame_ranges(n: int) -> list[tuple[int, int]]:
+    """The frames [begin, end) of each CTA of K7's grid for n frames (the
+    kernel computes the same from blockIdx and n)."""
+    return [(b, min(b + K7_FRAMES, n)) for b in range(0, n, K7_FRAMES)]
 
 
 def _mel_blocks_ref(rows0, rows1, rows2, hann, cos_b, sin_b, filters_t):
@@ -48,7 +54,7 @@ def _mel_blocks(rows0, rows1, rows2, hann, cos_b, sin_b, filters_t):
 
     CPU tensors take `_mel_blocks_ref`; CUDA tensors go through K7, which
     takes float32 throughout, rows with a unit column stride (any row
-    stride), n a multiple of 64 and n_mel 80 or 128."""
+    stride), any n >= 1 and n_mel 80 or 128."""
     if rows0.device.type == "cpu":
         return _mel_blocks_ref(rows0, rows1, rows2, hann, cos_b, sin_b,
                                filters_t)
@@ -73,9 +79,9 @@ def _mel_blocks(rows0, rows1, rows2, hann, cos_b, sin_b, filters_t):
             raise ValueError(f"_mel_blocks: {name} must be "
                              + ("unit-stride along a row" if rows
                                 else "contiguous"))
-    if n < K7_FRAMES or n % K7_FRAMES or n_mel not in K7_N_MELS:
-        raise ValueError(f"K7 takes n a multiple of {K7_FRAMES} and n_mel "
-                         f"in {K7_N_MELS}, got n={n}, n_mel={n_mel}")
+    if n < 1 or n_mel not in K7_N_MELS:
+        raise ValueError(f"K7 takes n >= 1 frames and n_mel in {K7_N_MELS}, "
+                         f"got n={n}, n_mel={n_mel}")
     from ._build import library
     out = torch.empty((n, n_mel), dtype=torch.float32, device=rows0.device)
     library().call("wtt_log_mel", rows0.data_ptr(), rows0.stride(0),

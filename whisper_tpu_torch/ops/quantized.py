@@ -17,10 +17,15 @@ launch: each CTA takes 64 columns and a slice of K, the K slices of a
 column tile form one thread-block cluster (`_cluster`), all of a slice's
 codes and scales are requested by TMA (one 2-D box a 32-row block) before
 the math, and the slices' partial sums meet in the cluster's rank 0 through distributed
-shared memory, in rank order.  At M > 8 (the carried-prompt pass) each
-block keeps 8 rows of x and K is split over blocks (`_splits`) with a
-second pass that sums the splits in a fixed order.  No dequantized copy of
-W ever reaches device memory.  Codes stay one byte each, as in the TPU
+shared memory, in rank order.  At M > 8 (the carried-prompt pass, 232
+rows; B x 232 in a serving batch's) it does 2*M FLOP per code byte, so
+the bf16 tensor cores bound it: one launch of `wgmma` tiles of 128 x 128
+outputs, x and each 32-row block of codes brought by TMA, rounded and
+dequantized once per tile into bf16 operands in shared memory, f32 sums in
+registers; where the tiles alone cannot fill the card, K is split over a
+cluster of 2-8 CTAs (`_prompt_cluster`) whose partial tiles meet through
+distributed shared memory in rank order.  No dequantized copy of W ever
+reaches device memory.  Codes stay one byte each, as in the TPU
 representation; nibble codes are later work.
 """
 
@@ -35,10 +40,11 @@ import torch
 from ..weights import quant
 
 QK = quant.QK            # 32
-TILE_N = 128             # output columns per block in K3
-TILE_M = 8               # rows of x per block in K3 at M > 8
-WARPS = 8                # warps per block, each taking whole 32-row blocks
+TILE_N = 128             # N must be a multiple of this
 TARGET_BLOCKS = 264      # two blocks per SM of the H100's 132
+SMS = 132                # the H100's SMs: the prompt grid reaches one CTA each
+PROMPT_TILE = 128        # rows and columns of y per CTA at M > DECODE_M
+PROMPT_MAX_CLUSTER = 8   # CTAs splitting one tile's K there
 DECODE_M = 8             # up to this many rows of x: the one-launch path
 DECODE_TILE_N = 64       # output columns per CTA there
 MAX_CLUSTER = 16         # CTAs in a cluster (non-portable above 8)
@@ -135,16 +141,18 @@ def quantized_matmul_ref(x, codes_t, scales_t, mins_t=None):
     return _bf16(x) @ dequantize_t(codes_t, scales_t, mins_t)
 
 
-def _splits(M: int, N: int, K: int) -> tuple[int, int]:
-    """(number of K splits, 32-row blocks per split) for K3's grid at
-    M > DECODE_M: split K only as far as it takes to reach TARGET_BLOCKS
-    blocks, and no further than one 32-row block per warp."""
+@functools.lru_cache(maxsize=None)
+def _prompt_cluster(M: int, N: int, K: int) -> int:
+    """K3's cluster size C at M > DECODE_M: the CTAs that split one
+    128 x 128 output tile's K, the smallest power of two that brings the
+    grid (ceil(M / 128) x N / 128 x C CTAs) to SMS, at most
+    PROMPT_MAX_CLUSTER and at most one 32-row block a CTA."""
     kblocks = K // QK
-    tiles = (N // TILE_N) * math.ceil(M / TILE_M)
-    want = math.ceil(TARGET_BLOCKS / tiles)
-    splits = max(1, min(want, kblocks // WARPS))
-    per = math.ceil(kblocks / splits)
-    return math.ceil(kblocks / per), per
+    tiles = math.ceil(M / PROMPT_TILE) * (N // PROMPT_TILE)
+    c = 1
+    while tiles * c < SMS and 2 * c <= min(PROMPT_MAX_CLUSTER, kblocks):
+        c *= 2
+    return c
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,7 +170,7 @@ def _cluster(N: int, K: int) -> int:
 
 def _k_slice(rank: int, cluster: int, kblocks: int) -> tuple[int, int]:
     """The 32-row blocks [begin, end) that CTA `rank` of a K3 cluster takes
-    (the kernel computes the same)."""
+    (both kernels compute the same)."""
     return rank * kblocks // cluster, (rank + 1) * kblocks // cluster
 
 
@@ -195,7 +203,7 @@ def quantized_matmul(x, codes_t, scales_t, mins_t=None):
     which reads x as it is (float32 or bfloat16) and rounds it to bf16
     itself (the TPU kernel's first step); the codes and scales must already
     be int8 and float32, contiguous and 16-byte aligned, with N a multiple
-    of 128 and K of 32.  At M <= DECODE_M that is one launch.
+    of 128 and K of 32.  Either path is one launch.
     """
     if x.device.type == "cpu":
         return quantized_matmul_ref(x, codes_t, scales_t, mins_t)
@@ -219,11 +227,11 @@ def quantized_matmul(x, codes_t, scales_t, mins_t=None):
         library().call("wtt_quantized_matmul_decode", *args, out.data_ptr(),
                        M, N, K, _cluster(N, K), stream)
     else:
-        splits, per = _splits(M, N, K)
-        work = (torch.empty((splits, M, N), dtype=torch.float32,
-                            device=x.device) if splits > 1 else out)
-        library().call("wtt_quantized_matmul", *args, work.data_ptr(),
-                       out.data_ptr(), M, N, K, splits, per, stream)
+        if x.data_ptr() % 16:     # TMA reads x from a 16-byte boundary
+            x = x.clone()
+            args = (x.data_ptr(),) + args[1:]
+        library().call("wtt_quantized_matmul", *args, out.data_ptr(),
+                       M, N, K, _prompt_cluster(M, N, K), stream)
     quantized_matmul.launches += 1
     if mins_t is not None:
         quantized_matmul.launches_mins += 1
