@@ -9,7 +9,11 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      per source, in parallel)
   3. compare each kernel with its plain PyTorch version on the card at
      every shape the paths below give it, taken from the models they load
+     (K2 also with G = 5 queries a (b, h), batched beam search's form)
      (and K3 at the prompt passes of serving batches of 4 and 64 streams),
+     and, after the paths, at every other shape they launched (each
+     launch's shape noted from its entry point's arguments; compared,
+     not timed),
      each within its own bound (KERNEL_TOL), and time both (CUDA-graph
      replay between CUDA events, median of 20 runs after 3 warm-ups, L2
      flushed before each run), and where one PyTorch call computes the same
@@ -50,7 +54,27 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      which never runs a kernel; and
      cross_kv_q8(enc_layout="bdt") from encode(out_layout="bdt") against
      the btd route: K1, K6 and K7 launch
-In 5-8 every segment list must be non-empty and every probability finite.
+ 10. the serving path in bench.py's other quality tiers at 20 rows: bo5
+     (best_of 5, the ladder live; its t > 0 rungs must run, logprob_thold
+     raised to 0 where the random weights fail no window: K1, K2) and
+     beam5 (beam 5: four streams x five beams, K1 and K2 with G = 5)
+ 11. path A with the CLI's defaults (beam 5, best_of 5, the ladder live) on
+     30 s: K1 and K3 (whisper_tpu's serial beam reads the dense cross-KV
+     through the einsum, so no cross-attention kernel); 10 and 11 run once
+     more twice, each cut short after 16 decode steps of one rung (from
+     its 9th step; bo5's first t > 0 rung), timed alone and under
+     torch.profiler: device launches, busy time, wall and idle share a
+     step
+ 12. segment parity: the port in bf16 on a small random-weight q8_0 file
+     and fixed PCM, greedy and beam 5, against whisper_tpu's segments on
+     the CPU (tests/golden/port_segments.json, tests/port_parity.py), and
+     greedy teacher-forced at each decided step: K1, K2, K2 with G = 5,
+     K3
+ 13. the port's draws (decode/rng.py) on the card against the CPU for the
+     same keys and logits, and one step's draw cost at the bo5 and beam5
+     shapes from a torch.profiler trace
+In 5-8, 10 and 11 every segment list must be non-empty and every
+probability finite.
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 
@@ -76,9 +100,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# K3's rows: 1 (one token of `full`), 4 (the serving batch) and 232
-# (n_text_ctx // 2 + 8, the carried-prompt pass)
-K3_M = (1, 4, 232)
+# K3's rows: 1 (one token of `full`), 4 (the serving batch), 8 (the bare
+# prompt pass) and 232 (n_text_ctx // 2 + 8, the carried-prompt pass)
+K3_M = (1, 4, 8, 232)
 BENCH_BATCH = 64     # bench.py's default serving batch (K2's largest shape)
 # a serving batch's prompt pass through K3: B streams x 232 rows
 # (parallel/batch.py `_prompt_bucket` at the default n_max_text_ctx), at
@@ -98,7 +122,7 @@ K3_SERVE_M = (4 * 232, BENCH_BATCH * 232)
 # at the kernels' rounding points (they read <= 5.0e-3).  K7 is f32
 # against f32: it read 4.8e-8, and f32 products on TF32-rounded operands
 # read 8.8e-3.
-KERNEL_TOL = {"K1": 2e-2, "K1dt": 2e-2, "K2": 5e-4, "K3": 1e-5,
+KERNEL_TOL = {"K1": 2e-2, "K1dt": 2e-2, "K2": 5e-4, "K2G": 5e-4, "K3": 1e-5,
               "K3+mins": 1e-5, "K4": 5e-4, "K5": 5e-4, "K6": 2e-2,
               "K7": 1e-5}
 # bf16 on the card against f32 on the CPU through two encoder and two
@@ -119,6 +143,12 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 ATTENTION = ("K1", "K1dt", "K6")   # the encoder attention entries
 N_STREAMS, STREAM_S = 4, 45
+BEAM = 5                           # beam_size and best_of of bench.py's tiers
+QUALITY_BATCH = N_STREAMS * BEAM   # bo5 and beam5: four streams of five rows
+# K3's rows in path A with the CLI's defaults: the serial beam's (and the
+# best_of ladder's) five decoders a step, and their prompt passes
+K3_CLI_M = (BEAM, BEAM * 8, BEAM * 232)
+CLI_S = 30                         # seconds of PCM for path A's CLI defaults
 FULL_S = 60                        # seconds of PCM for paths A and B
 PATH_C_S = 30                      # seconds of PCM for path C
 MEL_S = 60                         # seconds of PCM for path D's mel
@@ -226,11 +256,14 @@ def path_shapes() -> dict:
     shape of the path that runs it first (its time is the one reported):
     K1 (B, T, H, Dh) of the encoders, K1dt (B, H, Dh, Tp, t_valid) and K6
     (B, Tp, D, H, t_valid) of path D's padded encoders (and K6 at small's
-    width and the serving batch); K2 (B, H, Dh, Ta) of the serving batch,
-    of path C (batch 1) and of bench.py's batch of 64; K3 (M, K, N) of the
-    decoder linears, and of large-v3's at the prompt passes of serving
-    batches of 4 and 64 streams; K4/K5 (B, H, Ta, Dh); K7 (seconds of
-    PCM, n_mels)."""
+    width and the serving batch); K1 and K2 (B, H, Dh, Ta) also at the 20
+    rows of bo5 and beam5; K2 (B, H, Dh, Ta) of the serving batch, of path
+    C (batch 1) and of bench.py's batch of 64; K3 (M, K, N) of the decoder
+    linears, and of large-v3's at the prompt passes of serving batches of
+    4 and 64 streams and at the CLI defaults' five decoders; K4/K5
+    (B, H, Ta, Dh); K7 (seconds of PCM, n_mels).  A shape that a main
+    path launches and this list lacks is checked after the paths
+    (check_launched)."""
     from whisper_tpu_torch.models.whisper import MODEL_DIMS, WhisperConfig
     from whisper_tpu_torch.ops.encoder_attention import BLOCK_Q
     big, small = (WhisperConfig(*MODEL_DIMS[s]) for s in ("large-v3",
@@ -256,14 +289,25 @@ def path_shapes() -> dict:
         B, H, Ta, Dh = xattn(big, B)
         return (B, H, Dh, Ta)
 
+    def q8dt_grouped(S):
+        return q8dt(S) + (BEAM,)
+
     b, tp, d, h, tv = padded(big, 1)
-    return {"K1": [enc(big, 1), enc(small, 1), enc(big, N_STREAMS)],
+    return {"K1": [enc(big, 1), enc(small, 1), enc(big, N_STREAMS),
+                   enc(big, QUALITY_BATCH)],
             "K1dt": [(b, h, d // h, tp, tv)],
-            "K2": [q8dt(N_STREAMS), q8dt(1), q8dt(BENCH_BATCH)],
-            # path A: large-v3 q5_0; then serving prompt passes
-            "K3": linears(big, small) + linears(big, ms=K3_SERVE_M),
+            "K2": [q8dt(N_STREAMS), q8dt(1), q8dt(BENCH_BATCH),
+                   q8dt(QUALITY_BATCH)],
+            # the batched beam: S streams x BEAM beams as BEAM queries on
+            # each stream's cross-KV row
+            "K2G": [q8dt_grouped(N_STREAMS), q8dt_grouped(1)],
+            # path A: large-v3 q5_0; then serving prompt passes and the
+            # CLI defaults' five decoders
+            "K3": linears(big, small) + linears(big, ms=K3_SERVE_M
+                                                + K3_CLI_M),
             # path B: small q5_1
-            "K3+mins": linears(small, big) + linears(big, ms=K3_SERVE_M),
+            "K3+mins": linears(small, big) + linears(big, ms=K3_SERVE_M
+                                                     + K3_CLI_M),
             "K4": [xattn(small, 1), xattn(big, 1), xattn(big, N_STREAMS)],
             "K5": [xattn(big, 1), xattn(small, 1), xattn(big, N_STREAMS)],
             "K6": [padded(big, 1), padded(small, 1), padded(big, N_STREAMS)],
@@ -285,14 +329,16 @@ def work(key, shape) -> tuple[int, int, str]:
             Dh = D // H
         nbytes = B * H * rows * Dh * (3 * 2 + 4)         # bf16 q/k/v, f32 out
         ops, kind = 4 * B * H * rows * keys * Dh, "bf16"
-    elif key == "K2":
-        B, H, Dh, Ta = shape
-        nbytes = B * H * (Dh * 2 + 2 * Dh * Ta + 2 * Ta * 4 + Dh * 4)
-        ops, kind = 4 * B * H * Dh * Ta, "bf16"
+    elif key in ("K2", "K2G"):
+        B, H, Dh, Ta, G = shape if key == "K2G" else shape + (1,)
+        nbytes = B * H * (G * Dh * 2 + 2 * Dh * Ta + 2 * Ta * 4 + G * Dh * 4)
+        ops, kind = 4 * B * H * G * Dh * Ta, "bf16"
     elif key in ("K3", "K3+mins"):
-        M, K, N = shape
+        M, K, N = shape[:3]
+        x_size = 2 if shape[3:] == ("bf16",) else 4
         n_scale = 2 if key == "K3+mins" else 1
-        nbytes = M * K * 4 + K * N + n_scale * (K // 32) * N * 4 + M * N * 4
+        nbytes = (M * K * x_size + K * N + n_scale * (K // 32) * N * 4
+                  + M * N * 4)
         ops, kind = 2 * M * K * N, "bf16"
     elif key in ("K4", "K5"):
         B, H, Ta, Dh = shape
@@ -336,11 +382,10 @@ def mel_frames(seconds: int) -> int:
     return n_len // FRAMES_PER_BLOCK * FRAMES_PER_BLOCK
 
 
-def check_kernels(gen):
-    """Each kernel against its plain version at each of its path_shapes
-    -> {kernel: {max_abs_err, max_rel_err, ms, plain_ms, library_ms,
-    bound_ms, bound_by, shape, shapes}}, the times and the bound at the
-    first shape."""
+def kernel_cases(gen):
+    """-> ({key: (name, kernel, plain, make)}, {key: dense yardstick}):
+    make(*shape) gives a call's inputs on the card and its library call
+    (or None); a K3 shape may end in "bf16", its x's dtype (else f32)."""
     import torch.nn.functional as F
     from whisper_tpu_torch.audio.filters import mel_filterbank
     from whisper_tpu_torch.audio.mel import pad_audio
@@ -369,19 +414,21 @@ def check_kernels(gen):
         return [q, k, v, t_valid], lambda: F.scaled_dot_product_attention(
             *views, attn_mask=keep)
 
-    def k2(B, H, Dh, Ta):
+    def k2(B, H, Dh, Ta, G=1):
         (kq, ks), (vq, vs) = (xa.quantize_kv_bhdt(randn(B, H, Dh, Ta))
                               for _ in range(2))
-        return [bf16(B, H, 1, Dh), kq, ks, vq, vs], None
+        return [bf16(B, H, G, Dh), kq, ks, vq, vs], None
 
     def k3(mins):
-        def make(M, K, N):
+        def make(M, K, N, x_dtype="f32"):
             # q5-like codes; mins as in q5_1 (w = code * d + m)
             codes = torch.randint(-16, 16, (K, N), generator=gen,
                                   device="cuda", dtype=torch.int8)
             scales = (torch.rand(K // 32, N, generator=gen, device="cuda")
                       * 2e-3 + 1e-4)
             x = torch.randn(M, K, generator=gen, device="cuda")
+            if x_dtype == "bf16":
+                x = x.to(torch.bfloat16)
             return [x, codes, scales, -16 * scales if mins else None], None
         return make
 
@@ -400,7 +447,7 @@ def check_kernels(gen):
     def xattn_dense(q, k_q, k_s, v_q, v_s):
         """The yardstick of K2 and K5: SDPA over the dequantized bf16 K/V in
         (B, H, Ta, Dh), twice their bytes and without their rounding of
-        the weights."""
+        the weights (with K2's G queries a (b, h) as SDPA's queries)."""
         if k_s.dim() == 3:          # K2's (B, H, Dh, Ta) codes
             k, v = ((c.float() * s[..., None, :]).transpose(-1, -2)
                     for c, s in ((k_q, k_s), (v_q, v_s)))
@@ -434,6 +481,9 @@ def check_kernels(gen):
                  ea.encoder_attention_ref, k1dt),
         "K2": ("cross_attention_q8", xa.cross_attention_decode_q8dt,
                xa.cross_attention_decode_q8dt_ref, k2),
+        "K2G": ("cross_attention_q8, G queries",
+                xa.cross_attention_decode_q8dt,
+                xa.cross_attention_decode_q8dt_ref, k2),
         "K3": ("quantized_matmul", qm.quantized_matmul,
                qm.quantized_matmul_ref, k3(False)),
         "K3+mins": ("quantized_matmul +mins", qm.quantized_matmul,
@@ -447,8 +497,17 @@ def check_kernels(gen):
         "K7": ("log_mel (_mel_blocks)", mp._mel_blocks, mp._mel_blocks_ref,
                k7),
     }
-    dense_of = {"K2": xattn_dense, "K3": k3_dense, "K3+mins": k3_dense,
-                "K5": xattn_dense}
+    dense_of = {"K2": xattn_dense, "K2G": xattn_dense, "K3": k3_dense,
+                "K3+mins": k3_dense, "K5": xattn_dense}
+    return cases, dense_of
+
+
+def check_kernels(gen):
+    """Each kernel against its plain version at each of its path_shapes
+    -> {kernel: {max_abs_err, max_rel_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by, shape, shapes}}, the times and the bound at the
+    first shape."""
+    cases, dense_of = kernel_cases(gen)
     res = {}
     for key, shapes in path_shapes().items():
         name, kernel, plain, make = cases[key]
@@ -509,6 +568,95 @@ def check_kernels(gen):
             f"{bound_ms / ms:.3f} of it reached")
     torch.cuda.empty_cache()
     return res
+
+
+# (kernel key, shape) of every launch on the main paths, as path_shapes
+# writes them, while LAUNCHED["on"]; filled by record_launches
+LAUNCHED = {"on": False, "shapes": {}}
+
+
+def launch_shape(entry: str, args) -> tuple[str, tuple]:
+    """The path_shapes key and shape of one call of a C entry point, from
+    the arguments the wrappers pass it (whisper_tpu_torch/ops)."""
+    if entry == "wtt_encoder_attention":
+        return "K1", tuple(args[4:8])                    # B, T, H, Dh
+    if entry == "wtt_encoder_attention_bhdt":
+        return "K1dt", tuple(args[4:9])                  # B, H, Dh, Tp, tv
+    if entry == "wtt_encoder_attention_btd":
+        B, Tp, H, Dh, t_valid = args[4:9]
+        return "K6", (B, Tp, H * Dh, H, t_valid)
+    if entry == "wtt_cross_attention_q8":
+        B, H, G, Dh, Ta = args[6:11]
+        return ("K2", (B, H, Dh, Ta)) if G == 1 else ("K2G",
+                                                      (B, H, Dh, Ta, G))
+    if entry == "wtt_cross_attention":
+        B, H, Dh, Ta = args[4:8]
+        return "K4", (B, H, Ta, Dh)
+    if entry == "wtt_cross_attention_bhtd_q8":
+        B, H, Dh, Ta = args[6:10]
+        return "K5", (B, H, Ta, Dh)
+    if entry in ("wtt_quantized_matmul", "wtt_quantized_matmul_decode"):
+        M, N, K = args[6:9]
+        return ("K3+mins" if args[4] else "K3",
+                (M, K, N) + (("bf16",) if args[1] else ()))
+    if entry == "wtt_log_mel":
+        return "K7", ("frames",) + tuple(args[11:13])    # n, n_mel
+    raise KeyError(f"no launch shape for {entry}")
+
+
+def record_launches(lib) -> None:
+    """Have `lib.call` note each launch's kernel and shape in LAUNCHED."""
+    call = lib.call
+
+    def recording(entry, *args):
+        if LAUNCHED["on"]:
+            key, shape = launch_shape(entry, args)
+            LAUNCHED["shapes"].setdefault(key, set()).add(shape)
+        return call(entry, *args)
+    lib.call = recording
+
+
+def check_launched(gen, res) -> dict:
+    """Every shape the main paths launched that check_kernels did not
+    check, against its plain version within the kernel's KERNEL_TOL
+    (compared once, not timed); adds them and every launched shape to
+    `res`.  -> {key: shapes checked here}."""
+    cases, _ = kernel_cases(gen)
+    checked = {k: {tuple(x) for x in v["shapes"]} for k, v in res.items()}
+    checked["K7"] = {("frames", mel_frames(s), n)
+                     for s, n in checked["K7"]}
+    extra = {}
+    for key, shapes in sorted(LAUNCHED["shapes"].items()):
+        res[key]["launched_shapes"] = sorted(list(x) for x in shapes)
+        for shape in sorted(shapes - checked[key]):
+            if key == "K7":
+                raise AssertionError(f"K7 launched at {shape}, a length "
+                                     "check_kernels does not check")
+            name, kernel, plain, make = cases[key]
+            args, _ = make(*shape)
+            out = kernel(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{key} {shape}: non-finite output")
+            err = float((out - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            log(f"{key} {name} {shape} (launched on a main path): "
+                f"max_abs_err {err:.3e} rel {rel:.3e} (tol "
+                f"{KERNEL_TOL[key]})")
+            if rel > KERNEL_TOL[key]:
+                raise AssertionError(f"{key} {shape}: rel err {rel:.3e} > "
+                                     f"{KERNEL_TOL[key]}")
+            r = res[key]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["max_rel_err"] = max(r["max_rel_err"], rel)
+            r["shapes"].append(list(shape))
+            extra.setdefault(key, []).append(list(shape))
+            del args, out, ref
+    torch.cuda.empty_cache()
+    log(f"shapes launched on the main paths beyond path_shapes, checked: "
+        f"{json.dumps(extra)}")
+    return extra
 
 
 def check_model(gen):
@@ -611,12 +759,17 @@ def reset_counts() -> None:
         for fn in fns:
             fn.launches = 0
     counters()["K3"][0].launches_mins = 0
+    counters()["K2"][0].launches_grouped = 0
 
 
 def read_counts() -> dict:
+    """Launches by kernel; "K2G" counts K2's launches with G > 1 queries a
+    (b, h), "K2" the others."""
     counts = {k: sum(fn.launches for fn in fns)
               for k, fns in counters().items()}
     counts["K3+mins"] = counters()["K3"][0].launches_mins
+    counts["K2G"] = counters()["K2"][0].launches_grouped
+    counts["K2"] -= counts["K2G"]
     return counts
 
 
@@ -739,15 +892,123 @@ def full_params(seconds: int = 0):
     return p
 
 
+def cli_params(seconds: int):
+    """The CLI's defaults (whisper_tpu/cli.py:40-44, :97-103): beam search,
+    beam 5, best_of 5, the temperature ladder live; language "en", the
+    first `seconds` of the audio."""
+    from whisper_tpu_torch import SamplingStrategy, full_default_params
+    p = full_default_params(SamplingStrategy.BEAM_SEARCH)
+    p.beam_search.beam_size = p.greedy.best_of = BEAM
+    p.print_progress = False
+    p.language = "en"
+    p.duration_ms = seconds * 1000
+    return p
+
+
 def full_pcm(seconds: int = FULL_S) -> np.ndarray:
     return (np.random.RandomState(7).randn(16000 * seconds) * 0.1).astype(
         np.float32)
 
 
+TRACE_SKIP, TRACE_STEPS = 8, 16   # the traced decode steps: 16, from
+                                  # the 9th of a rung
+
+
+class _TraceDone(Exception):
+    """Ends a traced rerun once its steps are taken."""
+
+
+def traced(card_line: str, label: str, run, after_prompts: int = 1) -> dict:
+    """TRACE_STEPS decode steps of `run()`, a rerun of a phase as it ran
+    (its rows, its params): the steps from the TRACE_SKIP-th on of the
+    first rung, at or after the `after_prompts`-th prompt pass, that runs
+    that long, with no encode or prompt pass among them.  `run()` goes
+    twice, each cut short once the steps are taken: timed alone (the
+    steps' wall, fenced by a synchronize at each end), then under
+    torch.profiler (device activity only) for the steps' device launches
+    and busy time.  -> per step: launches, busy_ms, wall_ms and the
+    device's idle share 1 - busy / wall, the wall the untraced one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from whisper_tpu_torch.models import whisper as wm
+
+    def window(prof):
+        st = {"prompts": 0, "seen": 0, "steps": 0, "t0": None, "wall": None}
+        orig = {f: getattr(wm, f) for f in ("decode_step", "decode_prompt",
+                                            "encode")}
+
+        def close():
+            torch.cuda.synchronize()
+            st["wall"] = time.perf_counter() - st["t0"]
+            if prof is not None:
+                prof.stop()
+            raise _TraceDone
+
+        def step(*a, **k):
+            if st["t0"] is not None:
+                if st["steps"] == TRACE_STEPS:
+                    close()
+                st["steps"] += 1
+            elif st["prompts"] >= after_prompts:
+                if st["seen"] == TRACE_SKIP:
+                    torch.cuda.synchronize()
+                    if prof is not None:
+                        prof.start()
+                    st["t0"] = time.perf_counter()
+                    st["steps"] = 1
+                st["seen"] += 1
+            return orig["decode_step"](*a, **k)
+
+        def prompt(*a, **k):
+            if st["t0"] is not None:
+                close()
+            st["prompts"] += 1
+            st["seen"] = 0
+            return orig["decode_prompt"](*a, **k)
+
+        def encode(*a, **k):
+            if st["t0"] is not None:
+                close()
+            return orig["encode"](*a, **k)
+
+        wm.decode_step, wm.decode_prompt, wm.encode = step, prompt, encode
+        try:
+            run()
+            if st["t0"] is None:
+                raise AssertionError(f"{label}: no rung ran "
+                                     f"{TRACE_SKIP + TRACE_STEPS} steps")
+            close()
+        except _TraceDone:
+            pass
+        finally:
+            for f, fn in orig.items():
+                setattr(wm, f, fn)
+        return st["steps"], st["wall"]
+
+    reset_counts()
+    n, wall = window(None)
+    prof = torch_profile(activities=[ProfilerActivity.CUDA])
+    n_traced, _ = window(prof)
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    out = {"steps": n, "launches": len(evs) / n_traced,
+           "busy_ms": busy / n_traced, "wall_ms": wall * 1e3 / n,
+           "idle": 1 - busy / n_traced / (wall * 1e3 / n)}
+    log(f"[{card_line}] {label} traced: {n} decode steps (from the "
+        f"{TRACE_SKIP + 1}th of a rung after prompt pass {after_prompts}; "
+        f"no encode or prompt pass among them), per step "
+        f"{out['launches']:.1f} device launches, {out['busy_ms']:.4f} ms "
+        f"device busy (torch.profiler), {out['wall_ms']:.4f} ms wall "
+        f"untraced: idle {out['idle']:.3f}")
+    return out
+
+
 def run_full(label: str, path: Path, cross_mode: str, need, card_line,
-             seconds: int = FULL_S):
-    """from_file + full on `seconds` s of noise PCM (full_params).  -> the
-    kernel launch counts of `full`."""
+             seconds: int = FULL_S, params=None, trace: bool = False):
+    """from_file + full on `seconds` s of noise PCM (full_params, or
+    `params`); `trace`: once more under the profiler (`traced`).  -> the
+    kernel launch counts of `full` (the timed run's)."""
     from whisper_tpu_torch import WhisperContext
 
     t0 = time.perf_counter()
@@ -755,7 +1016,7 @@ def run_full(label: str, path: Path, cross_mode: str, need, card_line,
                                    cross_mode=cross_mode)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    p, pcm = full_params(), full_pcm(seconds)
+    p, pcm = params or full_params(), full_pcm(seconds)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -770,17 +1031,20 @@ def run_full(label: str, path: Path, cross_mode: str, need, card_line,
         f"{seconds / wall:.2f} audio-s per wall-s, {tm.n_encode} windows, "
         f"{tm.n_decode} decode steps, {n_tok} tokens emitted, "
         f"{tm.t_decode_us / 1e3 / max(1, tm.n_decode):.3f} ms per decode "
-        f"step (prompt pass included), peak device memory "
+        f"step (prompt pass included), {tm.n_fail_p} failed rungs, peak "
+        f"device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[{card_line}] {label} timings (us / counts): " + json.dumps(
         {f: getattr(tm, f) for f in ("t_mel_us", "t_encode_us",
                                      "t_decode_us", "n_encode", "n_decode",
-                                     "n_prompt", "n_fail_h")}))
+                                     "n_prompt", "n_fail_h", "n_fail_p")}))
     log(f"{label} kernel launches in full: {counts}")
     if rc != 0:
         raise AssertionError(f"{label}: full returned {rc}")
     check_segments(label, [ctx.result_all])
     require_launches(label, counts, need)
+    if trace:
+        traced(card_line, label, lambda: ctx.full(p, pcm))
     del ctx
     torch.cuda.empty_cache()
     return counts
@@ -907,21 +1171,42 @@ def profile(card_line: str, seconds: int) -> dict:
     return out
 
 
-def serve(card_line: str, ctx, label: str, need):
-    """BatchTranscriber.transcribe of N_STREAMS int16 streams of STREAM_S s
-    with bench.py's greedy serving settings, in ctx's cross mode.  -> the
-    kernel launch counts of transcribe."""
-    from whisper_tpu_torch import BatchTranscriber, full_default_params
-
+def serving_params(quality: str = "greedy"):
+    """bench.py's serving settings (`_serving_params`): language "en",
+    max_tokens 64, no timestamps, a 64-token carried prompt; "greedy" with
+    the ladder off, "bo5" best_of 5 with the ladder live, "beam5" beam 5
+    with the ladder off."""
+    from whisper_tpu_torch import SamplingStrategy, full_default_params
     p = full_default_params()
     p.print_progress = False
     p.language = "en"
     p.max_tokens = 64
     p.no_timestamps = True
     p.n_max_text_ctx = 64
-    p.temperature_inc = 0.0
-    bt = BatchTranscriber(ctx, batch_size=N_STREAMS, params=p,
-                          device_mel=True)
+    if quality == "bo5":
+        p.greedy.best_of = BEAM
+    elif quality == "beam5":
+        p.strategy = SamplingStrategy.BEAM_SEARCH
+        p.beam_search.beam_size = BEAM
+        p.temperature_inc = 0.0
+    else:
+        p.temperature_inc = 0.0
+    return p
+
+
+def serve(card_line: str, ctx, label: str, need, quality: str = "greedy",
+          batch: int = N_STREAMS, trace: bool = False):
+    """BatchTranscriber.transcribe of N_STREAMS int16 streams of STREAM_S s
+    with bench.py's serving settings of tier `quality`, in ctx's cross
+    mode, at `batch` rows.  bo5 must retry windows (t > 0 rungs, best_of
+    candidates): where the random weights fail none, logprob_thold is
+    raised to 0 until they do, and the log says so.  -> the kernel launch
+    counts of transcribe; `trace` (einsum_q8 only): one window of the first
+    stream once more under the profiler (`traced`)."""
+    from whisper_tpu_torch import BatchTranscriber
+
+    p = serving_params(quality)
+    bt = BatchTranscriber(ctx, batch_size=batch, params=p, device_mel=True)
     t0 = time.perf_counter()
     bt.warmup(pcm_dtype=np.int16)
     torch.cuda.synchronize()
@@ -930,18 +1215,26 @@ def serve(card_line: str, ctx, label: str, need):
     rng = np.random.RandomState(7)
     streams = [(rng.randn(16000 * STREAM_S) * 0.1 * 32768).clip(
         -32768, 32767).astype(np.int16) for _ in range(N_STREAMS)]
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    result = bt.transcribe(streams)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
+    while True:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        result = bt.transcribe(streams)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        if quality != "bo5" or bt.n_retried_windows or p.logprob_thold >= 0:
+            break
+        log(f"{label}: no window failed at logprob_thold "
+            f"{p.logprob_thold}; raising it to 0 so that the t > 0 rungs "
+            "run")
+        p.logprob_thold = 0.0
 
     audio_s = float(N_STREAMS * STREAM_S)
-    log(f"[{card_line}] {label} ({ctx.cross_mode}) {N_STREAMS} x {STREAM_S} "
-        f"s int16: wall {wall:.3f} s, {audio_s / wall:.2f} audio-s per "
-        f"wall-s, {bt.n_windows} windows, peak device memory "
+    log(f"[{card_line}] {label} ({ctx.cross_mode}, {quality}, batch "
+        f"{batch}) {N_STREAMS} x {STREAM_S} s int16: wall {wall:.3f} s, "
+        f"{audio_s / wall:.2f} audio-s per wall-s, {bt.n_windows} windows, "
+        f"{bt.n_retried_windows} retried, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[{card_line}] {label} phase_times (s): "
         + json.dumps({k: round(v, 4) for k, v in bt.phase_times.items()}))
@@ -950,9 +1243,136 @@ def serve(card_line: str, ctx, label: str, need):
     log(f"kernel launches in {label}: {launches}")
     check_segments(label, result)
     require_launches(label, launches, need)
+    if quality == "bo5" and not bt.n_retried_windows:
+        raise AssertionError(f"{label}: no window ran a t > 0 rung")
+    if trace:   # bo5: the steps of its first t > 0 rung (2nd prompt pass)
+        traced(card_line, label, lambda: bt.transcribe(streams),
+               2 if quality == "bo5" else 1)
     del bt
     torch.cuda.empty_cache()
     return launches
+
+
+def check_draws(card_line: str):
+    """decode/rng.py on the card against the CPU for the same keys and f32
+    logits: bits, split keys and uniforms the same bits; categorical draws
+    the same wherever the winner leads by more than 1e-5 (asserted) in the
+    three forms the loops use.  Then what a draw costs at the serving
+    shapes, from a torch.profiler trace: device time and launches of one
+    step's draw for bo5's 20 rows (per-row keys over (20, V)) and for
+    beam5's t > 0 rung (S = 4 streams, (K, K) draws over (K, V) each)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from whisper_tpu_torch.decode import rng
+
+    V = 51866
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    keys = np.array([[4500, 515], [2**31 + 7, 2**32 - 1], [0, 0],
+                     [12, 1 << 8]], np.uint32)
+    for key in (keys[0], keys):
+        for name, fn in (("bits", lambda k: rng.random_bits(k, (7, 333))),
+                         ("split", lambda k: rng.split(k, 3)),
+                         ("uniform", lambda k: rng.uniform(k, (5, 1000)))):
+            card_out = fn(rng.as_key(key, "cuda")).cpu()
+            if not torch.equal(card_out, fn(rng.as_key(key, "cpu"))):
+                raise AssertionError(f"draws: {name} differ on the card")
+    logits = torch.randn(4, BEAM, V, generator=gen, device="cuda") * 2.0
+    logits[..., ::3] = float("-inf")
+    n_draws = 0
+    for key, lg, shape in ((keys[0], logits[0], None),
+                           (keys, logits[:, 0], None),
+                           (keys[1], logits[0], (BEAM, BEAM)),
+                           (keys, logits, (BEAM, BEAM))):
+        gap = rng.categorical_margin(key, lg.cpu(), shape)
+        on_card = rng.categorical(key, lg, shape).cpu()
+        if gap <= 1e-5 or not torch.equal(on_card,
+                                          rng.categorical(key, lg.cpu(),
+                                                          shape)):
+            raise AssertionError(f"draws: categorical {tuple(on_card.shape)}"
+                                 f" differs (min gap {gap:.3g})")
+        n_draws += on_card.numel()
+    log(f"draws: bits, split, uniform equal on the card and the CPU; "
+        f"{n_draws} categorical draws equal (every gap > 1e-5)")
+
+    rows = torch.randn(QUALITY_BATCH, V, generator=gen, device="cuda")
+    row_keys = rng.as_key(np.tile(keys[:1], (QUALITY_BATCH, 1)), "cuda")
+    stream_keys = rng.as_key(keys, "cuda")
+    cases = {"bo5 (20 rows, per-row keys)":
+             lambda: rng.categorical(row_keys, rows),
+             "beam5 t > 0 (4 streams, 5 x 5 draws over 5 x V)":
+             lambda: rng.categorical(stream_keys, logits, (BEAM, BEAM))}
+    out = {}
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        n = 10
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in evs) / n / 1e3
+        out[name] = {"device_ms": busy, "launches": len(evs) / n}
+        log(f"[{card_line}] draws: one step's draw, {name}: {busy:.4f} ms "
+            f"of device time, {len(evs) / n:.0f} launches (torch.profiler, "
+            f"mean of {n})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_parity(card_line: str):
+    """The port in bf16 on the card against whisper_tpu's segments on the
+    CPU (tests/golden/port_segments.json, tests/port_parity.py): the same
+    random-weight q8_0 file and PCM, BatchTranscriber greedy and beam 5
+    (einsum_q8, the decoder packed: K1, K2, K2 with G = 5, K3); each
+    stream's held golden tokens must be emitted (port_parity.compare),
+    and, teacher-forced, the golden token must come first at each greedy
+    stream's decided steps (port_parity.check_decided).  -> the kernel
+    launch counts."""
+    import hashlib
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import port_parity as pp
+    from whisper_tpu_torch import (BatchTranscriber, WhisperContext,
+                                   full_default_params)
+
+    golden = pp.load_golden()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    path = pp.write_model(BUILD / "parity.bin")
+    digest = hashlib.sha256(Path(path).read_bytes()).hexdigest()
+    if digest != golden["model_sha256"]:
+        raise AssertionError("parity: the model file differs from the "
+                             "golden run's")
+    ctx = WhisperContext.from_file(path, cross_mode=pp.CROSS_MODE)
+    reset_counts()
+    for config in pp.CONFIGS:
+        bt = BatchTranscriber(ctx, batch_size=pp.BATCH,
+                              params=pp.params(full_default_params, config),
+                              device_mel=True)
+        held = pp.compare(config, bt.transcribe(pp.streams(config)),
+                          golden)
+        log(f"[{card_line}] parity {config}: {held['covered']} of "
+            f"{held['of']} golden tokens held (by stream {held['held']}; "
+            f"leading tokens equal, held or not: {held['agree']}), all "
+            f"equal (stated bf16 noise {pp.BF16_NOISE}); largest log-prob "
+            f"difference on them {held['max_plog_diff']:.4g}")
+        if config == "greedy":
+            gaps = [pp.teacher_forced_gaps(ctx, bt, pcm, ref["tokens"])
+                    for pcm, ref in zip(pp.streams(config),
+                                        golden[config]["streams"])]
+            tf = pp.check_decided(gaps, golden)
+            log(f"[{card_line}] parity greedy teacher-forced: decided "
+                f"steps by stream {tf['decided']} (golden gap >= "
+                f"{2 * pp.BF16_NOISE:.2f}, each >= {pp.MIN_PREFIX}), the "
+                f"golden token first at each; largest gap change "
+                f"{tf['max_gap_change']:.4g}")
+    counts = read_counts()
+    log(f"kernel launches in parity: {counts}")
+    require_launches("parity", counts, ("K1", "K2", "K2G", "K3"))
+    del ctx
+    torch.cuda.empty_cache()
+    return counts
 
 
 def front_end(card_line: str, params, cfg):
@@ -1059,6 +1479,7 @@ def main() -> int:
     from whisper_tpu_torch.ops import _build
     t0 = time.perf_counter()
     lib = _build.library()
+    record_launches(lib)
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {lib.build_seconds:.2f} s): {lib.path.name}")
     log(lib.compiler_log.strip())
@@ -1088,7 +1509,9 @@ def main() -> int:
     log(f"large-v3 random weights on the card: "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # the main paths, each read with the counts set to 0 just before it
+    # the main paths, each read with the counts set to 0 just before it;
+    # the shapes they launch are noted, for check_launched
+    LAUNCHED["on"] = True
     paths = {
         "path A": run_full("path A", big_file, "pallas_q8",
                            ("K1", "K3", "K5"), card_line),
@@ -1101,10 +1524,29 @@ def main() -> int:
         "path C q4": run_full("path C q4", big_file, "einsum_q4",
                               ("K1", "K3"), card_line, PATH_C_S),
         "path D": front_end(card_line, big.params, big.config),
+        # bench.py's other quality tiers at 20 rows: best_of 5 with the
+        # ladder live (t > 0 rungs: K2 at G = 1), beam 5 (4 streams x 5
+        # beams: K2 at G = 5)
+        "transcribe bo5": serve(card_line, big, "transcribe bo5",
+                                ("K1", "K2"), "bo5", QUALITY_BATCH, True),
+        "transcribe beam5": serve(card_line, big, "transcribe beam5",
+                                  ("K1", "K2G"), "beam5", QUALITY_BATCH,
+                                  True),
+        # the CLI's defaults: whisper_tpu's serial beam reads the window's
+        # dense cross-KV through the einsum in every cross mode
+        # (decode/beam.py passes it to decode_step as it comes), so K5
+        # does not run here; K1 and K3 (M = 5 and 5 x P) do
+        "path A cli": run_full("path A cli", big_file, "pallas_q8",
+                               ("K1", "K3"), card_line, CLI_S,
+                               cli_params(CLI_S), trace=True),
+        "parity": check_parity(card_line),
     }
+    LAUNCHED["on"] = False
     del big, big_q4
     torch.cuda.empty_cache()
-    keys = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+    check_launched(gen, res)
+    draws = check_draws(card_line)
+    keys = ("K1", "K2", "K2G", "K3", "K4", "K5", "K6", "K7")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in keys}
     log(f"kernel launches, all paths: {launches}")
     log("kernel launches by path: " + json.dumps(
@@ -1132,9 +1574,13 @@ def main() -> int:
                "bound_ms_bhdt": k1dt["bound_ms"],
                "share_of_bound_bhdt": k1dt["share_of_bound"],
                "tflops_bhdt": k1dt["tflops"], "shape_bhdt": k1dt["shape"],
-               "shapes_bhdt": k1dt["shapes"]}),
+               "shapes_bhdt": k1dt["shapes"],
+               "launched_shapes_bhdt": k1dt.get("launched_shapes", [])}),
         entry("K2", "cross_attention_q8", "cross_attention.cu",
               "whisper_tpu/ops/cross_attention.py:142"),
+        entry("K2G", "cross_attention_q8, G = 5 queries a (b, h)",
+              "cross_attention.cu", "whisper_tpu/ops/cross_attention.py:142",
+              {"draws_per_step": draws}),
         entry("K3", "quantized_matmul", "quantized_matmul.cu",
               "whisper_tpu/ops/quantized.py:179",
               {"max_abs_err": max(k3["max_abs_err"], k3m["max_abs_err"]),
@@ -1142,6 +1588,7 @@ def main() -> int:
                "ms_mins": k3m["ms"], "plain_ms_mins": k3m["plain_ms"],
                "bound_ms_mins": k3m["bound_ms"], "dense_ms_mins": k3m["dense_ms"],
                "shape_mins": k3m["shape"], "shapes_mins": k3m["shapes"],
+               "launched_shapes_mins": k3m.get("launched_shapes", []),
                "ms_by_shape_mins": k3m["ms_by_shape"]}),
         entry("K4", "cross_attention_decode", "cross_attention.cu",
               "whisper_tpu/ops/cross_attention.py:68"),

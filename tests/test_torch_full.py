@@ -195,9 +195,6 @@ def test_batch_transcriber_over_file(files, jax_strict):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("temperature", 0.4),
-    ("temperature_inc", 0.2),
-    ("strategy", 1),
     ("grammar_rules", []),
     ("logits_filter_callback", lambda *a: None),
     ("token_timestamps", True),
@@ -216,13 +213,15 @@ def test_full_refuses_unported_options(files, pcm, field, value):
 
 def test_full_refuses_einsum_q8(files, pcm):
     """With cross mode einsum_q8, full() refuses only what it refuses in
-    every mode (here beam search), before any work, and not for the mode:
-    the mode runs (tests/test_torch_cross_modes.py holds its segments)."""
+    every mode (here token timestamps), before any work, and not for the
+    mode: the mode runs (tests/test_torch_cross_modes.py holds its
+    segments)."""
     tctx = WhisperContext.from_file(files["q8_0"], device="cpu",
                                     compute_dtype=torch.float32,
                                     cross_mode="einsum_q8")
-    with pytest.raises(NotImplementedError, match="beam search") as err:
-        tctx.full(_params(full_default_params, {"strategy": 1}), pcm)
+    with pytest.raises(NotImplementedError, match="token timestamps") as err:
+        tctx.full(_params(full_default_params, {"token_timestamps": True}),
+                  pcm)
     assert "einsum_q8" not in str(err.value)
     assert tctx.mel is None
 

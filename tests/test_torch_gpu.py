@@ -92,6 +92,71 @@ def test_k2_matches_plain_on_card(gen, shape):
     assert _rel_err(got, ref) <= TOL_XATTN
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 64, 37, 3), (2, 4, 64, 256, 2),
+                                   (4, 20, 64, 1500, 5), (1, 20, 64, 1500, 5),
+                                   (3, 4, 128, 200, 8), (1, 1, 64, 8000, 8)])
+def test_k2_groups_match_plain_on_card(gen, shape):
+    """K2 with G queries a (b, h) (B, H, Dh, Ta, G): batched beam search's
+    form, a stream's beams against its one cross-KV row.  Within its bound
+    of the plain version; two launches give the same bits; each query's
+    row is the bits of that query alone (G = 1) on the same cluster plan,
+    since a CTA's sums run in the same order for every query."""
+    B, H, Dh, Ta, G = shape
+    q = (torch.randn(B, H, G, Dh, generator=gen, device="cuda") * 0.3
+         ).to(torch.bfloat16)
+    (kq, ks), (vq, vs) = (xa.quantize_kv_bhdt(
+        torch.randn(B, H, Dh, Ta, generator=gen, device="cuda") * 0.3)
+        for _ in range(2))
+    n = xa.cross_attention_decode_q8dt.launches
+    got = xa.cross_attention_decode_q8dt(q, kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    assert xa.cross_attention_decode_q8dt.launches == n + 1
+    assert got.shape == (B, H, G, Dh) and got.dtype == torch.float32
+    ref = xa.cross_attention_decode_q8dt_ref(q, kq, ks, vq, vs)
+    assert _rel_err(got, ref) <= TOL_XATTN
+    assert torch.equal(got, xa.cross_attention_decode_q8dt(q, kq, ks, vq, vs))
+    from whisper_tpu_torch.ops._build import library
+    cluster = xa._q8dt_cluster(B * H, Ta, G, Dh)
+    for g in (0, G - 1):
+        q1 = q[:, :, g:g + 1].contiguous()
+        alone = torch.empty(B, H, 1, Dh, device="cuda")
+        library().call("wtt_cross_attention_q8", q1.data_ptr(),
+                       kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+                       vs.data_ptr(), alone.data_ptr(), B, H, 1, Dh, Ta,
+                       cluster, int(xa._q8dt_words(Ta, kq.data_ptr(),
+                                                   vq.data_ptr())),
+                       torch.cuda.current_stream().cuda_stream)
+        assert torch.equal(alone[:, :, 0], got[:, :, g])
+
+
+def test_draws_on_card_equal_cpu(gen):
+    """decode/rng.py on the card: threefry bits, split keys and uniforms
+    equal the CPU's bit for bit; Gumbel noise within an ulp or two (the
+    card's logf is not the CPU's); categorical draws equal wherever the
+    winner leads by more than 1e-5, asserted, for the three forms the
+    decode loops use."""
+    from whisper_tpu_torch.decode import rng
+    keys = np.array([[4500, 515], [2**31 + 7, 2**32 - 1], [0, 0]], np.uint32)
+    for key in (keys[0], keys):
+        for fn in (lambda k, d: rng.random_bits(rng.as_key(k, d), (7, 333)),
+                   lambda k, d: rng.split(rng.as_key(k, d), 3),
+                   lambda k, d: rng.uniform(rng.as_key(k, d), (5, 1000))):
+            assert torch.equal(fn(key, "cuda").cpu(), fn(key, "cpu"))
+        g_card = rng.gumbel(rng.as_key(key, "cuda"), (64, 1000)).cpu()
+        g_cpu = rng.gumbel(rng.as_key(key, "cpu"), (64, 1000))
+        torch.testing.assert_close(g_card, g_cpu, rtol=1e-6, atol=1e-6)
+    logits = torch.randn(3, 5, 51866, generator=gen, device="cuda") * 2.0
+    logits[..., ::3] = float("-inf")
+    for key, lg, shape in ((keys[0], logits[0], None),
+                           (keys, logits[:, 0], None),
+                           (keys[1], logits[0], (5, 5)),
+                           (keys, logits, (5, 5))):
+        on_card = rng.categorical(key, lg, shape)
+        on_cpu = rng.categorical(key, lg.cpu(), shape)
+        assert rng.categorical_margin(key, lg.cpu(), shape) > 1e-5
+        assert torch.equal(on_card.cpu(), on_cpu)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     """On the card nothing is cast quietly or sent to the plain version."""
     x = torch.randn(1, 64, 2, 64, generator=gen, device="cuda")
@@ -114,21 +179,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):          # Ta past 16384
         xa.cross_attention_decode_q8dt(q, big, big[:, :, 0].float(), big,
                                        big[:, :, 0].float())
+    with pytest.raises(ValueError):          # 9 queries a (b, h)
+        xa.cross_attention_decode_q8dt(q.expand(1, 2, 9, 64).contiguous(),
+                                       codes, scales, codes, scales)
     # K2's plan arguments, straight to its entry point: clusters of 0, 17,
     # and 2 at Ta = 8 (more than one CTA per 64 keys); the word path on
-    # codes one byte past a word boundary
+    # codes one byte past a word boundary; 0 and 9 queries
     from whisper_tpu_torch.ops._build import library
     odd = torch.zeros(codes.numel() + 1, dtype=torch.int8,
                       device="cuda")[1:].view(codes.shape)
-    out = torch.empty(1, 2, 1, 64, device="cuda")
+    out = torch.empty(1, 2, 9, 64, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for k_codes, cluster, words in ((codes, 0, 0), (codes, 17, 0),
-                                    (codes, 2, 0), (odd, 1, 1)):
+    for k_codes, n_q, cluster, words in ((codes, 1, 0, 0), (codes, 1, 17, 0),
+                                         (codes, 1, 2, 0), (odd, 1, 1, 1),
+                                         (codes, 0, 1, 0), (codes, 9, 1, 0)):
         with pytest.raises(RuntimeError):
             library().call("wtt_cross_attention_q8", q.data_ptr(),
                            k_codes.data_ptr(), scales.data_ptr(),
                            k_codes.data_ptr(), scales.data_ptr(),
-                           out.data_ptr(), 1, 2, 64, 8, cluster, words, stream)
+                           out.data_ptr(), 1, 2, n_q, 64, 8, cluster, words,
+                           stream)
 
 
 def test_batch_transcriber_on_card_runs_both_kernels(gen):
@@ -153,6 +223,59 @@ def test_batch_transcriber_on_card_runs_both_kernels(gen):
     for segs in result:
         assert segs
         assert np.isfinite([t.p for s in segs for t in s.tokens]).all()
+
+
+def test_batch_transcriber_beam_and_bo5_on_card(gen):
+    """Beam 5 (two streams x five beams: K2 with G = 5) and best_of 5 with
+    the ladder live (t > 0 rungs with draws on the card) at small widths
+    in bf16."""
+    dims = (51864, 32, 128, 2, 2, 48, 128, 2, 3, 80)
+    ctx = WhisperContext.from_random(dims=dims, seed=1, device="cuda")
+    rng = np.random.RandomState(0)
+    streams = [(rng.randn(16000 * s) * 0.1 * 32768).clip(-32768, 32767)
+               .astype(np.int16) for s in (5, 9)]
+    for strategy in (1, 0):
+        p = full_default_params(strategy)
+        p.print_progress = False
+        p.no_timestamps = True
+        p.max_tokens = 8
+        p.logprob_thold = 0.0          # every rung but the last fails
+        bt = BatchTranscriber(ctx, batch_size=10, params=p, device_mel=True)
+        xa.cross_attention_decode_q8dt.launches = 0
+        xa.cross_attention_decode_q8dt.launches_grouped = 0
+        result = bt.transcribe(streams)
+        torch.cuda.synchronize()
+        grouped = xa.cross_attention_decode_q8dt.launches_grouped
+        assert (grouped > 0) == (strategy == 1)
+        assert xa.cross_attention_decode_q8dt.launches > 0
+        assert bt.n_retried_windows == 2
+        for segs in result:
+            assert segs
+            assert np.isfinite([t.p for s in segs for t in s.tokens]).all()
+
+
+def test_segment_parity_on_card(gen, tmp_path):
+    """The port in bf16 on the card against whisper_tpu's segments on the
+    CPU (tests/port_parity.py): greedy and beam 5, each stream's held
+    golden tokens emitted; greedy teacher-forced, the golden token first
+    at each decided step."""
+    import hashlib
+    import port_parity as pp
+    golden = pp.load_golden()
+    path = pp.write_model(tmp_path / "parity.bin")
+    assert (hashlib.sha256(open(path, "rb").read()).hexdigest()
+            == golden["model_sha256"])
+    ctx = WhisperContext.from_file(path, cross_mode=pp.CROSS_MODE)
+    for config in pp.CONFIGS:
+        bt = BatchTranscriber(ctx, batch_size=pp.BATCH,
+                              params=pp.params(full_default_params, config),
+                              device_mel=True)
+        pp.compare(config, bt.transcribe(pp.streams(config)), golden)
+        if config == "greedy":
+            pp.check_decided(
+                [pp.teacher_forced_gaps(ctx, bt, pcm, ref["tokens"])
+                 for pcm, ref in zip(pp.streams(config),
+                                     golden[config]["streams"])], golden)
 
 
 def _packed(gen, K, N, mins):
@@ -467,6 +590,40 @@ def test_full_from_file_on_card(gen, tmp_path, kind, cross_mode, audio_ctx):
     assert ea.self_attention.launches > 0
     assert qm.quantized_matmul.launches > 0
     assert kernel.launches > 0
+    segs = ctx.result_all
+    assert segs
+    assert np.isfinite([t.p for s in segs for t in s.tokens]).all()
+
+
+@pytest.mark.parametrize("strategy", [0, 1], ids=["greedy", "beam"])
+def test_full_default_ladder_on_card(gen, tmp_path, strategy):
+    """whisper_full with full_default_params as they come (the ladder live,
+    best_of 5; beam 5 for beam search) over a q5_0 file in pallas_q8 at
+    small widths in bf16: the t > 0 rungs run (logprob_thold 0 fails every
+    rung but the last) with their draws on the card; K5 runs in the greedy
+    rungs, while the beam reads the dense cross-KV through the einsum, as
+    whisper_tpu's serial beam does."""
+    dims = (51865, 64, 128, 2, 2, 48, 128, 2, 3, 80)
+    hp = dict(zip(ggml_writer.HPARAM_KEYS, dims))
+    path = str(tmp_path / "q5_0.bin")
+    ggml_writer.write_random_model(
+        path, hp, mel_filterbank(80), synthetic_vocab(dims[0]).id_to_token[
+            :50257], "q5_0", seed=1)
+    ctx = WhisperContext.from_file(path, device="cuda",
+                                   cross_mode="pallas_q8")
+    p = full_default_params(strategy)
+    assert p.temperature_inc == 0.2 and p.greedy.best_of == 5
+    p.print_progress = False
+    p.max_tokens = 8
+    p.logprob_thold = 0.0
+    pcm = (np.random.RandomState(0).randn(16000 * 5) * 0.1).astype(
+        np.float32)
+    xa.cross_attention_decode_q8.launches = 0
+    assert ctx.full(p, pcm) == 0
+    torch.cuda.synchronize()
+    # every window fails rungs 0.0-0.8 and emits at 1.0
+    assert ctx.timings.n_fail_p >= 5 and ctx.timings.n_fail_p % 5 == 0
+    assert (xa.cross_attention_decode_q8.launches > 0) == (strategy == 0)
     segs = ctx.result_all
     assert segs
     assert np.isfinite([t.p for s in segs for t in s.tokens]).all()

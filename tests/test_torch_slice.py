@@ -106,12 +106,9 @@ def test_batch_segments_identical(contexts, streams, case):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("temperature_inc", 0.2),
-    ("temperature", 0.5),
     ("language", "auto"),
     ("detect_language", True),
     ("token_timestamps", True),
-    ("strategy", 1),
     ("suppress_regex", "t1.*"),
 ])
 def test_refused_options(contexts, field, value):
@@ -145,8 +142,7 @@ def test_refused_paths(contexts):
 
 
 def test_window_rng_matches_jax():
-    """The sampling key data, bit for bit (the t > 0 sampler that will draw
-    from it is not ported yet)."""
+    """The sampling key data, bit for bit (decode/rng.py draws from it)."""
     from whisper_tpu import api as japi
     from whisper_tpu_torch import api as tapi
     for seek, attempt, n_cur in ((0, 0, 1), (4500, 2, 5), (2**31 + 7, 1, 3)):

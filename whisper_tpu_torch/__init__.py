@@ -14,7 +14,9 @@ caller asks for the CPU.  Two paths are ported:
          csrc/encoder_attention.cu)
       -> dense cross-KV (models/whisper.py cross_kv), quantized once per
          window for the quantized cross modes (decode/loop.py)
-      -> window decode loop (decode/loop.py); every packed decoder linear
+      -> window decode (decode/loop.py greedy, with draws from JAX's
+         threefry stream at t > 0, decode/rng.py; decode/beam.py beam
+         search), the temperature-fallback ladder; every packed decoder linear
          through kernel K3 (ops/quantized.py, csrc/quantized_matmul.cu),
          the per-token cross-attention through K2 ("einsum_q8",
          "pallas_q8dt"), K4 ("pallas") or K5 ("pallas_q8")
@@ -24,7 +26,9 @@ caller asks for the CPU.  Two paths are ported:
 
     BatchTranscriber.transcribe (parallel/batch.py): batched serving
       -> device log-mel, encoder (K1), the cross-KV of the cross mode
-         (cross_kv, cross_kv_q8 or cross_kv_q4), window decode loop
+         (cross_kv, cross_kv_q8 or cross_kv_q4), window decode loop with
+         the ladder and best_of candidates, or batched beam search (a
+         stream's beams as K2's G queries on its cross-KV row)
 
 The fused log-mel kernel K7 (ops/mel_pallas.py, csrc/log_mel.cu) runs in
 `log_mel_pallas`, as whisper_tpu's Pallas mel kernel does.  On CPU tensors
@@ -32,10 +36,11 @@ every kernel wrapper runs its plain PyTorch version; on CUDA tensors it
 launches the hand-written kernel or raises.
 """
 
-from .api import (FullParams, GreedyParams, Segment, TokenData,
-                  WhisperContext, WhisperState, full_default_params)
+from .api import (BeamSearchParams, FullParams, GreedyParams,
+                  SamplingStrategy, Segment, TokenData, WhisperContext,
+                  WhisperState, full_default_params)
 from .parallel.batch import BatchTranscriber
 
-__all__ = ["BatchTranscriber", "FullParams", "GreedyParams", "Segment",
-           "TokenData", "WhisperContext", "WhisperState",
-           "full_default_params"]
+__all__ = ["BatchTranscriber", "BeamSearchParams", "FullParams",
+           "GreedyParams", "SamplingStrategy", "Segment", "TokenData",
+           "WhisperContext", "WhisperState", "full_default_params"]

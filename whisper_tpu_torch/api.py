@@ -4,12 +4,14 @@
 The dataclasses keep whisper_tpu's fields and defaults.  `WhisperContext`
 is built from a ggml file (`from_file`, `from_buffer`), from random
 weights (`from_random`) or from a whisper_tpu context (`from_jax`).
-`full` runs the sliding 30 s window loop greedily at temperature 0 in
-every cross mode of whisper_tpu (decode/loop.CROSS_MODES); the quantized
-modes quantize the window's dense cross-KV once, as whisper_tpu's `full`
-does.  What it does not port (sampling at t > 0 and the fallback ladder,
-beam search, grammars and logits-filter callbacks, token timestamps and
-DTW, suppress_regex) is refused with NotImplementedError before any work.
+`full` runs the sliding 30 s window loop in every cross mode of
+whisper_tpu (decode/loop.CROSS_MODES), greedy or beam search, with the
+temperature-fallback ladder: at t > 0 it draws best_of candidates from
+JAX's threefry stream with whisper_tpu's keys (decode/rng.py), so sampled
+windows equal whisper_tpu's.  The quantized modes quantize the window's
+dense cross-KV once, as whisper_tpu's `full` does.  What it does not port
+(grammars and logits-filter callbacks, token timestamps and DTW,
+suppress_regex) is refused with NotImplementedError before any work.
 Its entry points run on the card (device="cuda") unless the caller asks
 for the CPU.
 """
@@ -29,6 +31,8 @@ from .audio.filters import mel_filterbank
 from .audio.mel import full_f32_matmuls, log_mel_spectrogram
 from .constants import CHUNK_SIZE, MAX_DECODERS, TICKS_PER_SECOND
 from .decode.filters import FilterConsts, FilterOptions
+from .decode.beam import (make_batched_beam_decode_window,
+                          make_beam_decode_window)
 from .decode.loop import (CROSS_MODES, DELTA_MIN, LoopConfig,
                           make_decode_window)
 from .languages import lang_id as _lang_id, lang_str
@@ -381,33 +385,67 @@ class WhisperContext:
                              n_head=self.config.n_text_head, compute_dtype=cd)
         return enc, kc, vc
 
+    def _loop_config(self, P: int, single_segment: bool,
+                     no_timestamps: bool, max_tokens: int) -> LoopConfig:
+        n_text_ctx = self.config.n_text_ctx
+        return LoopConfig(
+            n_head=self.config.n_text_head,
+            n_text_ctx=n_text_ctx,
+            prompt_size=P,
+            # max_tokens caps the loop at i >= max_tokens, so the (B, N)
+            # buffers and the (..., C) cache shrink to match
+            max_tokens_loop=(min(n_text_ctx // 2 - 4, max_tokens + 1)
+                             if max_tokens > 0 else n_text_ctx // 2 - 4),
+            max_tokens_param=max_tokens,
+            single_segment=single_segment,
+            no_timestamps=no_timestamps,
+            compute_dtype=self.compute_dtype,
+            cross_mode=self.cross_mode,
+        )
+
     def _decode_window_fn(self, B: int, P: int, opts: FilterOptions,
                           single_segment: bool, no_timestamps: bool,
                           max_tokens: int, strategy: str = "greedy",
                           extra_suppress: tuple = ()):
+        """The window decode of B rows: "greedy" (decode/loop.py, keys
+        (B, 2) or (2,)) or "beam" (decode/beam.py's serial beam, B =
+        beam_size, one (2,) key)."""
         key = ("dec", B, P, opts, single_segment, no_timestamps, max_tokens,
                strategy, extra_suppress)
         if key not in self._fn_cache:
-            n_text_ctx = self.config.n_text_ctx
-            cfg = LoopConfig(
-                n_head=self.config.n_text_head,
-                n_text_ctx=n_text_ctx,
-                prompt_size=P,
-                # max_tokens caps the loop at i >= max_tokens, so the
-                # (B, N) buffers and the (..., C) cache shrink to match
-                max_tokens_loop=(min(n_text_ctx // 2 - 4, max_tokens + 1)
-                                 if max_tokens > 0 else n_text_ctx // 2 - 4),
-                max_tokens_param=max_tokens,
-                single_segment=single_segment,
-                no_timestamps=no_timestamps,
-                compute_dtype=self.compute_dtype,
-                cross_mode=self.cross_mode,
-            )
-            self._fn_cache[key] = make_decode_window(
+            kw = dict(consts=FilterConsts.from_vocab(
+                          self.vocab, self.config.n_audio_ctx),
+                      options=opts,
+                      cfg=self._loop_config(P, single_segment,
+                                            no_timestamps, max_tokens),
+                      extra_suppress=extra_suppress, device=self.device)
+            if strategy == "beam":
+                fn = make_beam_decode_window(beam_size=B, **kw)
+            elif strategy == "greedy":
+                fn = make_decode_window(**kw)
+            else:
+                raise ValueError(f"unknown decode strategy {strategy!r}")
+            self._fn_cache[key] = fn
+        return self._fn_cache[key]
+
+    def _beam_batch_window_fn(self, S: int, K: int, P: int,
+                              opts: FilterOptions, single_segment: bool,
+                              no_timestamps: bool, max_tokens: int,
+                              extra_suppress: tuple = ()):
+        """Batched beam search: S streams x K beams in one batch
+        (decode/beam.make_batched_beam_decode_window); per-stream inputs
+        and (S, 2) keys, per-beam outputs (S*K rows)."""
+        key = ("decbb", S, K, P, opts, single_segment, no_timestamps,
+               max_tokens, extra_suppress)
+        if key not in self._fn_cache:
+            self._fn_cache[key] = make_batched_beam_decode_window(
                 consts=FilterConsts.from_vocab(self.vocab,
                                                self.config.n_audio_ctx),
-                options=opts, cfg=cfg, strategy=strategy,
-                extra_suppress=extra_suppress, device=self.device)
+                options=opts,
+                cfg=self._loop_config(P, single_segment, no_timestamps,
+                                      max_tokens),
+                n_streams=S, beam_size=K, extra_suppress=extra_suppress,
+                device=self.device)
         return self._fn_cache[key]
 
     def use_state(self, state: WhisperState):
@@ -489,11 +527,6 @@ class WhisperContext:
     def _check_full_supported(self, params: FullParams) -> None:
         """Refuse, before any work, what `full` does not port."""
         refused = []
-        if params.temperature > 0.0 or params.temperature_inc > 0.0:
-            refused.append("temperature > 0 / the fallback ladder "
-                           "(temperature_inc > 0 needs JAX's threefry draws)")
-        if params.strategy == SamplingStrategy.BEAM_SEARCH:
-            refused.append("beam search")
         if params.grammar_rules is not None or params.logits_filter_callback:
             refused.append("grammar / logits-filter callbacks")
         if params.token_timestamps:
@@ -508,8 +541,8 @@ class WhisperContext:
     def _full_impl(self, params: FullParams,
                    samples: Optional[np.ndarray]) -> int:
         """The sliding-window loop of whisper_full_with_state (reference:
-        src/whisper.cpp:5481-6397), greedy at temperature 0: one window
-        decode per 30 s window, no ladder retries."""
+        src/whisper.cpp:5481-6397): a window decode per 30 s window, then
+        the temperature-fallback ladder's rungs until one succeeds."""
         self._check_full_supported(params)
         self.result_all = []
         language = params.language
@@ -539,9 +572,15 @@ class WhisperContext:
                      "< 100 ms. consider padding the input audio with silence")
             return 0
 
-        # greedy: best_of only sizes the t > 0 rungs, refused above, but a
-        # value past the decoder limit is still an error (whisper.cpp:5556)
-        n_decoders = max(1, params.greedy.best_of)
+        # temperature ladder (reference: src/whisper.cpp:5541-5549)
+        temperatures = _ladder(params.temperature, params.temperature_inc)
+
+        if params.strategy == SamplingStrategy.GREEDY:
+            n_decoders = params.greedy.best_of
+        else:
+            n_decoders = max(params.greedy.best_of,
+                             params.beam_search.beam_size)
+        n_decoders = max(1, n_decoders)
         if n_decoders > MAX_DECODERS:
             log_error(f"too many decoders requested ({n_decoders}), "
                       f"max = {MAX_DECODERS}")
@@ -622,43 +661,89 @@ class WhisperContext:
                 seek += TICKS_PER_SECOND * CHUNK_SIZE
                 continue
 
-            # prompt assembly (reference: src/whisper.cpp:5759-5771)
-            prompt: list[int] = []
-            if self.prompt_past and params.n_max_text_ctx > 0:
-                n_take = min(params.n_max_text_ctx,
-                             self.hparams.n_text_ctx // 2,
-                             len(self.prompt_past))
-                prompt = [self.vocab.token_prev] + self.prompt_past[-n_take:]
-            prompt = prompt + prompt_init
+            use_beam = params.strategy == SamplingStrategy.BEAM_SEARCH
+            best = None
+            for it, t_cur in enumerate(temperatures):
+                # best_of candidates at t > 0, else beam_size beams or one
+                # greedy decoder (reference: src/whisper.cpp:5718-5724)
+                if t_cur > 0.0:
+                    n_cur = params.greedy.best_of
+                else:
+                    n_cur = params.beam_search.beam_size if use_beam else 1
+                n_cur = max(1, n_cur)
 
-            result = self._decode_window(prompt, kc, vc, params.temperature,
-                                         seek, seek_end, params, opts,
-                                         no_timestamps)
-            self.no_speech_prob = float(result["no_speech_prob"][0])
-            # the single rung is the last: it always emits
-            best, n_fail_h = _rank_window_candidates(
-                result, 1, params, last=True, token_eot=self.vocab.token_eot)
-            self.timings.n_fail_h += n_fail_h
-            best["prompt"] = prompt
+                # prompt assembly (reference: src/whisper.cpp:5759-5771);
+                # hot rungs drop the carried past
+                prompt: list[int] = []
+                if (self.prompt_past and t_cur < 0.5
+                        and params.n_max_text_ctx > 0):
+                    n_take = min(params.n_max_text_ctx,
+                                 self.hparams.n_text_ctx // 2,
+                                 len(self.prompt_past))
+                    prompt = ([self.vocab.token_prev]
+                              + self.prompt_past[-n_take:])
+                prompt = prompt + prompt_init
+
+                # beam search runs at every rung, with best_of slots and
+                # drawn candidates at t > 0 (whisper.cpp:5881-5890)
+                result = self._decode_window(
+                    prompt, kc, vc, n_cur, t_cur, seek, seek_end, params,
+                    opts, no_timestamps, attempt=it,
+                    strategy="beam" if use_beam else "greedy")
+                self.no_speech_prob = float(result["no_speech_prob"][0])
+
+                # rank the candidates; the last rung always emits
+                # (reference: src/whisper.cpp:6169-6230)
+                best, n_fail_h = _rank_window_candidates(
+                    result, n_cur, params,
+                    last=it == len(temperatures) - 1,
+                    token_eot=self.vocab.token_eot)
+                self.timings.n_fail_h += n_fail_h
+                if best is not None:
+                    best["prompt"] = prompt
+                    break
+                self.timings.n_fail_p += 1
+
+            if best is None:
+                # every temperature failed: consume the window
+                seek += TICKS_PER_SECOND * CHUNK_SIZE
+                continue
             seek = self._emit_segments(best, seek, seek_end, params,
                                        prompt_init, no_timestamps)
         return 0
 
-    def _decode_window(self, prompt, kc, vc, t_cur, seek, seek_end, params,
-                       opts, no_timestamps):
-        """One greedy window decode of a single candidate."""
+    def _decode_window(self, prompt, kc, vc, n_cur, t_cur, seek, seek_end,
+                       params, opts, no_timestamps, attempt=0,
+                       strategy="greedy"):
+        """One window decode of n_cur candidates (greedy decoders or
+        beams) of the same prompt against the window's cross-KV."""
         # prompt buffer: tiny when unconditioned, full when carrying past
         P = 8 if len(prompt) <= 8 else self.hparams.n_text_ctx // 2 + 8
-        fn = self._decode_window_fn(1, P, opts, params.single_segment,
-                                    no_timestamps, params.max_tokens)
+        fn = self._decode_window_fn(n_cur, P, opts, params.single_segment,
+                                    no_timestamps, params.max_tokens,
+                                    strategy)
         pad = P - len(prompt)
-        buf = np.zeros((1, P), dtype=np.int32)
+        buf = np.zeros((n_cur, P), dtype=np.int32)
         buf[:, pad:] = np.asarray(prompt, dtype=np.int32)
-        pad_len = np.full((1,), pad, dtype=np.int32)
+        pad_len = np.full((n_cur,), pad, dtype=np.int32)
+
+        # cross-KV computed for batch 1, broadcast across the decoders
+        if n_cur > 1 and kc.shape[1] == 1:
+            kc = kc.expand((kc.shape[0], n_cur) + kc.shape[2:])
+            vc = vc.expand((vc.shape[0], n_cur) + vc.shape[2:])
 
         t0 = time.perf_counter()
-        out = fn(self.params, kc, vc, buf, pad_len, t_cur, seek, seek_end,
-                 np.ones((1,), bool))
+        # draw keys from (window seek, ladder attempt, candidate): the same
+        # window re-decoded by the batched serving path draws the same
+        # numbers (one stream for the beam)
+        if strategy == "beam":
+            out = fn(self.params, kc, vc, buf, pad_len, t_cur, seek,
+                     seek_end, window_rng(seek, attempt, n_cur,
+                                          per_row=False))
+        else:
+            out = fn(self.params, kc, vc, buf, pad_len, t_cur, seek,
+                     seek_end, window_rng(seek, attempt, n_cur),
+                     np.ones((n_cur,), bool))
         n_tok = int(out["n_tokens"])
         self.timings.t_decode_us += int((time.perf_counter() - t0) * 1e6)
         self.timings.n_decode += max(n_tok, 1)
@@ -800,11 +885,25 @@ def _torch_dtype(dt: np.dtype) -> torch.dtype:
             np.dtype(np.float16): torch.float16}[dt]
 
 
+def _ladder(temperature: float, temperature_inc: float) -> list[float]:
+    """The temperature-fallback rungs (reference: src/whisper.cpp:5541-5549):
+    temperature, then steps of temperature_inc up to 1.0."""
+    if temperature_inc <= 0.0:
+        return [temperature]
+    temps, t = [], temperature
+    while t < 1.0 + 1e-6:
+        temps.append(t)
+        t += temperature_inc
+    return temps
+
+
 def window_rng(seek, attempt: int, n_cur: int, per_row: bool = True):
     """Sampling keys for one window decode, derived from (window seek,
     ladder attempt, candidate index), as whisper_tpu derives its threefry
-    key data.  The port decodes greedily only: the sampler that draws
-    from these keys (t > 0) is not ported yet."""
+    key data (decode/rng.py draws from them): serial `full` and the
+    batched serving path draw the same numbers for the same window.
+    per_row=False gives one (2,) key (beam search draws one stream a
+    window)."""
     if not per_row:
         return np.array([np.uint32(seek), np.uint32(attempt)], np.uint32)
     keys = np.empty((n_cur, 2), np.uint32)

@@ -10,9 +10,12 @@
 //           o    = sum_t bf16(w[t]) * v[t]
 //   K2, K5: s[t] = (q . k_q[t]) * k_s[t] * Dh^-1/2; w = softmax(s)
 //           o    = sum_t bf16(w[t] * v_s[t]) * v_q[t]
-// q (B, H, 1, Dh) bf16; out (B, H, 1, Dh) f32; K2: k_q/v_q (B, H, Dh, Ta)
-// int8, k_s/v_s (B, H, Ta) f32, Dh <= 128; K4/K5: k/v (B, H, Ta, Dh) bf16
-// or int8, k_s/v_s (B, H, Ta, 1) f32, Dh = 64.  The softmax is f32 and
+// K4/K5: q (B, H, 1, Dh) bf16, out (B, H, 1, Dh) f32, k/v (B, H, Ta, Dh)
+// bf16 or int8, k_s/v_s (B, H, Ta, 1) f32, Dh = 64.  K2 takes G queries a
+// (b, h), 1 <= G <= 8, each with the function above: q (B, H, G, Dh) bf16,
+// out (B, H, G, Dh) f32, k_q/v_q (B, H, Dh, Ta) int8, k_s/v_s (B, H, Ta)
+// f32, Dh <= 128.  Batched beam search puts a stream's K beams on its one
+// cross-KV row as K queries (G = K); the serving step has G = 1.  The softmax is f32 and
 // every sum f32.  The weights are rounded to bf16 after the softmax's
 // global normalisation, so a split over Ta must agree on the global max
 // and sum before any weight is formed: flash-decoding's rescaled merge of
@@ -27,7 +30,8 @@
 //
 // All three put one (b, h) on a thread-block cluster of C CTAs (C <= 16,
 // chosen by the wrapper so the grid fills the card: 16 at B*H = 12 or 20
-// and Ta = 1500), each owning a contiguous range of whole 16-key chunks (at
+// and Ta = 1500; for K2 at G > 1, which holds two CTAs an SM, so that the
+// grid stays in one wave), each owning a contiguous range of whole 16-key chunks (at
 // least 64 keys a CTA), and keep the range's logits in shared memory.  The
 // CTAs then agree on the softmax in one exchange through distributed shared
 // memory (`cluster_softmax`): each stores its (max m_r, sum s_r of exp(s -
@@ -53,7 +57,7 @@
 // for every CTA of the grid to be resident at once.  A group of 8 lanes
 // dots one key row with q (8 channels a lane).
 //
-// K2 (`xattn_q8dt_kernel<kWords>`) reads the Dh-major layout as it lies:
+// K2 (`xattn_q8dt_kernel<kWords, kG>`) reads the Dh-major layout as it lies:
 // its d-rows are Ta bytes apart, only 4-byte aligned at Ta = 1500 and
 // 1-byte aligned at odd Ta, so neither a 2-D tensor map (16-byte strides)
 // nor a 1-D bulk copy (16-byte source and size) can take them.  A thread
@@ -65,7 +69,11 @@
 // range is in flight at batch 1.  For V a warp takes whole d-rows (d =
 // warp + 8 r), its lanes a word of keys at a time against their 4 weights,
 // then a shuffle sum; each lane's first word of 8 V rows is loaded before
-// pass 1, so at batch 1 all of V lands while the logits are formed.
+// pass 1, so at batch 1 all of V lands while the logits are formed.  Every
+// code it reads serves all kG queries (a thread keeps kG x 4 dots in pass
+// 1 and kG x 8 sums in pass 2), so K and V are read once for the group;
+// the exchange carries kG (max, sum) pairs and rank 0 adds kG x Dh partial
+// outputs in rank order.  kG = 1 is the single-query kernel.
 //
 // Plain C entry points for ctypes; each launches on the given stream and
 // returns cudaGetLastError() (or the error that kept it from launching).
@@ -90,6 +98,8 @@ constexpr int kLanesPerRow = kDh / 8;            // 8 channels a lane
 constexpr int kRowsPerWarp = 32 / kLanesPerRow;  // 4
 constexpr int kRowsPerStep = kWarps * kRowsPerWarp;
 constexpr int kMaxTa = 16384;                    // the logits stay in shared memory
+constexpr int kMaxQueries = 8;                   // K2's G: WHISPER_MAX_DECODERS
+constexpr size_t kQ8dtMaxSmem = 200 * 1024;      // K2's dynamic shared memory
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -101,16 +111,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float x, float* scratch) {
+// kG max- or sum-reductions over the block at once, each in the same
+// order; every thread gets the results.  scratch: kWarps x kG floats.
+template <bool kMax, int kG>
+__device__ __forceinline__ void block_reduce(float* x, float* scratch) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  x = kMax ? warp_max(x) : warp_sum(x);
+#pragma unroll
+  for (int g = 0; g < kG; ++g) x[g] = kMax ? warp_max(x[g]) : warp_sum(x[g]);
   __syncthreads();   // scratch free from any previous reduction
-  if (lane == 0) scratch[warp] = x;
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) scratch[warp * kG + g] = x[g];
+  }
   __syncthreads();
-  x = lane < kWarps ? scratch[lane] : (kMax ? -INFINITY : 0.f);
-  return kMax ? warp_max(x) : warp_sum(x);
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    const float y = lane < kWarps ? scratch[lane * kG + g] : (kMax ? -INFINITY : 0.f);
+    x[g] = kMax ? warp_max(y) : warp_sum(y);
+  }
+}
+
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float x, float* scratch) {
+  block_reduce<kMax, 1>(&x, scratch);
+  return x;
 }
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -250,27 +275,36 @@ __device__ __forceinline__ KeyRange key_range(int Ta, int rank, int n_ranks) {
           min((n_chunks + n_ranks - 1) / n_ranks * kKeyChunk, Ta)};
 }
 
-// The softmax over the whole of Ta from each CTA's max and sum: each CTA
-// stores its pair into slot `rank` of every CTA (thread r takes CTA r) and
-// merges the slots in rank order -> (max, 1 / sum), the same bits in every
-// CTA.  Its cluster_wait matches the caller's cluster_arrive_relaxed.
-__device__ __forceinline__ float2 cluster_softmax(float m_cta, float s_cta, int rank,
-                                                  int n_ranks, float2* stats,
-                                                  uint32_t stats_bar) {
+// kG softmaxes over the whole of Ta from each CTA's maxes and sums: each
+// CTA stores its kG pairs into slot `rank` of every CTA (thread r takes
+// CTA r; stats: kMaxCluster x kG pairs) and merges the slots in rank order
+// -> m (max) and inv (1 / sum), the same bits in every CTA.  Its
+// cluster_wait matches the caller's cluster_arrive_relaxed.
+template <int kG>
+__device__ __forceinline__ void cluster_softmax(const float* m_cta, const float* s_cta,
+                                                int rank, int n_ranks, float2* stats,
+                                                uint32_t stats_bar, float* m, float* inv) {
   cluster_wait();
-  if (threadIdx.x < n_ranks)
-    st_async(map_rank(smem_u32(&stats[rank]), threadIdx.x), make_float2(m_cta, s_cta),
-             map_rank(stats_bar, threadIdx.x));
+  if (threadIdx.x < n_ranks) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+      st_async(map_rank(smem_u32(&stats[rank * kG + g]), threadIdx.x),
+               make_float2(m_cta[g], s_cta[g]), map_rank(stats_bar, threadIdx.x));
+  }
   mbar_wait(stats_bar, 0);
-  float m = stats[0].x;
 #pragma unroll
-  for (int r = 1; r < kMaxCluster; ++r)
-    if (r < n_ranks) m = fmaxf(m, stats[r].x);
-  float sum = 0.f;
+  for (int g = 0; g < kG; ++g) {
+    float mg = stats[g].x;
 #pragma unroll
-  for (int r = 0; r < kMaxCluster; ++r)
-    if (r < n_ranks) sum += stats[r].y * expf(stats[r].x - m);
-  return make_float2(m, 1.f / sum);
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < n_ranks) mg = fmaxf(mg, stats[r * kG + g].x);
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n_ranks) sum += stats[r * kG + g].y * expf(stats[r * kG + g].x - mg);
+    m[g] = mg;
+    inv[g] = 1.f / sum;
+  }
 }
 
 // ---- K4/K5: (B, H, Ta, Dh) K/V --------------------------------------------
@@ -394,9 +428,9 @@ xattn_cluster_kernel(const __nv_bfloat16* __restrict__ q,
   float local_sum = 0.f;
   for (int t = threadIdx.x; t < n_keys; t += kThreads) local_sum += expf(w[t] - m_cta);
   const float s_cta = block_reduce<false>(local_sum, scratch);
-  const float2 mi = cluster_softmax(m_cta, s_cta, rank, n_ranks, stats,
-                                    smem_u32(&stats_bar));
-  const float m = mi.x, inv_sum = mi.y;
+  float m, inv_sum;
+  cluster_softmax<1>(&m_cta, &s_cta, rank, n_ranks, stats, smem_u32(&stats_bar), &m,
+                     &inv_sum);
 
   // pass 2: each lane sums its 8 channels over the rows its group visits
   // (the rows whose logits it wrote), each row's softmax weight (times its
@@ -571,12 +605,24 @@ __device__ __forceinline__ void load_rows(int (&c)[kLoadRows], const int8_t* p,
     c[r] = r < rows ? load_codes4<kWords>(p + r * stride, valid) : 0;
 }
 
+// The dynamic shared memory of K2 for a cluster of `cluster` CTAs and kG
+// queries, in floats: the longest range's K scales, V scales and kG rows of
+// logits (its keys rounded up to whole words), then a region that holds
+// the d-groups' partial dots in pass 1 (kG x 1024) and, in rank 0, the
+// cluster's partial outputs (cluster x kG x Dh) after it.  The wrapper
+// (ops/cross_attention.py `_q8dt_smem`) computes the same.
+size_t q8dt_smem_floats(int Ta, int cluster, int kG, int Dh) {
+  const size_t cap4 = (longest_range(Ta, cluster) + 3) / 4 * 4;
+  const size_t dots = (size_t)kG * kThreads * 4;
+  const size_t parts = (size_t)cluster * kG * Dh;
+  return (kG + 2) * cap4 + (dots > parts ? dots : parts);
+}
+
 // Grid (C * B * H), cluster (C, 1, 1): cluster i is (b, h) = i.  CTA rank
 // r takes its key_range; word j of the range (keys 4j..4j+3) belongs to
-// thread j % 256, which loads its scales and forms its logits and weights.
-// Shared memory: 8 bytes a key of the longest range, rounded up to whole
-// words (the K scales, then the logits, then the weights; the V scales).
-template <bool kWords>
+// thread j % 256, which loads its scales and forms its kG logits and
+// weights.  Shared memory: q8dt_smem_floats.
+template <bool kWords, int kG>
 __global__ void __launch_bounds__(kThreads)
 xattn_q8dt_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_q,
                   const float* __restrict__ k_s, const int8_t* __restrict__ v_q,
@@ -591,42 +637,44 @@ xattn_q8dt_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict_
   const int cap4 = (range.cap + 3) / 4 * 4;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* w = reinterpret_cast<float*>(smem);
-  float* vs = w + cap4;
-  __shared__ float qf[kMaxDh];
-  __shared__ float part[kThreads * 4];        // the d-groups' partial dots
-  __shared__ float scratch[kWarps];
-  __shared__ __align__(16) float2 stats[kMaxCluster];
-  __shared__ float parts[kMaxCluster][kMaxDh];
+  float* ks = reinterpret_cast<float*>(smem);   // K scales
+  float* vs = ks + cap4;                        // V scales
+  float* w = vs + cap4;                         // query g's logits at w + g * cap4
+  float* part = w + kG * cap4;                  // pass 1's partial dots, then
+  float* parts = part;                          // rank 0's (rank, g, d) slots
+  __shared__ float qf[kG][kMaxDh];
+  __shared__ float scratch[kWarps * kG];
+  __shared__ __align__(16) float2 stats[kMaxCluster * kG];
   __shared__ __align__(8) uint64_t stats_bar, parts_bar;
 
   if (threadIdx.x == 0) {
     mbar_init(smem_u32(&stats_bar), 1);
     mbar_init(smem_u32(&parts_bar), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_expect_tx(smem_u32(&stats_bar), n_ranks * sizeof(float2));
-    if (rank == 0) mbar_expect_tx(smem_u32(&parts_bar), n_ranks * Dh * sizeof(float));
+    mbar_expect_tx(smem_u32(&stats_bar), n_ranks * kG * sizeof(float2));
+    if (rank == 0) mbar_expect_tx(smem_u32(&parts_bar), n_ranks * kG * Dh * sizeof(float));
   }
   const size_t base = bh * Ta + range.t0;
   for (int j = threadIdx.x; j < n_words; j += kThreads) {
     for (int t = 4 * j; t < 4 * j + 4 && t < n_keys; ++t) {
-      cp_async4(w + t, k_s + base + t);
+      cp_async4(ks + t, k_s + base + t);
       cp_async4(vs + t, v_s + base + t);
     }
   }
-  for (int d = threadIdx.x; d < Dh; d += kThreads) qf[d] = __bfloat162float(q[bh * Dh + d]);
+  for (int i = threadIdx.x; i < kG * Dh; i += kThreads)
+    qf[i / Dh][i % Dh] = __bfloat162float(q[bh * kG * Dh + i]);
 
-  // pass 1: groups of 256 / G threads, each group d-rows [d0, d1), a
-  // thread one word of keys at a time (words j0, j0 + 256 / G, ...); G = 1
-  // when the words fill the block.  Pass 2's first loads (V rows d = warp
-  // + 8 r, r < 8, at word `lane`) are made here, in flight during pass 1
-  // and the softmax.
-  int G = 1;
-  while (G < 8 && 2 * G * n_words <= kThreads) G *= 2;
-  const int tpg = kThreads / G;
-  const int g = threadIdx.x / tpg, j0 = threadIdx.x % tpg;
-  const int rpg = (Dh + G - 1) / G;
-  const int d0 = min(Dh, g * rpg), d1 = min(Dh, d0 + rpg);
+  // pass 1: groups of 256 / n_groups threads, each group d-rows [d0, d1),
+  // a thread one word of keys at a time (words j0, j0 + 256 / n_groups,
+  // ...); n_groups = 1 when the words fill the block.  Pass 2's first
+  // loads (V rows d = warp + 8 r, r < 8, at word `lane`) are made here, in
+  // flight during pass 1 and the softmax.
+  int n_groups = 1;
+  while (n_groups < 8 && 2 * n_groups * n_words <= kThreads) n_groups *= 2;
+  const int tpg = kThreads / n_groups;
+  const int grp = threadIdx.x / tpg, j0 = threadIdx.x % tpg;
+  const int rpg = (Dh + n_groups - 1) / n_groups;
+  const int d0 = min(Dh, grp * rpg), d1 = min(Dh, d0 + rpg);
   const int8_t* kb = k_q + (bh * Dh + d0) * Ta + range.t0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rows = (Dh - warp + kWarps - 1) / kWarps;
@@ -637,10 +685,17 @@ xattn_q8dt_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict_
   __syncthreads();
   cluster_arrive_relaxed();  // cluster_softmax waits on it
 
-  float local_max = -INFINITY;
+  float local_max[kG];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) local_max[g] = -INFINITY;
   for (int j = j0; j < n_words; j += tpg) {
     const int valid = min(4, n_keys - 4 * j);
-    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    float a[kG][4];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[g][i] = 0.f;
+    }
     const int8_t* p = kb + 4 * j;
     int d = d0;
 #pragma unroll 2
@@ -650,128 +705,200 @@ xattn_q8dt_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict_
 #pragma unroll
       for (int u = 0; u < kLoadRows; ++u) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = fmaf(qf[d + u], code_of(kc[u], i), a[i]);
+        for (int g = 0; g < kG; ++g) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[g][i] = fmaf(qf[g][d + u], code_of(kc[u], i), a[g][i]);
+        }
       }
     }
     for (; d < d1; ++d, p += Ta) {
       const int c = load_codes4<kWords>(p, valid);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = fmaf(qf[d], code_of(c, i), a[i]);
+      for (int g = 0; g < kG; ++g) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[g][i] = fmaf(qf[g][d], code_of(c, i), a[g][i]);
+      }
     }
-    if (G == 1) {   // this thread's own word: its K scales are in
+    if (n_groups == 1) {   // this thread's own word: its K scales are in
       cp_async_wait_all();
       for (int i = 0; i < valid; ++i) {
-        const float s = a[i] * w[4 * j + i] * scale;
-        w[4 * j + i] = s;
-        local_max = fmaxf(local_max, s);
-      }
-    } else {        // j < tpg: one word a thread
+        const float kscale = ks[4 * j + i];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) part[g * tpg * 4 + 4 * j + i] = a[i];
+        for (int g = 0; g < kG; ++g) {
+          const float s = a[g][i] * kscale * scale;
+          w[g * cap4 + 4 * j + i] = s;
+          local_max[g] = fmaxf(local_max[g], s);
+        }
+      }
+    } else {               // j < tpg: one word a thread
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[((g * n_groups + grp) * tpg + j) * 4 + i] = a[g][i];
+      }
     }
   }
-  if (G > 1) {      // thread j adds word j's partial dots in group order
+  if (n_groups > 1) {      // thread j adds word j's partial dots in group order
     cp_async_wait_all();
     __syncthreads();
     const int j = threadIdx.x;
     for (int i = 0; j < n_words && i < min(4, n_keys - 4 * j); ++i) {
-      float dot = part[4 * j + i];
-      for (int gg = 1; gg < G; ++gg) dot += part[gg * tpg * 4 + 4 * j + i];
-      const float s = dot * w[4 * j + i] * scale;
-      w[4 * j + i] = s;
-      local_max = fmaxf(local_max, s);
+      const float kscale = ks[4 * j + i];
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        float dot = part[(g * n_groups * tpg + j) * 4 + i];
+        for (int gg = 1; gg < n_groups; ++gg) dot += part[((g * n_groups + gg) * tpg + j) * 4 + i];
+        const float s = dot * kscale * scale;
+        w[g * cap4 + 4 * j + i] = s;
+        local_max[g] = fmaxf(local_max[g], s);
+      }
     }
   }
 
-  // the softmax over the whole of Ta
-  const float m_cta = block_reduce<true>(local_max, scratch);
-  float local_sum = 0.f;
+  // the kG softmaxes over the whole of Ta
+  float m_cta[kG], s_cta[kG];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) m_cta[g] = local_max[g];
+  block_reduce<true, kG>(m_cta, scratch);
+#pragma unroll
+  for (int g = 0; g < kG; ++g) s_cta[g] = 0.f;
   for (int j = threadIdx.x; j < n_words; j += kThreads)
-    for (int t = 4 * j; t < 4 * j + 4 && t < n_keys; ++t) local_sum += expf(w[t] - m_cta);
-  const float s_cta = block_reduce<false>(local_sum, scratch);
-  const float2 mi = cluster_softmax(m_cta, s_cta, rank, n_ranks, stats,
-                                    smem_u32(&stats_bar));
+    for (int t = 4 * j; t < 4 * j + 4 && t < n_keys; ++t) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) s_cta[g] += expf(w[g * cap4 + t] - m_cta[g]);
+    }
+  block_reduce<false, kG>(s_cta, scratch);
+  float m[kG], inv[kG];
+  cluster_softmax<kG>(m_cta, s_cta, rank, n_ranks, stats, smem_u32(&stats_bar), m, inv);
   // the weights times the V scales, rounded to bf16 as the reference does;
   // zeros past the range in its last word
   for (int j = threadIdx.x; j < n_words; j += kThreads)
-    for (int t = 4 * j; t < 4 * j + 4; ++t)
-      w[t] = t < n_keys ? round_bf16(expf(w[t] - mi.x) * mi.y * vs[t]) : 0.f;
+    for (int t = 4 * j; t < 4 * j + 4; ++t) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        float* wt = w + g * cap4 + t;
+        *wt = t < n_keys ? round_bf16(expf(*wt - m[g]) * inv[g] * vs[t]) : 0.f;
+      }
+    }
   __syncthreads();
 
-  // pass 2: warp `warp` takes V rows d = warp + 8 r, 8 rows at a time, its
-  // lanes a word of keys at a time (the first one already loaded)
-  float acc[kMaxRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kMaxRowsPerWarp; ++r) acc[r] = 0.f;
+  // pass 2: warp `warp` takes V rows d = warp + 8 r, 8 rows at a time (h),
+  // its lanes a word of keys at a time (the first one already loaded) for
+  // all kG weight rows; each row's sum into rank 0's slot (rank, g, d),
+  // where they are added in rank order
 #pragma unroll
   for (int h = 0; h < kMaxRowsPerWarp / kLoadRows; ++h) {
     if (h * kLoadRows >= rows) break;
+    float acc[kG][kLoadRows];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+#pragma unroll
+      for (int r = 0; r < kLoadRows; ++r) acc[g][r] = 0.f;
+    }
     for (int j = lane; j < n_words; j += 32) {
       if (h > 0 || j > lane)
         load_rows<kWords>(vc, vb + (size_t)h * kLoadRows * kWarps * Ta + 4 * j,
                           (size_t)kWarps * Ta, rows - h * kLoadRows, min(4, n_keys - 4 * j));
-      const float4 wt = *reinterpret_cast<const float4*>(w + 4 * j);
 #pragma unroll
-      for (int r = 0; r < kLoadRows; ++r) {
-        float& a = acc[h * kLoadRows + r];
-        a = fmaf(wt.x, code_of(vc[r], 0), a);
-        a = fmaf(wt.y, code_of(vc[r], 1), a);
-        a = fmaf(wt.z, code_of(vc[r], 2), a);
-        a = fmaf(wt.w, code_of(vc[r], 3), a);
+      for (int g = 0; g < kG; ++g) {
+        const float4 wt = *reinterpret_cast<const float4*>(w + g * cap4 + 4 * j);
+#pragma unroll
+        for (int r = 0; r < kLoadRows; ++r) {
+          float& a = acc[g][r];
+          a = fmaf(wt.x, code_of(vc[r], 0), a);
+          a = fmaf(wt.y, code_of(vc[r], 1), a);
+          a = fmaf(wt.z, code_of(vc[r], 2), a);
+          a = fmaf(wt.w, code_of(vc[r], 3), a);
+        }
       }
     }
-  }
-  // each row's sum into rank 0's slot `rank`, where they are added in rank
-  // order
+    // every lane gets every (g, r) sum; lane l then stores sum l (32 at a
+    // time), so a warp's kG x 8 stores leave in ceil(kG / 4) instructions
 #pragma unroll
-  for (int r = 0; r < kMaxRowsPerWarp; ++r) {
-    if (r < rows) {
-      const float s = warp_sum(acc[r]);
-      if (lane == 0)
-        st_async(map_rank(smem_u32(&parts[rank][warp + kWarps * r]), 0), s,
-                 map_rank(smem_u32(&parts_bar), 0));
+    for (int g = 0; g < kG; ++g) {
+#pragma unroll
+      for (int r = 0; r < kLoadRows; ++r) acc[g][r] = warp_sum(acc[g][r]);
+    }
+#pragma unroll
+    for (int base = 0; base < kG * kLoadRows; base += 32) {
+      const int idx = base + lane, g = idx / kLoadRows, r = idx % kLoadRows;
+      float mine = 0.f;
+#pragma unroll
+      for (int gg = 0; gg < kG; ++gg) {
+#pragma unroll
+        for (int rr = 0; rr < kLoadRows; ++rr)
+          if (gg * kLoadRows + rr == idx) mine = acc[gg][rr];
+      }
+      if (idx < kG * kLoadRows && h * kLoadRows + r < rows)
+        st_async(map_rank(smem_u32(&parts[(rank * kG + g) * Dh + warp +
+                                          kWarps * (h * kLoadRows + r)]), 0),
+                 mine, map_rank(smem_u32(&parts_bar), 0));
     }
   }
   if (rank == 0) {
     mbar_wait(smem_u32(&parts_bar), 0);
-    for (int d = threadIdx.x; d < Dh; d += kThreads) {
+    for (int i = threadIdx.x; i < kG * Dh; i += kThreads) {
       float o = 0.f;
-      for (int r = 0; r < n_ranks; ++r) o += parts[r][d];
-      out[bh * Dh + d] = o;
+      for (int r = 0; r < n_ranks; ++r) o += parts[r * kG * Dh + i];
+      out[bh * kG * Dh + i] = o;
     }
   }
 }
 
-template <bool kWords>
+template <bool kWords, int kG>
 int launch_q8dt(const void* q, const void* k_q, const void* k_s, const void* v_q,
                 const void* v_s, void* out, int B, int H, int Dh, int Ta, int cluster,
                 void* stream) {
-  const size_t cap4 = (longest_range(Ta, cluster) + 3) / 4 * 4;
+  const size_t smem = 4 * q8dt_smem_floats(Ta, cluster, kG, Dh);
+  if (smem > kQ8dtMaxSmem) return (int)cudaErrorInvalidValue;
   static int ready_on = -1;
   return launch_on_clusters(
-      xattn_q8dt_kernel<kWords>, ready_on, 8 * (size_t)kMaxTa, cluster, B, H, 8 * cap4, stream,
+      xattn_q8dt_kernel<kWords, kG>, ready_on, kQ8dtMaxSmem, cluster, B, H, smem, stream,
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_q),
       static_cast<const float*>(k_s), static_cast<const int8_t*>(v_q),
       static_cast<const float*>(v_s), static_cast<float*>(out), Dh, Ta,
       1.0f / sqrtf((float)Dh));
 }
 
+template <bool kWords>
+int launch_q8dt_g(int G, const void* q, const void* k_q, const void* k_s, const void* v_q,
+                  const void* v_s, void* out, int B, int H, int Dh, int Ta, int cluster,
+                  void* stream) {
+#define WTT_Q8DT_CASE(g) \
+  case g:                \
+    return launch_q8dt<kWords, g>(q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, cluster, stream);
+  switch (G) {
+    WTT_Q8DT_CASE(1)
+    WTT_Q8DT_CASE(2)
+    WTT_Q8DT_CASE(3)
+    WTT_Q8DT_CASE(4)
+    WTT_Q8DT_CASE(5)
+    WTT_Q8DT_CASE(6)
+    WTT_Q8DT_CASE(7)
+    WTT_Q8DT_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef WTT_Q8DT_CASE
+}
+
 }  // namespace
 
-// K2: int8 (B, H, Dh, Ta) K/V with (B, H, Ta) scales, Dh 1-128, each
-// (b, h) on a cluster of `cluster` CTAs (1-16, at most ceil(Ta / 64));
-// `words` reads the codes a 32-bit word at a time, which needs Ta % 4 == 0
-// and 4-byte aligned k_q and v_q (else byte by byte)
+// K2: int8 (B, H, Dh, Ta) K/V with (B, H, Ta) scales, Dh 1-128, G queries
+// a (b, h) (1-8: q and out (B, H, G, Dh)), each (b, h) on a cluster of
+// `cluster` CTAs (1-16, at most ceil(Ta / 64), within K2's shared memory:
+// q8dt_smem_floats); `words` reads the codes a 32-bit word at a time, which
+// needs Ta % 4 == 0 and 4-byte aligned k_q and v_q (else byte by byte)
 extern "C" int wtt_cross_attention_q8(const void* q, const void* k_q, const void* k_s,
                                       const void* v_q, const void* v_s, void* out,
-                                      int B, int H, int Dh, int Ta, int cluster,
+                                      int B, int H, int G, int Dh, int Ta, int cluster,
                                       int words, void* stream) {
-  if (Dh < 1 || Dh > kMaxDh || bad_cluster(B, H, Ta, cluster))
+  if (Dh < 1 || Dh > kMaxDh || G < 1 || G > kMaxQueries || bad_cluster(B, H, Ta, cluster))
     return (int)cudaErrorInvalidValue;
   if (!words)
-    return launch_q8dt<false>(q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, cluster, stream);
+    return launch_q8dt_g<false>(G, q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, cluster, stream);
   if (Ta % 4 || ((uintptr_t)k_q | (uintptr_t)v_q) % 4) return (int)cudaErrorInvalidValue;
-  return launch_q8dt<true>(q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, cluster, stream);
+  return launch_q8dt_g<true>(G, q, k_q, k_s, v_q, v_s, out, B, H, Dh, Ta, cluster, stream);
 }
 
 // K4: bf16 K/V, each (b, h) on a cluster of `cluster` CTAs (1-16, at most

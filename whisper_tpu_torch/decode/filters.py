@@ -140,11 +140,21 @@ def make_process_logits(c: FilterConsts, o: FilterOptions,
     blank[c.token_eot] = NEG_INF
     blank[c.token_space] = NEG_INF
 
+    # each rung's temperature as an f32 tensor on the device: a true
+    # division, as XLA's (CUDA multiplies by the reciprocal of a Python
+    # float divisor, which can differ in the last bit)
+    divisors: dict[float, torch.Tensor] = {}
+
     def process(logits, temperature, is_initial, last_was_ts,
                 penult_was_ts, has_ts, seek_delta):
         logits = logits.float()
         if temperature > 0.0:
-            logits = logits / max(temperature, 1e-6)
+            div = divisors.get(temperature)
+            if div is None:
+                div = divisors[temperature] = torch.tensor(
+                    max(temperature, 1e-6), dtype=torch.float32,
+                    device=device)
+            logits = logits / div
 
         logits = logits + static_mask
 

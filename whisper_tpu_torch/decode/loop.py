@@ -1,10 +1,12 @@
-"""Window decode loop (port of whisper_tpu.decode.loop, greedy at t=0).
+"""Window decode loop (port of whisper_tpu.decode.loop).
 
-One window decode: the prompt pass, then token sampling, the logit-filter
-chain, the timestamp/sliding-window state update and the stop conditions,
-per token.  The JAX package runs this as one `lax.while_loop` on device;
-here it is a Python loop over static KV buffers that stops when every row
-is completed or failed (one host read of that flag per token).
+One window decode: the prompt pass, then token sampling (argmax at t = 0,
+a draw from JAX's threefry stream at t > 0, decode/rng.py), the
+logit-filter chain, the timestamp/sliding-window state update and the
+stop conditions, per token.  The JAX package runs this as one
+`lax.while_loop` on device; here it is a Python loop over static KV
+buffers that stops when every row is completed or failed (one host read
+of that flag per token).
 
 Variable-length prompts are LEFT-padded inside a fixed prompt buffer: pad
 slots are masked out of attention and position ids are shifted, so the
@@ -20,6 +22,7 @@ import torch
 
 from ..constants import CHUNK_SIZE, TICKS_PER_SECOND
 from ..models import whisper as wm
+from . import rng
 from .filters import (FilterConsts, FilterOptions, make_process_logits,
                       sample_token_data)
 
@@ -131,18 +134,69 @@ def token_state_update(consts, cfg, *, i, tok, live, has_ts, seek_delta,
     return has_ts, seek_delta, result_len, completed, failed
 
 
-def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
-                       cfg: LoopConfig, strategy: str = "greedy",
-                       extra_suppress: tuple = (),
-                       device: str | torch.device = "cuda"):
-    """Build the window-decode function (greedy at temperature 0), its
-    logit filters on `device`."""
-    if strategy != "greedy":
-        raise NotImplementedError(f"decode strategy {strategy!r} is not "
-                                  "ported (greedy only)")
+def check_cross_mode(cfg: LoopConfig) -> None:
     if cfg.cross_mode not in CROSS_MODES:
         raise ValueError(f"unknown cross_mode {cfg.cross_mode!r} (have "
                          f"{CROSS_MODES})")
+
+
+def prompt_mask(pad_len: torch.Tensor, P: int):
+    """(positions (B, P), additive causal + pad mask (B, 1, P, P)) of a
+    LEFT-padded prompt buffer.  Pad queries keep one valid key
+    (themselves): a fully masked softmax row is NaN and would poison later
+    layers' K/V."""
+    idx = torch.arange(P, device=pad_len.device)
+    positions = torch.clamp_min(idx[None, :] - pad_len[:, None], 0)
+    q = idx[None, :, None]
+    k = idx[None, None, :]
+    valid = (k <= q) & ((k >= pad_len[:, None, None]) | (k == q))
+    return positions, torch.where(valid, 0.0, float("-inf"))[:, None]
+
+
+def prompt_cross_kv(cross_mode: str, k_cross, v_cross):
+    """decode_prompt's form of the window's cross-KV: the dense stack as
+    it is, (codes, scales) pairs tagged "q8" or "q4"."""
+    if isinstance(k_cross, torch.Tensor):
+        return k_cross, v_cross
+    if cross_mode not in QUANT_TAGS:
+        raise ValueError(f"pre-quantized cross-KV needs a q8/q4 "
+                         f"cross_mode, got {cross_mode!r}")
+    tag = "q4" if cross_mode == "einsum_q4" else "q8"
+    return (tag,) + tuple(k_cross), (tag,) + tuple(v_cross)
+
+
+def draw_or_argmax(probs, logprobs, temperature: float, keys):
+    """The token of each row: the argmax of probs at t < 1e-6, else a
+    categorical draw from logprobs under a split of `keys` ((2,): one
+    stream over the rows; (B, 2): a stream a row, as jax.vmap), as
+    whisper_tpu's `sample`.  -> (tokens (B,) int32, the advanced keys)."""
+    if temperature < 1e-6:
+        return torch.argmax(probs, dim=-1).to(torch.int32), keys
+    pairs = rng.split(keys)
+    drawn = rng.categorical(pairs[..., 1, :], logprobs)
+    return drawn.to(torch.int32), pairs[..., 0, :]
+
+
+def token_data(tok, probs, logprobs, consts: FilterConsts):
+    """(p, plog, tid, pt, ptsum) of each row's token; a sampled timestamp
+    token overrides tid and pt (whisper.cpp:5348)."""
+    rows = torch.arange(tok.shape[0], device=tok.device)
+    p = probs[rows, tok]
+    plog = logprobs[rows, tok]
+    tid, pt, ptsum = sample_token_data(probs, logprobs, consts)
+    is_ts = tok >= consts.token_beg
+    tid = torch.where(is_ts, tok, tid.to(torch.int32))
+    pt = torch.where(is_ts, p, pt)
+    return p, plog, tid, pt, ptsum
+
+
+def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
+                       cfg: LoopConfig, extra_suppress: tuple = (),
+                       device: str | torch.device = "cuda"):
+    """Build the window-decode function (whisper_tpu's "greedy" strategy:
+    argmax at t = 0, a multinomial draw at t > 0), its logit filters on
+    `device`.  Beam search is decode/beam.py."""
+    check_cross_mode(cfg)
     process_logits = make_process_logits(consts, options, extra_suppress,
                                          device)
     P = cfg.prompt_size
@@ -153,7 +207,8 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
 
     @torch.no_grad()
     def decode_window(params, k_cross, v_cross, prompt, pad_len,
-                      temperature, seek, seek_end, row_live=None):
+                      temperature, seek, seek_end, rng_key=None,
+                      row_live=None):
         """Run one full window decode.
 
         k_cross/v_cross: dense (L,B,H,Dh,Ta) from cross_kv, or for the
@@ -162,21 +217,18 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         (uint8 (L,B,H,Dh/2,Ta)), whose bf16 stack never exists.
         prompt: (B, P) int — LEFT-padded prompt (pad value irrelevant)
         pad_len: (B,) int — number of pad slots at the start of each row
-        temperature: must be 0 (greedy); sampled draws need JAX's threefry
-        stream, which is not ported
+        temperature: a float; at t >= 1e-6 each token is drawn from
+        rng_key's stream, at t = 0 it is the argmax (rng_key unused)
         seek/seek_end: (B,) or scalar ticks
+        rng_key: uint32 key words, (2,) (one stream over the batch) or
+        (B, 2) (a stream a row: draws independent of the row's slot), as
+        whisper_tpu's window_rng gives them
         row_live: optional (B,) bool — rows marked dead start completed
         Returns a dict of numpy result arrays + no_speech_prob.
         """
-        if float(temperature) > 0.0:
-            raise NotImplementedError(
-                "sampling at temperature > 0 is not ported (it needs JAX's "
-                "threefry draws to match the reference)")
-        temperature = 0.0
+        temperature = float(np.float32(temperature))
         prequant = not isinstance(k_cross, torch.Tensor)
-        if prequant and cfg.cross_mode not in QUANT_TAGS:
-            raise ValueError(f"pre-quantized cross-KV needs a q8/q4 "
-                             f"cross_mode, got {cfg.cross_mode!r}")
+        kc_p, vc_p = prompt_cross_kv(cfg.cross_mode, k_cross, v_cross)
         L, _, H, Dh, _ = (k_cross[0] if prequant else k_cross).shape
         if prequant and cfg.cross_mode == "einsum_q4":
             Dh *= 2   # codes are nibble-packed along Dh
@@ -190,23 +242,11 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         pad_len = dev_tensor(pad_len, torch.long)
         seek = dev_tensor(seek, torch.int32).expand(B)
         seek_end = dev_tensor(seek_end, torch.int32).expand(B)
+        keys = None if temperature < 1e-6 else rng.as_key(rng_key, dev)
         C = P + N + 1
 
         # ---- prompt processing -------------------------------------------
-        idx = torch.arange(P, device=dev)
-        positions = torch.clamp_min(idx[None, :] - pad_len[:, None], 0)
-        q = idx[None, :, None]
-        k = idx[None, None, :]
-        # pad queries keep one valid key (themselves): a fully masked
-        # softmax row is NaN and would poison later layers' K/V
-        valid = (k <= q) & ((k >= pad_len[:, None, None]) | (k == q))
-        mask = torch.where(valid, 0.0, float("-inf"))[:, None]
-
-        if prequant:   # decode_prompt's tagged form
-            ptag = "q4" if cfg.cross_mode == "einsum_q4" else "q8"
-            kc_p, vc_p = (ptag,) + tuple(k_cross), (ptag,) + tuple(v_cross)
-        else:
-            kc_p, vc_p = k_cross, v_cross
+        positions, mask = prompt_mask(pad_len, P)
         logits_all, k_self, v_self = wm.decode_prompt(
             params, prompt, positions, kc_p, vc_p, cfg.n_head,
             self_mask=mask, compute_dtype=cd)
@@ -254,21 +294,14 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         sum_lp = torch.zeros((B,), device=dev)
         completed = dead
         failed = false_b
-        rows = torch.arange(B, device=dev)
 
         i = 0
         done = bool(torch.all(completed | failed))   # one host read a token
         while i < N and not done:
             live = ~(completed | failed)
 
-            tok = torch.argmax(pr, dim=-1).to(torch.int32)
-            p = pr[rows, tok]
-            plog = lp[rows, tok]
-            tid, pt, ptsum = sample_token_data(pr, lp, consts)
-            # a sampled timestamp token overrides tid/pt (whisper.cpp:5348)
-            is_ts = tok >= token_beg
-            tid = torch.where(is_ts, tok, tid.to(torch.int32))
-            pt = torch.where(is_ts, p, pt)
+            tok, keys = draw_or_argmax(pr, lp, temperature, keys)
+            p, plog, tid, pt, ptsum = token_data(tok, pr, lp, consts)
 
             tokens[:, i] = torch.where(live, tok, tokens[:, i])
             p_arr[:, i] = torch.where(live, p, 0.0)

@@ -605,7 +605,8 @@ def _cross_attn_step(xq, kc, vc, compute_dtype):
       * {"q": int8 (B, H, Ta, Dh), "s": (B, H, Ta, 1)}     — K5
     Kernels run on CUDA tensors, their plain versions on the CPU; the
     einsum, "q8i" and "q4e" are plain torch on both, as whisper_tpu leaves
-    them to XLA.  xq (B, 1, H, Dh) -> (B, 1, D)."""
+    them to XLA.  xq (B, G, H, Dh) -> (B, G, D): G queries a cross-KV
+    row (K4 and K5 take G = 1)."""
     if isinstance(kc, torch.Tensor):
         return _cross_attention(xq, kc, vc, compute_dtype)
     if (isinstance(kc, tuple) and kc[0] == "q8e"
@@ -615,7 +616,7 @@ def _cross_attn_step(xq, kc, vc, compute_dtype):
         return _q8i_attention(xq, kc[1], kc[2], vc[1], vc[2])
     if isinstance(kc, tuple) and kc[0] == "q4e":
         return _q4e_attention(xq, kc[1], kc[2], vc[1], vc[2], compute_dtype)
-    q = xq.transpose(1, 2).to(compute_dtype).contiguous()   # (B, H, 1, Dh)
+    q = xq.transpose(1, 2).to(compute_dtype).contiguous()   # (B, H, G, Dh)
     if isinstance(kc, dict):
         out = cross_attention_decode_q8(q, kc["q"], kc["s"], vc["q"], vc["s"])
     elif kc[0] in ("q8e", "q8dt"):
@@ -638,7 +639,7 @@ def _cross_layer(kc, l: int):
 
 def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
                 v_cross, kv_len, n_head: int, pad_len=None,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, group: int = 1):
     """One autoregressive step over a preallocated KV cache.
 
     tokens: (B,) int — one new token per sequence
@@ -649,8 +650,13 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
     kv_len: int — number of valid cache entries AFTER this write
     pad_len: (B,) int or None — cache slots [0, pad_len) are left-padding
     k_cross/v_cross: (L, ...) stacked cross-KV in any form that
-        _cross_attn_step takes, one cross-KV row per sequence
-        (whisper_tpu's group=1, as the kernels take)
+        _cross_attn_step takes, one cross-KV row per `group` sequences
+    group: rows per cross-KV row.  Batched beam search packs S streams x
+        K beams into B = S*K rows against S cross-KV rows (group = K): the
+        K beams of a stream become K query positions against their shared
+        row, so nothing is tiled in device memory.  The einsum, "q8e" (K2
+        with G = K queries in bf16) and "q8dt", "q8i" and "q4e" take
+        group > 1; K4 and K5 take one query.
     Returns (logits (B, n_vocab), kv_self).
     """
     dec = params["decoder"]
@@ -683,9 +689,12 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
 
         ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
         xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
-        attn = _cross_attn_step(xq, _cross_layer(k_cross, l),
-                                _cross_layer(v_cross, l), cd)
-        x = x + _linear(attn, blk["xo_w"], blk["xo_b"], cd)
+        # (S*K, 1, H, Dh) -> (S, K, H, Dh): a stream's beams as queries
+        attn = _cross_attn_step(
+            xq.reshape(xq.shape[0] // group, group, nh, xq.shape[-1]),
+            _cross_layer(k_cross, l), _cross_layer(v_cross, l), cd)
+        x = x + _linear(attn.reshape(x.shape[0], 1, -1), blk["xo_w"],
+                        blk["xo_b"], cd)
 
         ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
         h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))

@@ -7,8 +7,11 @@ logits = (q . k_q) * k_s * Dh^-1/2, an f32 softmax, weights w * v_s
 rounded to bf16, and their sum against v_q, on the (B, H, Dh, Ta) int8
 layout of `cross_kv_q8`.  With a bf16 query this is the function of the
 serving path's "q8e" einsum (whisper_tpu/models/whisper.py
-`_cross_attn_step`) too.  K4 and K5 work on the (B, H, Ta, Dh) layout of
-cross modes "pallas" and "pallas_q8", where Dh is contiguous: K4 replaces
+`_cross_attn_step`) too, and K2 takes that einsum's G queries a (b, h)
+(1 <= G <= MAX_QUERIES): batched beam search puts a stream's K beams on
+its one cross-KV row, and K2 reads that row once for all of them.  K4
+and K5 work on the (B, H, Ta, Dh) layout of cross modes "pallas" and
+"pallas_q8", where Dh is contiguous: K4 replaces
 `cross_attention_decode` / `_xattn_kernel` (bf16 K/V), K5
 `cross_attention_decode_q8` / `_xattn_kernel_q8` (int8 K/V, (B, H, Ta, 1)
 scales, K2's function).  As in those TPU kernels, the query and K/V are
@@ -42,6 +45,8 @@ import torch
 
 DH = 64   # every Whisper model; K4 and K5 are written for it
 MAX_DH = 128          # K2 takes head dims up to this
+MAX_QUERIES = 8       # and up to this many queries a (b, h) (MAX_DECODERS)
+Q8DT_SMEM = 200 * 1024   # K2's dynamic shared memory, at most
 MAX_TA = 16384        # K2/K4/K5 keep the (Ta,) logits in shared memory
 KEY_CHUNK = 16        # a CTA's key range is whole chunks of this many keys
 MIN_KEYS = 64         # and at least this many keys
@@ -110,11 +115,11 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 def cross_attention_decode_q8dt_ref(q, k_q, k_s, v_q, v_s):
     """Plain PyTorch version of K2, in f32 with the TPU kernel's one bf16
-    rounding: q (B, H, 1, Dh) as given (bf16 for K2); k_q/v_q (B, H, Dh,
-    Ta) int8; k_s/v_s (B, H, Ta) f32 -> (B, H, 1, Dh) f32.  The softmax
+    rounding: q (B, H, G, Dh) as given (bf16 for K2); k_q/v_q (B, H, Dh,
+    Ta) int8; k_s/v_s (B, H, Ta) f32 -> (B, H, G, Dh) f32.  The softmax
     weights times the V scale are rounded to bf16, whatever q's dtype."""
     dh = q.shape[-1]
-    qk = torch.matmul(q.float(), k_q.float())              # (B, H, 1, Ta)
+    qk = torch.matmul(q.float(), k_q.float())              # (B, H, G, Ta)
     qk = qk * k_s[:, :, None, :] * (dh ** -0.5)
     w = torch.softmax(qk, dim=-1)
     wv = _bf16(w * v_s[:, :, None, :])
@@ -122,8 +127,9 @@ def cross_attention_decode_q8dt_ref(q, k_q, k_s, v_q, v_s):
 
 
 def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
-    """q (B, H, 1, Dh) bf16; k_q/v_q (B, H, Dh, Ta) int8; k_s/v_s
-    (B, H, Ta) f32 -> (B, H, 1, Dh) f32.
+    """q (B, H, G, Dh) bf16; k_q/v_q (B, H, Dh, Ta) int8; k_s/v_s
+    (B, H, Ta) f32 -> (B, H, G, Dh) f32: G queries against each (b, h)'s
+    K/V, 1 <= G <= MAX_QUERIES.
 
     CPU tensors take the plain version; CUDA tensors go through K2, which
     takes a bfloat16 query only, Dh up to MAX_DH and Ta up to MAX_TA.
@@ -133,10 +139,10 @@ def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention_decode_q8dt: unsupported device "
                          f"{q.device}")
-    B, H, one, Dh = q.shape
+    B, H, G, Dh = q.shape
     Ta = k_q.shape[-1]
     expect = {
-        "q": (q, (B, H, 1, Dh), torch.bfloat16),
+        "q": (q, (B, H, G, Dh), torch.bfloat16),
         "k_q": (k_q, (B, H, Dh, Ta), torch.int8),
         "k_s": (k_s, (B, H, Ta), torch.float32),
         "v_q": (v_q, (B, H, Dh, Ta), torch.int8),
@@ -151,22 +157,27 @@ def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
         if not x.is_contiguous():
             raise ValueError(f"cross_attention_decode_q8dt: {name} must be "
                              "contiguous")
-    if one != 1 or not 1 <= Ta <= MAX_TA or not 1 <= Dh <= MAX_DH:
-        raise ValueError(f"K2 takes one query per (b, h), 1 <= Ta <= {MAX_TA} "
-                         f"and 1 <= Dh <= {MAX_DH} (got {one}, Ta={Ta}, "
-                         f"Dh={Dh})")
+    if (not 1 <= G <= MAX_QUERIES or not 1 <= Ta <= MAX_TA
+            or not 1 <= Dh <= MAX_DH):
+        raise ValueError(f"K2 takes 1 <= G <= {MAX_QUERIES} queries a "
+                         f"(b, h), 1 <= Ta <= {MAX_TA} and 1 <= Dh <= "
+                         f"{MAX_DH} (got G={G}, Ta={Ta}, Dh={Dh})")
     from ._build import library
-    out = torch.empty((B, H, 1, Dh), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, G, Dh), dtype=torch.float32, device=q.device)
     library().call("wtt_cross_attention_q8", q.data_ptr(), k_q.data_ptr(),
                    k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-                   out.data_ptr(), B, H, Dh, Ta, _cluster_size(B * H, Ta),
+                   out.data_ptr(), B, H, G, Dh, Ta,
+                   _q8dt_cluster(B * H, Ta, G, Dh),
                    int(_q8dt_words(Ta, k_q.data_ptr(), v_q.data_ptr())),
                    torch.cuda.current_stream(q.device).cuda_stream)
     cross_attention_decode_q8dt.launches += 1
+    if G > 1:
+        cross_attention_decode_q8dt.launches_grouped += 1
     return out
 
 
 cross_attention_decode_q8dt.launches = 0
+cross_attention_decode_q8dt.launches_grouped = 0   # of them with G > 1
 
 
 def cross_attention_decode_ref(q, k_t, v_t):
@@ -235,6 +246,39 @@ def _xattn_plan(bh: int, ta: int, elem: int = 2) -> tuple[int, int, int]:
     if longest <= ONE_SHOT_KEYS * 2 // elem:
         return c, longest, 2
     return c, RING_KEYS * 2 // elem, RING_STAGES
+
+
+def _q8dt_smem(cluster: int, ta: int, g: int, dh: int) -> int:
+    """K2's dynamic shared memory in bytes (csrc `q8dt_smem_floats`): the
+    longest range's K scales, V scales and G rows of logits, then a region
+    for pass 1's partial dots (G x 1024 floats) that rank 0 reuses for the
+    cluster's partial outputs (cluster x G x Dh)."""
+    chunks = -(-ta // KEY_CHUNK)
+    cap4 = -(-min(-(-chunks // cluster) * KEY_CHUNK, ta) // 4) * 4
+    return 4 * ((g + 2) * cap4 + max(g * 1024, cluster * g * dh))
+
+
+def _q8dt_cluster(bh: int, ta: int, g: int, dh: int) -> int:
+    """K2's cluster size.  One query: `_cluster_size`.  G > 1: the largest
+    power of two (at most MAX_CLUSTER, one CTA per MIN_KEYS keys) that
+    keeps the grid within TARGET_CTAS, since K2 at G > 1 holds its G sums
+    in up to 128 registers a thread, two CTAs an SM: a grid past that runs
+    in two waves (clusters of 16 for 20 heads at G = 5 read 3x the time of
+    one query).  Then doubled (within the limits) until the longest
+    range's G rows of logits fit in Q8DT_SMEM."""
+    most = min(MAX_CLUSTER, -(-ta // MIN_KEYS))
+    if g == 1:
+        c = _cluster_size(bh, ta)
+    else:
+        c = 1
+        while 2 * c <= most and bh * 2 * c <= TARGET_CTAS:
+            c *= 2
+    while _q8dt_smem(c, ta, g, dh) > Q8DT_SMEM and 2 * c <= most:
+        c *= 2
+    if _q8dt_smem(c, ta, g, dh) > Q8DT_SMEM:
+        raise ValueError(f"K2: Ta={ta} with G={g} queries does not fit in "
+                         f"shared memory")
+    return c
 
 
 def _q8dt_words(ta: int, k_ptr: int, v_ptr: int) -> bool:
