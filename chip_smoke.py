@@ -35,7 +35,7 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      q5_1 file through K1, K3 and K4 ("pallas") or K5 ("pallas_q8")
   5. path A: a large-v3 q5_0 file (random valid blocks, seed 0, written
      once into build/, ~1 GB) through WhisperContext.from_file(...,
-     cross_mode="pallas_q8") + full on 60 s of PCM: K1, K3 and K5 launch
+     cross_mode="pallas_q8") + full on 30 s of PCM: K1, K3 and K5 launch
   6. path B: a small q5_1 file through from_file(..., cross_mode="pallas")
      + full: K1, K3 with mins and K4 launch
   7. the serving path: BatchTranscriber.transcribe on 4 int16 streams of
@@ -59,7 +59,7 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      raised to 0 where the random weights fail no window: K1, K2) and
      beam5 (beam 5: four streams x five beams, K1 and K2 with G = 5)
  11. path A with the CLI's defaults (beam 5, best_of 5, the ladder live) on
-     30 s: K1 and K3 (whisper_tpu's serial beam reads the dense cross-KV
+     15 s: K1 and K3 (whisper_tpu's serial beam reads the dense cross-KV
      through the einsum, so no cross-attention kernel); 10 and 11 run once
      more twice, each cut short after 16 decode steps of one rung (from
      its 9th step; bo5's first t > 0 rung), timed alone and under
@@ -70,10 +70,24 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      the CPU (tests/golden/port_segments.json, tests/port_parity.py), and
      greedy teacher-forced at each decided step: K1, K2, K2 with G = 5,
      K3
- 13. the port's draws (decode/rng.py) on the card against the CPU for the
+ 13. "continuous": ContinuousBatcher(batch_size=4) on the serving path's
+     context (einsum_q8: K1, K2) with 4 int16 streams of 45 s, greedy with
+     the ladder off: held at its first iteration until all are queued, it
+     must equal BatchTranscriber.transcribe token for token, with the
+     resident PCM pool (device_mel) and with host mel; 2 more streams
+     submitted while the 4 decode must get their first segment within one
+     iteration of joining, every stream holding a pool row; time to first
+     segment, iterations, wall and audio-s per wall-s go to stderr
+ 14. "server": whisper_tpu_torch.server in this process (--batch 4) over
+     path A's q5_0 file (K1, K3), WAVs of 30 s: 4 concurrent /inference
+     json requests, a /stream request joining them mid-flight, then
+     verbose_json with language=auto (token timestamps, language
+     detection) and srt with offset_n=3, then /health: every response 200
+     and well formed; request times to stderr
+ 15. the port's draws (decode/rng.py) on the card against the CPU for the
      same keys and logits, and one step's draw cost at the bo5 and beam5
      shapes from a torch.profiler trace
-In 5-8, 10 and 11 every segment list must be non-empty and every
+In 5-8, 10, 11 and 13 every segment list must be non-empty and every
 probability finite.
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -148,10 +162,20 @@ QUALITY_BATCH = N_STREAMS * BEAM   # bo5 and beam5: four streams of five rows
 # K3's rows in path A with the CLI's defaults: the serial beam's (and the
 # best_of ladder's) five decoders a step, and their prompt passes
 K3_CLI_M = (BEAM, BEAM * 8, BEAM * 232)
-CLI_S = 30                         # seconds of PCM for path A's CLI defaults
-FULL_S = 60                        # seconds of PCM for paths A and B
+# paths A and B (once 60 s) and path A with the CLI's defaults (once 30 s)
+# were shortened when the serving phases came, to keep the script's total
+CLI_S = 15                         # seconds of PCM for path A's CLI defaults
+FULL_S = 30                        # seconds of PCM for paths A and B
 PATH_C_S = 30                      # seconds of PCM for path C
 MEL_S = 60                         # seconds of PCM for path D's mel
+CONT_LATE = 2                      # continuous run 2: streams joining late
+SERVER_S = 30                      # seconds of each WAV the server gets
+# every server request's one field past the server's defaults: on random
+# weights every rung of the ladder fails its log-prob test (a window then
+# decodes 6 rungs of ~220 steps; the phase took 453 s on an H100 80GB
+# HBM3 at 700 W), where a trained model's windows mostly pass at t = 0.  A
+# threshold of -1000 lets them pass at t = 0 and keeps the ladder live
+SERVER_FIELDS = {"logprob_thold": "-1000"}
 BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -1375,6 +1399,310 @@ def check_parity(card_line: str):
     return counts
 
 
+def elog(msg: str) -> None:
+    """A line of the serving phases' figures, on stderr."""
+    print(msg, file=sys.stderr, flush=True)
+
+
+def int16_noise(seconds: int, seed: int) -> np.ndarray:
+    return (np.random.RandomState(seed).randn(16000 * seconds) * 0.1
+            * 32768).clip(-32768, 32767).astype(np.int16)
+
+
+def _token_ids(results) -> list:
+    return [[(s.t0, s.t1, [t.id for t in s.tokens]) for s in segs]
+            for segs in results]
+
+
+def _wait_jobs(label: str, jobs, timeout: float = 600) -> None:
+    for j in jobs:
+        if not j.done.wait(timeout):
+            raise AssertionError(f"{label}: a job did not finish")
+        if j.error is not None:
+            raise AssertionError(f"{label}: job error: {j.error}")
+
+
+def check_continuous(card_line: str, ctx) -> dict:
+    """The phase "continuous": ContinuousBatcher(batch_size=4) on the
+    serving path's large-v3 context (einsum_q8: K1, K2) with
+    serving_params(), N_STREAMS int16 streams of STREAM_S s.  Run 1
+    (device_mel, the resident pool): the first iteration held by the
+    iteration hook until the streams are queued, so every batch holds
+    transcribe's rows: the segments must equal
+    BatchTranscriber.transcribe's of the same streams token for token.
+    Run 2: CONT_LATE more streams submitted while the first decode: each
+    late stream's first segment within one iteration of its joining, and
+    every stream held a pool row.  Run 3: run 1 with device_mel=False (host
+    mel, no pool) against transcribe(device_mel=False).  -> the kernel
+    launch counts of the three runs (the transcribe references run before
+    the counts are set to 0)."""
+    import threading
+
+    from whisper_tpu_torch import BatchTranscriber
+    from whisper_tpu_torch.parallel.batch import ContinuousBatcher
+
+    p = serving_params()
+    streams = [int16_noise(STREAM_S, 11 + i) for i in range(N_STREAMS)]
+    late = [int16_noise(STREAM_S, 21 + i) for i in range(CONT_LATE)]
+    want = {dm: BatchTranscriber(ctx, batch_size=N_STREAMS, params=p,
+                                 device_mel=dm).transcribe(streams)
+            for dm in (True, False)}
+    torch.cuda.synchronize()
+
+    def run_gated(device_mel: bool, label: str):
+        eng = ContinuousBatcher(ctx, batch_size=N_STREAMS, params=p,
+                                device_mel=device_mel)
+        go = threading.Event()
+        eng.iteration_hook = lambda n: go.wait(timeout=600)
+        try:
+            jobs = [eng.submit_async(pcm) for pcm in streams]
+            t0 = time.perf_counter()
+            go.set()
+            _wait_jobs(label, jobs)
+            wall = time.perf_counter() - t0
+        finally:
+            eng.close()
+        got = [j.st.result_all for j in jobs]
+        check_segments(label, got)
+        if _token_ids(got) != _token_ids(want[device_mel]):
+            raise AssertionError(f"{label}: segments differ from "
+                                 "BatchTranscriber.transcribe's")
+        ttfs = [j.t_first_segment - t0 for j in jobs]
+        elog(f"[{card_line}] {label}: {len(jobs)} x {STREAM_S} s int16, "
+             f"batch {N_STREAMS}: equal to transcribe token for token; "
+             f"wall {wall:.3f} s, {len(jobs) * STREAM_S / wall:.2f} audio-s "
+             f"per wall-s, {eng.n_iterations} iterations, time to first "
+             f"segment {min(ttfs):.3f}-{max(ttfs):.3f} s")
+        return eng
+
+    reset_counts()
+    eng = run_gated(True, "continuous run 1 (pool)")
+    if len(eng._pool_free) != eng.max_active:
+        raise AssertionError("continuous run 1: pool rows not recycled")
+
+    # run 2: late streams join while the first ones decode
+    eng = ContinuousBatcher(ctx, batch_size=N_STREAMS, params=p,
+                            device_mel=True)
+    rows, late_jobs = [], []
+    orig = eng.bt._iterate
+
+    def spy(states, batch, pcm_dev=None):
+        rows.extend(states[i].pcm_row for i in batch)
+        return orig(states, batch, pcm_dev)
+
+    def hook(n):
+        if n == 1 and not late_jobs:
+            late_jobs.extend(eng.submit_async(pcm) for pcm in late)
+
+    eng.bt._iterate = spy
+    eng.iteration_hook = hook
+    try:
+        t0 = time.perf_counter()
+        jobs = [eng.submit_async(pcm) for pcm in streams]
+        while not late_jobs:
+            time.sleep(0.01)
+        _wait_jobs("continuous run 2", jobs + late_jobs)
+        wall = time.perf_counter() - t0
+    finally:
+        eng.close()
+    check_segments("continuous run 2", [j.st.result_all
+                                        for j in jobs + late_jobs])
+    for j in late_jobs:
+        if j.iter_first is None or j.iter_first > j.iter_joined + 1:
+            raise AssertionError(
+                f"continuous run 2: a late stream joined at iteration "
+                f"{j.iter_joined}, first segment at {j.iter_first}")
+    if None in rows:
+        raise AssertionError("continuous run 2: a stream held no pool row")
+    elog(f"[{card_line}] continuous run 2: {N_STREAMS} + {CONT_LATE} late "
+         f"streams of {STREAM_S} s, batch {N_STREAMS}: wall {wall:.3f} s, "
+         f"{(N_STREAMS + CONT_LATE) * STREAM_S / wall:.2f} audio-s per "
+         f"wall-s, {eng.n_iterations} iterations; late streams joined at "
+         f"iterations {[j.iter_joined for j in late_jobs]}, first segments "
+         f"at {[j.iter_first for j in late_jobs]}, time to first segment "
+         f"{[round(j.t_first_segment - j.t_submit, 3) for j in late_jobs]} "
+         f"s; every scheduled stream held a pool row")
+
+    run_gated(False, "continuous run 3 (host mel)")
+    counts = read_counts()
+    elog(f"[{card_line}] continuous: kernel launches K1 {counts['K1']}, "
+         f"K2 {counts['K2']} ({counts})")
+    require_launches("continuous", counts, ("K1", "K2"))
+    torch.cuda.empty_cache()
+    return counts
+
+
+def wav_bytes(pcm: np.ndarray) -> bytes:
+    import io
+    import wave
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def http(port: int, path: str, fields: dict | None = None,
+         wav: bytes | None = None) -> tuple[int, str, bytes, float]:
+    """One request to the server: GET without fields, else a multipart
+    POST.  -> (status, content type, body, seconds)."""
+    import urllib.error
+    import urllib.request
+    data, headers = None, {}
+    if fields is not None:
+        b = "chipsmoke"
+        parts = [(f'--{b}\r\nContent-Disposition: form-data; name="file"; '
+                  f'filename="a.wav"\r\n\r\n').encode() + wav]
+        parts += [(f'--{b}\r\nContent-Disposition: form-data; '
+                   f'name="{k}"\r\n\r\n{v}').encode()
+                  for k, v in fields.items()]
+        data = b"\r\n".join(parts) + f"\r\n--{b}--\r\n".encode()
+        headers = {"Content-Type": f'multipart/form-data; boundary="{b}"'}
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, headers=headers)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            out = (r.status, r.headers.get("Content-Type"), r.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.headers.get("Content-Type"), e.read())
+    return (*out, time.perf_counter() - t0)
+
+
+def check_server(card_line: str, path: Path) -> dict:
+    """The phase "server": the port's server in this process
+    (ThreadingHTTPServer on a free port, whisper_tpu_torch.server.Handler)
+    over path A's large-v3 q5_0 file through from_file (K1, K3) with
+    --batch 4, on WAVs of SERVER_S s of int16 noise, with the server's own
+    defaults (best_of 2, the ladder live, no_context false, max_len 60)
+    but for SERVER_FIELDS: 4 concurrent /inference json requests (one
+    decode signature: one engine, one batch), a /stream request sent while
+    they decode (it joins that engine), then a verbose_json request with
+    language=auto (token timestamps and language detection, an engine of
+    its own) and an srt request with offset_n=3, then /health.  Every
+    response must be 200 and parse.  -> the kernel launch counts of the
+    requests."""
+    import socket
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+
+    import whisper_tpu_torch.server as srv
+    from whisper_tpu_torch import WhisperContext
+    from whisper_tpu_torch.languages import NAME_TO_ID
+
+    t0 = time.perf_counter()
+    srv.STATE.ctx = WhisperContext.from_file(str(path))
+    srv.STATE.model_path = str(path)
+    # --batch 4; the engines are built by the first requests (the counts
+    # and times below start after the set-up either way)
+    srv.STATE.batcher = srv._BatchWorker(srv.STATE.ctx, batch_size=4,
+                                         warmup=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    httpd = ThreadingHTTPServer(("127.0.0.1", port), srv.Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    wavs = [wav_bytes(int16_noise(SERVER_S, 31 + i)) for i in range(7)]
+    results = {}
+    reset_counts()
+    t_start = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            first = [pool.submit(http, port, "/inference",
+                                 {"response_format": "json",
+                                  **SERVER_FIELDS}, wavs[i])
+                     for i in range(4)]
+            # the /stream request once the four are in the engine's batch
+            deadline = time.monotonic() + 600
+            while time.monotonic() < deadline:
+                engs = list(srv.STATE.batcher.engines.values())
+                if engs and len(engs[0].active) == 4:
+                    break
+                time.sleep(0.01)
+            else:
+                raise AssertionError("server: the four requests never "
+                                     "filled the engine's batch")
+            joined_at = engs[0].n_iterations
+            stream = pool.submit(http, port, "/stream", SERVER_FIELDS,
+                                 wavs[4])
+            for i, f in enumerate(first):
+                results[f"json {i}"] = f.result()
+            results["stream"] = stream.result()
+            later = {
+                "verbose_json auto": pool.submit(
+                    http, port, "/inference",
+                    {"response_format": "verbose_json", "language": "auto",
+                     **SERVER_FIELDS}, wavs[5]),
+                "srt offset_n 3": pool.submit(
+                    http, port, "/inference",
+                    {"response_format": "srt", "offset_n": "3",
+                     **SERVER_FIELDS}, wavs[6])}
+            for k, f in later.items():
+                results[k] = f.result()
+        results["health"] = http(port, "/health")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        counts = read_counts()
+        iters = [e.n_iterations for e in srv.STATE.batcher.engines.values()]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.STATE.batcher.close()
+        srv.STATE.batcher = srv.STATE.ctx = None
+
+    for name, (status, ctype, body, secs) in results.items():
+        elog(f"[{card_line}] server {name}: {status} {ctype}, "
+             f"{len(body)} bytes in {secs:.3f} s")
+        if status != 200:
+            raise AssertionError(f"server {name}: HTTP {status}: "
+                                 f"{body[:500]!r}")
+    for i in range(4):
+        if not json.loads(results[f"json {i}"][2])["text"]:
+            raise AssertionError(f"server json {i}: empty text")
+    events = results["stream"][2].decode().split("\n\n")
+    if "event: error" in results["stream"][2].decode() or \
+            events[-2:] != ["data: [DONE]", ""] or len(events) < 3:
+        raise AssertionError(f"server stream: bad events {events[:3]}...")
+    for ev in events[:-2]:
+        seg = json.loads(ev.removeprefix("data: "))
+        if set(seg) != {"start", "end", "text"}:
+            raise AssertionError(f"server stream: bad event {ev}")
+    doc = json.loads(results["verbose_json auto"][2])
+    words = [w for s in doc["segments"] for w in s.get("words", [])]
+    if not words:
+        raise AssertionError("server verbose_json: no words")
+    for w in words:
+        if not ({"word", "start", "end", "t_dtw", "probability"} <= set(w)
+                and w["t_dtw"] == -1 and 0.0 <= w["probability"] <= 1.0):
+            raise AssertionError(f"server verbose_json: bad word {w}")
+    if all(w["start"] == -0.01 for w in words):
+        raise AssertionError("server verbose_json: no token timestamp set")
+    if doc["language"] not in NAME_TO_ID:
+        raise AssertionError(f"server verbose_json: language "
+                             f"{doc['language']!r}")
+    if not results["srt offset_n 3"][2].startswith(b"4\n"):
+        raise AssertionError("server srt: numbering does not start at 4")
+    if results["health"][2] != b'{"status":"ok"}':
+        raise AssertionError("server health: bad body")
+    audio_s = 7 * SERVER_S
+    elog(f"[{card_line}] server (large-v3 q5_0, --batch 4, {len(iters)} "
+         f"engines of {iters} iterations): load {load_s:.3f} s; 7 requests "
+         f"of {SERVER_S} s in {wall:.3f} s, {audio_s / wall:.2f} audio-s "
+         f"per wall-s; /stream sent during iteration {joined_at}; "
+         f"{len(events) - 2} SSE events; verbose_json language "
+         f"{doc['language']!r}, {len(words)} words")
+    elog(f"[{card_line}] server: kernel launches K1 {counts['K1']}, K3 "
+         f"{counts['K3']} ({counts})")
+    require_launches("server", counts, ("K1", "K3"))
+    torch.cuda.empty_cache()
+    return counts
+
+
 def front_end(card_line: str, params, cfg):
     """Path D: MEL_S s of PCM through log_mel_pallas (K7); large-v3 encode
     of the first window at B = 1 in each attn_impl, held against "pallas"
@@ -1540,6 +1868,9 @@ def main() -> int:
                                ("K1", "K3"), card_line, CLI_S,
                                cli_params(CLI_S), trace=True),
         "parity": check_parity(card_line),
+        # the serving engine and the server (whisper_tpu_torch/server.py)
+        "continuous": check_continuous(card_line, big),
+        "server": check_server(card_line, big_file),
     }
     LAUNCHED["on"] = False
     del big, big_q4

@@ -201,26 +201,31 @@ def test_batch_transcriber_over_file(files, jax_strict):
     ("suppress_regex", "t1.*"),
 ])
 def test_full_refuses_unported_options(files, pcm, field, value):
+    """Grammars and logits-filter callbacks are refused before any work;
+    token timestamps and suppress_regex are ported (held against
+    whisper_tpu in tests/test_torch_timestamps.py, test_torch_regex.py)."""
     tctx = WhisperContext.from_file(files["q8_0"], device="cpu",
                                     compute_dtype=torch.float32)
     p = _params(full_default_params, {field: value})
     calls = []
     p.progress_callback = lambda *a: calls.append(a)
-    with pytest.raises(NotImplementedError):
+    if field in ("token_timestamps", "suppress_regex"):
+        tctx._check_full_supported(p)
+        return
+    with pytest.raises(NotImplementedError, match="grammar"):
         tctx.full(p, pcm)
     assert not calls and tctx.mel is None       # refused before any work
 
 
 def test_full_refuses_einsum_q8(files, pcm):
     """With cross mode einsum_q8, full() refuses only what it refuses in
-    every mode (here token timestamps), before any work, and not for the
-    mode: the mode runs (tests/test_torch_cross_modes.py holds its
-    segments)."""
+    every mode (here a grammar), before any work, and not for the mode:
+    the mode runs (tests/test_torch_cross_modes.py holds its segments)."""
     tctx = WhisperContext.from_file(files["q8_0"], device="cpu",
                                     compute_dtype=torch.float32,
                                     cross_mode="einsum_q8")
-    with pytest.raises(NotImplementedError, match="token timestamps") as err:
-        tctx.full(_params(full_default_params, {"token_timestamps": True}),
+    with pytest.raises(NotImplementedError, match="grammar") as err:
+        tctx.full(_params(full_default_params, {"grammar_rules": []}),
                   pcm)
     assert "einsum_q8" not in str(err.value)
     assert tctx.mel is None

@@ -892,3 +892,117 @@ def test_batch_transcriber_q4_on_card(gen):
     for segs in result:
         assert segs
         assert np.isfinite([t.p for s in segs for t in s.tokens]).all()
+
+
+@pytest.mark.parametrize("device_mel", [True, False], ids=["pool", "host"])
+def test_continuous_batcher_on_card(gen, device_mel):
+    """ContinuousBatcher on the card (einsum_q8: K1 and K2), two streams
+    over two slots with the iteration hook holding the first iteration
+    until both are queued, so that each batch holds the rows transcribe's
+    does: the segments equal BatchTranscriber.transcribe's of the same
+    streams, and with device_mel every stream held a row of the resident
+    pool."""
+    import threading
+
+    from whisper_tpu_torch.parallel.batch import ContinuousBatcher
+    dims = (51865, 64, 128, 2, 2, 48, 128, 2, 3, 80)
+    ctx = WhisperContext.from_random(dims=dims, seed=2,
+                                     cross_mode="einsum_q8")
+    p = full_default_params()
+    p.print_progress = False
+    p.language = "en"
+    p.temperature_inc = 0.0
+    p.max_tokens = 8
+    rng = np.random.RandomState(0)
+    streams = [(rng.randn(16000 * s) * 0.1 * 32768).clip(-32768, 32767)
+               .astype(np.int16) for s in (35, 9)]
+    want = BatchTranscriber(ctx, batch_size=2, params=p,
+                            device_mel=device_mel).transcribe(streams)
+    eng = ContinuousBatcher(ctx, batch_size=2, params=p,
+                            device_mel=device_mel)
+    rows = []
+    orig = eng.bt._iterate
+
+    def spy(states, batch, pcm_dev=None):
+        rows.extend(states[i].pcm_row for i in batch)
+        return orig(states, batch, pcm_dev)
+
+    eng.bt._iterate = spy
+    go = threading.Event()
+    eng.iteration_hook = lambda n: go.wait(timeout=60)
+    ea.self_attention.launches = xa.cross_attention_decode_q8dt.launches = 0
+    try:
+        jobs = [eng.submit_async(pcm) for pcm in streams]
+        go.set()
+        for j in jobs:
+            assert j.done.wait(timeout=300) and j.error is None, j.error
+    finally:
+        eng.close()
+    got = [j.st.result_all for j in jobs]
+    assert ([[(s.t0, s.t1, [t.id for t in s.tokens]) for s in x]
+             for x in got] == [[(s.t0, s.t1, [t.id for t in s.tokens])
+                                for s in x] for x in want])
+    assert ea.self_attention.launches > 0
+    assert xa.cross_attention_decode_q8dt.launches > 0
+    assert (None not in rows) == device_mel
+    if device_mel:
+        assert eng._pool.is_cuda and len(eng._pool_free) == eng.max_active
+
+
+def test_server_round_trip_on_card(gen, tmp_path):
+    """The port's server in this process over a small q5_0 file on the card
+    with --batch 2 (K1 and K3): a json and a verbose_json request answer
+    200, the words carry token timestamps."""
+    import io
+    import json
+    import socket
+    import threading
+    import urllib.request
+    import wave
+    from http.server import ThreadingHTTPServer
+
+    import whisper_tpu_torch.server as srv
+    dims = (51865, 64, 128, 2, 2, 48, 128, 2, 3, 80)
+    hp = dict(zip(ggml_writer.HPARAM_KEYS, dims))
+    path = str(tmp_path / "q5_0.bin")
+    ggml_writer.write_random_model(
+        path, hp, mel_filterbank(80), synthetic_vocab(dims[0]).id_to_token[
+            :50257], "q5_0", seed=1)
+    srv.STATE.ctx = WhisperContext.from_file(path)
+    srv.STATE.batcher = srv._BatchWorker(srv.STATE.ctx, batch_size=2)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.random.RandomState(1).randn(16000 * 8) * 3000)
+                      .astype(np.int16).tobytes())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    httpd = ThreadingHTTPServer(("127.0.0.1", port), srv.Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    ea.self_attention.launches = qm.quantized_matmul.launches = 0
+    try:
+        for fmt in ("json", "verbose_json"):
+            body = (b'--b\r\nContent-Disposition: form-data; name="file"; '
+                    b'filename="a.wav"\r\n\r\n' + buf.getvalue()
+                    + b'\r\n--b\r\nContent-Disposition: form-data; '
+                    b'name="response_format"\r\n\r\n' + fmt.encode()
+                    + b"\r\n--b--\r\n")
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/inference", data=body,
+                headers={"Content-Type": "multipart/form-data; boundary=b"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                assert r.status == 200
+                doc = json.loads(r.read())
+            assert doc["text"]
+        words = [w for s in doc["segments"] for w in s.get("words", [])]
+        assert words and any(w["start"] != -0.01 for w in words)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.STATE.batcher.close()
+        srv.STATE.batcher = srv.STATE.ctx = None
+    assert ea.self_attention.launches > 0
+    assert qm.quantized_matmul.launches > 0

@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 26, proc.stdout
+    assert n_modules >= 42, proc.stdout
 
 
 def test_port_has_the_whisper_full_modules():
@@ -47,6 +47,21 @@ def test_port_has_the_whisper_full_modules():
         assert mod.__name__ == f"whisper_tpu_torch.{name}"
 
 
+def test_port_has_the_serving_modules():
+    """The server's path: its own copies of the JAX-free modules it needs
+    (outputs, timestamps, the audio loaders and decoders)."""
+    import importlib
+    for name in ("server", "outputs", "timestamps", "audio.io",
+                 "audio.resample", "audio.flac", "audio.mp3",
+                 "audio._mp3_tables", "audio.ogg", "audio.vorbis"):
+        mod = importlib.import_module(f"whisper_tpu_torch.{name}")
+        assert mod.__name__ == f"whisper_tpu_torch.{name}"
+    from whisper_tpu_torch.parallel.batch import ContinuousBatcher
+    from whisper_tpu_torch.server import _BatchWorker
+    assert _BatchWorker.MAX_ENGINES == 4
+    assert ContinuousBatcher.POOL_BYTES == 1 << 30
+
+
 def test_entry_points_default_to_the_card():
     """Every entry point takes device="cuda" by default.  Without a card
     such a call raises instead of running on the CPU, so each CPU test
@@ -57,6 +72,8 @@ def test_entry_points_default_to_the_card():
     from whisper_tpu_torch.decode import filters, loop
     from whisper_tpu_torch.models.whisper import WhisperConfig
     from whisper_tpu_torch.weights import convert
+    from whisper_tpu_torch.server import _State
+    assert _State.device == "cuda"
     fns = (WhisperContext.__init__, WhisperContext.from_random,
            WhisperContext.from_jax, convert.params_from_ggml,
            convert.zero_params, convert.random_params, convert.from_jax,

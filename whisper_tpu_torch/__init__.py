@@ -3,7 +3,7 @@
 The package mirrors whisper_tpu's module names.  It imports torch and
 numpy only (never jax, never whisper_tpu), so it runs on a machine that
 has no JAX.  Its entry points run on the card (device="cuda") unless the
-caller asks for the CPU.  Two paths are ported:
+caller asks for the CPU.  Three paths are ported:
 
     WhisperContext.from_file + full (api.py): whisper_full
       -> ggml reader, block codecs, packed decoder weights
@@ -25,10 +25,17 @@ caller asks for the CPU.  Two paths are ported:
       -> host segment assembly (api.py)
 
     BatchTranscriber.transcribe (parallel/batch.py): batched serving
-      -> device log-mel, encoder (K1), the cross-KV of the cross mode
-         (cross_kv, cross_kv_q8 or cross_kv_q4), window decode loop with
-         the ladder and best_of candidates, or batched beam search (a
-         stream's beams as K2's G queries on its cross-KV row)
+      -> host or device log-mel, encoder (K1), the cross-KV of the cross
+         mode (cross_kv, cross_kv_q8 or cross_kv_q4), a batched [sot] step
+         for language "auto", window decode loop with the ladder and
+         best_of candidates, or batched beam search (a stream's beams as
+         K2's G queries on its cross-KV row); energy token timestamps
+
+    python -m whisper_tpu_torch.server (server.py): whisper-server
+      -> audio/io.load_audio (WAV, FLAC, MP3, Ogg Vorbis), then with
+         --batch N a ContinuousBatcher (parallel/batch.py) per decode
+         signature, its batch refilled between window iterations, else
+         `full` under a lock; bodies formatted as whisper_tpu's
 
 The fused log-mel kernel K7 (ops/mel_pallas.py, csrc/log_mel.cu) runs in
 `log_mel_pallas`, as whisper_tpu's Pallas mel kernel does.  On CPU tensors
@@ -39,8 +46,9 @@ launches the hand-written kernel or raises.
 from .api import (BeamSearchParams, FullParams, GreedyParams,
                   SamplingStrategy, Segment, TokenData, WhisperContext,
                   WhisperState, full_default_params)
-from .parallel.batch import BatchTranscriber
+from .parallel.batch import BatchTranscriber, ContinuousBatcher
 
-__all__ = ["BatchTranscriber", "BeamSearchParams", "FullParams",
-           "GreedyParams", "SamplingStrategy", "Segment", "TokenData",
-           "WhisperContext", "WhisperState", "full_default_params"]
+__all__ = ["BatchTranscriber", "BeamSearchParams", "ContinuousBatcher",
+           "FullParams", "GreedyParams", "SamplingStrategy", "Segment",
+           "TokenData", "WhisperContext", "WhisperState",
+           "full_default_params"]

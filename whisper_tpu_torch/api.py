@@ -9,9 +9,11 @@ whisper_tpu (decode/loop.CROSS_MODES), greedy or beam search, with the
 temperature-fallback ladder: at t > 0 it draws best_of candidates from
 JAX's threefry stream with whisper_tpu's keys (decode/rng.py), so sampled
 windows equal whisper_tpu's.  The quantized modes quantize the window's
-dense cross-KV once, as whisper_tpu's `full` does.  What it does not port
-(grammars and logits-filter callbacks, token timestamps and DTW,
-suppress_regex) is refused with NotImplementedError before any work.
+dense cross-KV once, as whisper_tpu's `full` does.  Token timestamps come
+from the signal-energy heuristic (timestamps.py), with `wrap_segment` at
+max_len > 0; suppress_regex suppresses the token ids whose text matches.
+What it does not port (grammars and logits-filter callbacks, DTW token
+timestamps) is refused with NotImplementedError before any work.
 Its entry points run on the card (device="cuda") unless the caller asks
 for the CPU.
 """
@@ -21,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import re
 import time
 from typing import Callable, Optional
 
@@ -38,6 +41,9 @@ from .decode.loop import (CROSS_MODES, DELTA_MIN, LoopConfig,
 from .languages import lang_id as _lang_id, lang_str
 from .models import whisper as wm
 from .models.whisper import MODEL_DIMS, WhisperConfig
+from .outputs import to_timestamp
+from .timestamps import (compute_token_level_timestamps, get_signal_energy,
+                         wrap_segment)
 from .tokenizer import tokenize
 from .utils.device import resolve_device
 from .utils.logging import log_error, log_info, log_warn
@@ -186,17 +192,14 @@ class WhisperState:
     def full_get_segment_t0(self, i): return self.result_all[i].t0
     def full_get_segment_t1(self, i): return self.result_all[i].t1
     def full_get_segment_text(self, i): return self.result_all[i].text
+    def full_get_segment_speaker_turn_next(self, i):
+        return self.result_all[i].speaker_turn_next
+    def full_get_segment_no_speech_prob(self, i):
+        return self.result_all[i].no_speech_prob
     def full_n_tokens(self, i): return len(self.result_all[i].tokens)
     def full_get_token_id(self, i, j): return self.result_all[i].tokens[j].id
-
-
-def _to_timestamp(t: int) -> str:
-    """Ticks -> "HH:MM:SS.mmm" (whisper_tpu.outputs.to_timestamp)."""
-    msec = t * 10
-    hr, msec = divmod(msec, 1000 * 60 * 60)
-    minute, msec = divmod(msec, 1000 * 60)
-    sec, msec = divmod(msec, 1000)
-    return f"{hr:02d}:{minute:02d}:{sec:02d}.{msec:03d}"
+    def full_get_token_data(self, i, j): return self.result_all[i].tokens[j]
+    def full_get_token_p(self, i, j): return self.result_all[i].tokens[j].p
 
 
 def _session_property(name):
@@ -240,7 +243,9 @@ class WhisperContext:
             raise ValueError(f"unknown cross_mode {cross_mode!r} (have "
                              f"{CROSS_MODES})")
         if dtw_token_timestamps:
-            raise NotImplementedError("DTW token timestamps are not ported")
+            raise NotImplementedError(
+                "whisper_tpu_torch does not port DTW token timestamps; "
+                "token_timestamps uses the signal-energy heuristic")
         device = resolve_device(device)
         if device.type == "cuda":
             full_f32_matmuls()
@@ -403,6 +408,17 @@ class WhisperContext:
             cross_mode=self.cross_mode,
         )
 
+    def _regex_suppress_ids(self, pattern: str) -> tuple:
+        """Token ids whose text fully matches `pattern`
+        (reference: suppress_regex, src/whisper.cpp:5098-5106)."""
+        key = ("regex", pattern)
+        if key not in self._fn_cache:
+            pat = re.compile(pattern)
+            self._fn_cache[key] = tuple(sorted(
+                tid for tok, tid in self.vocab.token_to_id.items()
+                if pat.fullmatch(tok.decode("utf-8", errors="replace"))))
+        return self._fn_cache[key]
+
     def _decode_window_fn(self, B: int, P: int, opts: FilterOptions,
                           single_segment: bool, no_timestamps: bool,
                           max_tokens: int, strategy: str = "greedy",
@@ -526,17 +542,10 @@ class WhisperContext:
 
     def _check_full_supported(self, params: FullParams) -> None:
         """Refuse, before any work, what `full` does not port."""
-        refused = []
         if params.grammar_rules is not None or params.logits_filter_callback:
-            refused.append("grammar / logits-filter callbacks")
-        if params.token_timestamps:
-            refused.append("token timestamps")
-        if params.suppress_regex:
-            refused.append("suppress_regex")
-        if refused:
             raise NotImplementedError(
-                "whisper_tpu_torch full() does not port: "
-                + "; ".join(refused))
+                "whisper_tpu_torch full() does not port: grammar / "
+                "logits-filter callbacks")
 
     def _full_impl(self, params: FullParams,
                    samples: Optional[np.ndarray]) -> int:
@@ -562,6 +571,11 @@ class WhisperContext:
                      f"(p = {probs[lid]:.6f})")
             if params.detect_language:
                 return 0
+
+        if params.token_timestamps:
+            self.t_beg = self.t_last = self.tid_last = 0
+            if samples is not None and len(samples) > 0:
+                self.energy = get_signal_energy(samples, 32)
 
         seek_start = params.offset_ms // 10
         seek_end = (self.n_len_from_state() if params.duration_ms == 0
@@ -719,9 +733,11 @@ class WhisperContext:
         beams) of the same prompt against the window's cross-KV."""
         # prompt buffer: tiny when unconditioned, full when carrying past
         P = 8 if len(prompt) <= 8 else self.hparams.n_text_ctx // 2 + 8
+        extra = (self._regex_suppress_ids(params.suppress_regex)
+                 if params.suppress_regex else ())
         fn = self._decode_window_fn(n_cur, P, opts, params.single_segment,
                                     no_timestamps, params.max_tokens,
-                                    strategy)
+                                    strategy, extra)
         pad = P - len(prompt)
         buf = np.zeros((n_cur, P), dtype=np.int32)
         buf[:, pad:] = np.asarray(prompt, dtype=np.int32)
@@ -833,9 +849,15 @@ class WhisperContext:
     def full_get_segment_t0(self, i: int) -> int: return self.result_all[i].t0
     def full_get_segment_t1(self, i: int) -> int: return self.result_all[i].t1
     def full_get_segment_text(self, i: int) -> str: return self.result_all[i].text
+    def full_get_segment_speaker_turn_next(self, i: int) -> bool:
+        return self.result_all[i].speaker_turn_next
     def full_n_tokens(self, i: int) -> int: return len(self.result_all[i].tokens)
     def full_get_token_id(self, i: int, j: int) -> int:
         return self.result_all[i].tokens[j].id
+    def full_get_token_text(self, i: int, j: int) -> str:
+        return self.vocab.token_str(self.result_all[i].tokens[j].id)
+    def full_get_token_data(self, i: int, j: int) -> TokenData:
+        return self.result_all[i].tokens[j]
     def full_get_token_p(self, i: int, j: int) -> float:
         return self.result_all[i].tokens[j].p
     def full_get_segment_no_speech_prob(self, i: int) -> float:
@@ -844,16 +866,24 @@ class WhisperContext:
     def _push_segment(self, t0, t1, text, tokens, speaker_turn_next, params):
         if params.print_realtime:
             if params.print_timestamps:
-                print(f"[{_to_timestamp(int(t0))} --> "
-                      f"{_to_timestamp(int(t1))}]  {text}", flush=True)
+                print(f"[{to_timestamp(int(t0))} --> "
+                      f"{to_timestamp(int(t1))}]  {text}", flush=True)
             else:
                 print(text, end="", flush=True)
         self.result_all.append(Segment(
             t0=int(t0), t1=int(t1), text=text,
             no_speech_prob=self.no_speech_prob, tokens=list(tokens),
             speaker_turn_next=speaker_turn_next))
+        n_new = 1
+        if params.token_timestamps:
+            compute_token_level_timestamps(
+                self, len(self.result_all) - 1, params.thold_pt,
+                params.thold_ptsum)
+            if params.max_len > 0:
+                n_new = wrap_segment(self, params.max_len,
+                                     params.split_on_word)
         if params.new_segment_callback:
-            params.new_segment_callback(self, 1)
+            params.new_segment_callback(self, n_new)
 
 
 # session-state attribute proxies: WhisperContext.<field> reads/writes the

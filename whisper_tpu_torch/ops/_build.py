@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -92,9 +93,20 @@ class KernelLibrary:
             raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+# serializes a first build: the serving engine's scheduler thread and the
+# caller's thread may both reach their first kernel at once
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library; one
+    thread builds while the others wait."""
+    with _BUILD_LOCK:
+        return _build_and_load()
+
+
+def _build_and_load() -> KernelLibrary:
     srcs = sorted(CSRC_DIR.glob("*.cu"))
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")

@@ -1,15 +1,23 @@
-"""Batched multi-stream transcription (port of whisper_tpu.parallel.batch,
-greedy serving path).
+"""Batched multi-stream transcription (port of whisper_tpu.parallel.batch).
 
 B independent 30 s windows (from different streams, or chunks of one long
 stream) ride one batched encoder pass and one window-decode loop.  Each
 stream keeps its own sliding-window state (seek, prompt-past, segments) on
 the host, so streams may advance by different seek deltas.
 
-With device_mel, every stream's padded PCM (packed int16 when the input
-is int16) is uploaded once; per iteration only row indices and sample
-offsets choose the windows, which are cut, converted to f32 and turned
-into log-mel on the device.
+By default (device_mel=False) each stream's log-mel is computed on the
+host once (audio/mel.log_mel_spectrogram) and every iteration uploads the
+(B, 2*n_ctx, n_mels) windows.  With device_mel, every stream's padded PCM
+(packed int16 when the input is int16) is uploaded once when the stack
+stays under 1 GiB; per iteration only row indices and sample offsets
+choose the windows, which are cut, converted to f32 and turned into
+log-mel on the device (otherwise each iteration uploads its PCM windows).
+
+Language "auto" (and detect_language) rides the batch: a batched [sot]
+step over each fresh stream's first window resolves its language before
+its first window decodes.  Token timestamps use the signal-energy
+heuristic on each stream's energy.  `ContinuousBatcher` refills the batch
+between window iterations: the serving engine of server.py.
 
 The port decodes in every cross mode of whisper_tpu
 (decode/loop.CROSS_MODES), over dense or block-quantized (K3) decoder
@@ -19,13 +27,16 @@ rebatching only the failed rows, with best_of candidates a stream at
 t > 0 drawn from per-row keys (`window_rng`), so a window's candidates do
 not depend on its slot or its batch.  Beam search decodes S streams x K
 beams as rows of one batch against S cross-KV rows (decode/beam.py).
-Everything else the JAX class offers is refused with an error rather than
-run on another path.
+What is not ported (a device mesh, DTW token timestamps, grammars and
+logits-filter callbacks) is refused with NotImplementedError.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -33,13 +44,16 @@ import torch
 from ..api import (FullParams, SamplingStrategy, Segment, WhisperContext,
                    WhisperState, _ladder, _rank_window_candidates,
                    full_default_params, window_rng)
-from ..audio.mel import log_mel_spectrogram_torch, pad_audio
+from ..audio.mel import (log_mel_spectrogram, log_mel_spectrogram_torch,
+                         pad_audio)
 from ..constants import (CHUNK_SIZE, HOP_LENGTH, MAX_DECODERS, N_FFT,
                          TICKS_PER_SECOND)
 from ..decode.filters import FilterOptions
-from ..decode.loop import DELTA_MIN
-from ..languages import lang_id as _lang_id
+from ..decode.loop import DELTA_MIN, prompt_cross_kv
+from ..languages import lang_id as _lang_id, lang_str
 from ..models import whisper as wm
+from ..timestamps import get_signal_energy
+from ..utils.logging import log_error, log_info
 
 
 def _merge_candidate_rows(outs):
@@ -77,14 +91,10 @@ def _check_supported(ctx: WhisperContext, p: FullParams, mesh,
     refused = []
     if mesh is not None:
         refused.append("a device mesh")
-    if p.language in (None, "", "auto") or p.detect_language:
-        refused.append("language auto-detection / detect_language")
-    if p.token_timestamps or ctx.dtw_token_timestamps:
-        refused.append("token timestamps and DTW")
+    if ctx.dtw_token_timestamps:
+        refused.append("DTW token timestamps")
     if p.grammar_rules is not None or p.logits_filter_callback:
         refused.append("grammar / logits-filter callbacks")
-    if p.suppress_regex:
-        refused.append("suppress_regex")
     if refused:
         raise NotImplementedError(
             "whisper_tpu_torch BatchTranscriber does not port: "
@@ -105,22 +115,33 @@ def _check_supported(ctx: WhisperContext, p: FullParams, mesh,
                 f"beam search needs batch_size >= max(beam_size, ladder "
                 f"best_of) = {need} (got {batch_size}): beam and candidate "
                 f"rows decode as coupled rows of one batch")
-    if _lang_id(p.language) < 0:
+    if not _auto_lang(p) and _lang_id(p.language) < 0:
         raise ValueError(f"unknown language {p.language!r}")
+
+
+def _auto_lang(p: FullParams) -> bool:
+    """Whether a batched [sot] pre-pass resolves each stream's language."""
+    return p.language in (None, "", "auto") or p.detect_language
 
 
 class StreamState(WhisperState):
     """Per-stream sliding-window session: a WhisperState plus window
-    scheduling fields and the stream's padded PCM (the mel is computed on
-    the device per window)."""
+    scheduling fields.  `mel` is the host log-mel (device_mel=False), or
+    `pcm_padded` the padded PCM the device turns into log-mel; `pcm_row`
+    is the stream's row of a resident PCM pool (ContinuousBatcher)."""
 
-    def __init__(self, pcm_padded: np.ndarray, seek: int, seek_end: int):
+    def __init__(self, mel, seek: int, seek_end: int):
         super().__init__()
-        self.pcm_padded = pcm_padded
+        self.mel = mel
+        self.pcm_padded: np.ndarray | None = None
+        self.pcm_row: int | None = None
         self.seek = seek
         self.seek_end = seek_end
         self.done = False
+        # [sot, lang, task, ...]: None until the language pre-pass
+        # resolves an auto-language stream
         self.prompt_init: list[int] | None = None
+        self.lang_probs: np.ndarray | None = None
 
 
 class BatchTranscriber:
@@ -131,17 +152,15 @@ class BatchTranscriber:
                  device_mel: bool = False):
         """device_mel: compute the log-mel on the device, fused into the
         batched encode.  The log-mel max normalization is then per 30 s
-        window rather than per stream, as in whisper_tpu.  The host-mel
-        path (device_mel=False) is not ported."""
+        window rather than per stream, as in whisper_tpu; off by default,
+        so that batch == serial stays token-exact."""
         self.ctx = ctx
         self.B = batch_size
+        self.device_mel = device_mel
         self.params = params or full_default_params()
         p = self.params
         _check_supported(ctx, p, mesh, batch_size)
-        if not device_mel:
-            raise NotImplementedError(
-                "whisper_tpu_torch BatchTranscriber runs the device-mel "
-                "path only (device_mel=True)")
+        self.auto_lang = _auto_lang(p)
         self.no_timestamps = p.no_timestamps
         self.opts = FilterOptions(
             suppress_blank=p.suppress_blank,
@@ -160,7 +179,12 @@ class BatchTranscriber:
         # least one retry rung
         self.n_windows = 0
         self.n_retried_windows = 0
-        self.prompt_init = self._prompt_init_for(_lang_id(p.language))
+        self.last_states: list[StreamState] = []
+        # the template prompt (pad rows, warmup, bucket sizing); an
+        # auto-language stream gets a copy with its detected language token,
+        # of the same length
+        self.prompt_init = self._prompt_init_for(
+            0 if self.auto_lang else _lang_id(p.language))
 
     def _prompt_init_for(self, lang_id: int) -> list[int]:
         """[sot, lang?, task?, not?] (reference: whisper.cpp:5627-5651)."""
@@ -177,17 +201,20 @@ class BatchTranscriber:
 
     # -- batched encode ----------------------------------------------------
 
-    def _encode_batch(self, pcm_windows: torch.Tensor):
-        """(B, S) padded PCM windows on the device -> the cross-KV of the
-        context's cross mode."""
+    def _encode_batch(self, windows: torch.Tensor):
+        """Windows on the device -> the cross-KV of the context's cross
+        mode: (B, S) padded PCM (device mel) or (B, 2*n_ctx, n_mels)
+        log-mel (host mel)."""
         ctx = self.ctx
         n_ctx = ctx.config.n_audio_ctx
         with torch.no_grad():
-            if pcm_windows.dtype == torch.int16:
-                pcm_windows = pcm_windows.float() * (1.0 / 32768.0)
-            filters = torch.from_numpy(ctx.filters).to(ctx.device)
-            mel = log_mel_spectrogram_torch(pcm_windows, filters)
-            mel = mel[:, :2 * n_ctx]
+            mel = windows
+            if windows.ndim == 2:
+                if windows.dtype == torch.int16:
+                    windows = windows.float() * (1.0 / 32768.0)
+                filters = torch.from_numpy(ctx.filters).to(ctx.device)
+                mel = log_mel_spectrogram_torch(windows, filters)
+                mel = mel[:, :2 * n_ctx]
             enc = wm.encode(ctx.params, mel, n_head=ctx.config.n_audio_head,
                             compute_dtype=ctx.compute_dtype)
             return _cross_fn_for(ctx.cross_mode)(
@@ -215,6 +242,52 @@ class BatchTranscriber:
             prompts_bare.append(list(init))
         return prompts, prompts_bare
 
+    # -- batched language auto-detection ----------------------------------
+
+    def _detect_probs(self, kc, vc) -> np.ndarray:
+        """One [sot] step over the batch's cross-KV -> (B, 100) f32 softmax
+        over the language-token logits (reference serial form:
+        whisper_lang_auto_detect_with_state, whisper.cpp:4027-4108).  The
+        quantized modes' (codes, scales) pairs are tagged for
+        decode_prompt, as the window loop's prompt pass tags them."""
+        ctx = self.ctx
+        kc, vc = prompt_cross_kv(ctx.cross_mode, kc, vc)
+        B = (kc[1] if isinstance(kc, tuple) else kc).shape[1]
+        dev = ctx.device
+        with torch.no_grad():
+            logits, _, _ = wm.decode_prompt(
+                ctx.params,
+                torch.full((B, 1), ctx.vocab.token_sot, dtype=torch.long,
+                           device=dev),
+                torch.zeros((B, 1), dtype=torch.long, device=dev), kc, vc,
+                n_head=ctx.config.n_text_head,
+                compute_dtype=ctx.compute_dtype)
+            lang_tok = torch.tensor(
+                [ctx.vocab.token_lang(i) for i in range(100)], device=dev)
+            ll = logits[:, -1, :].float()[:, lang_tok]
+            return torch.softmax(ll, dim=-1).cpu().numpy()
+
+    def _detect_languages(self, states, rows, pcm_dev=None) -> None:
+        """Resolve auto-language streams in one batched pre-pass: encode
+        each stream's first window (offset 0, like the serial path), run
+        one [sot] decode step, take the most probable language and pin the
+        stream's prompt language token (the reference's parallel path
+        detects per chunk the same way: whisper_full_parallel -> :5504 ->
+        :4027-4108)."""
+        slot_streams = [rows[i] if i < len(rows) else None
+                        for i in range(self.B)]
+        kc, vc = self._encode_slots(states, slot_streams, pcm_dev,
+                                    seeks=np.zeros((self.B,), np.int64))
+        probs = self._detect_probs(kc, vc)
+        for i, si in enumerate(rows):
+            st = states[si]
+            lid = int(np.argmax(probs[i]))
+            st.lang_id_state = lid
+            st.lang_probs = probs[i].copy()
+            st.prompt_init = self._prompt_init_for(lid)
+            log_info(f"auto-detected language: {lang_str(lid)} "
+                     f"(p = {probs[i][lid]:.6f})")
+
     def _encode_batch_sliced(self, pcm_all: torch.Tensor, rows, starts):
         """Windows cut from the device-resident PCM stack: only (B,) row
         indices and sample offsets cross from the host.  int16 windows are
@@ -233,21 +306,39 @@ class BatchTranscriber:
     # -- stream scheduling -------------------------------------------------
 
     def _make_stream(self, pcm) -> StreamState:
-        """Host-side per-stream prep: padded PCM (the mel runs on the
-        device) and window scheduling fields."""
+        """Host-side per-stream prep: the log-mel (or the padded PCM for
+        device_mel), the signal energy for token timestamps, and window
+        scheduling fields."""
         p = self.params
-        arr = np.asarray(pcm)
-        if arr.dtype != np.int16:
-            arr = arr.astype(np.float32)
-        if len(arr) < 1 + N_FFT // 2:
-            # too short for the reflect pad; zero-extend like a silent signal
-            arr = np.pad(arr, (0, 1 + N_FFT // 2 - len(arr)))
-        padded, _, n_len_org = pad_audio(arr)
-        st = StreamState(
-            padded, seek=p.offset_ms // 10,
-            seek_end=(n_len_org if p.duration_ms == 0
-                      else p.offset_ms // 10 + p.duration_ms // 10))
-        st.prompt_init = list(self.prompt_init)
+        if self.device_mel:
+            # the device computes the mel; the host only pads (reflect
+            # head, 30 s zero tail).  int16 stays packed until after the
+            # window slice on the device
+            arr = np.asarray(pcm)
+            if arr.dtype != np.int16:
+                arr = arr.astype(np.float32)
+            if len(arr) < 1 + N_FFT // 2:
+                # too short for the reflect pad; zero-extend like silence
+                arr = np.pad(arr, (0, 1 + N_FFT // 2 - len(arr)))
+            padded, _, n_len_org = pad_audio(arr)
+            st = StreamState(None, 0, 0)
+            st.pcm_padded = padded
+        else:
+            mel, n_len_org = log_mel_spectrogram(np.asarray(pcm),
+                                                 self.ctx.filters)
+            st = StreamState(mel, 0, 0)
+        st.seek = p.offset_ms // 10
+        st.seek_end = (n_len_org if p.duration_ms == 0
+                       else p.offset_ms // 10 + p.duration_ms // 10)
+        if p.token_timestamps:
+            # the per-stream signal energy the serial full() computes
+            # (reference: whisper.cpp:5523), which segment emission reads
+            arr = np.asarray(pcm)
+            if arr.dtype == np.int16:
+                arr = arr.astype(np.float32) / 32768.0
+            st.energy = get_signal_energy(arr, 32)
+        if not self.auto_lang:
+            st.prompt_init = list(self.prompt_init)
         if st.seek_end < st.seek + DELTA_MIN:
             st.done = True
         return st
@@ -269,15 +360,23 @@ class BatchTranscriber:
             stack[i, :len(row)] = row
         return torch.from_numpy(stack).to(self.ctx.device)
 
+    # the resident PCM stack of transcribe() stays under this many bytes;
+    # past it each iteration uploads its windows
+    RESIDENT_BYTES = 1 << 30
+
     def transcribe(self, streams: list[np.ndarray]) -> list[list[Segment]]:
-        """-> per-stream segment lists."""
+        """-> per-stream segment lists; the streams' states (detected
+        languages among them) are left in `last_states`."""
         states = [self._make_stream(pcm) for pcm in streams]
         self.phase_times = {
             "upload": 0.0, "prep": 0.0, "encode": 0.0, "decode": 0.0,
             "finish": 0.0}
         self.window_times = []
         t0 = time.perf_counter()
-        pcm_dev = self._upload_pcm(states) if states else None
+        pcm_dev = None
+        if (self.device_mel and states and sum(
+                st.pcm_padded.nbytes for st in states) <= self.RESIDENT_BYTES):
+            pcm_dev = self._upload_pcm(states)
         self.phase_times["upload"] = time.perf_counter() - t0
 
         while True:
@@ -286,16 +385,31 @@ class BatchTranscriber:
                 break
             self._iterate(states, active[:self.B], pcm_dev)
 
+        self.last_states = states
         return [st.result_all for st in states]
 
-    def _iterate(self, states, batch, pcm_dev) -> None:
+    def _iterate(self, states, batch, pcm_dev=None) -> None:
         """One batched window iteration over the streams in `batch`
         (indices into `states`): encode every stream's current window, run
         the temperature-fallback ladder (or the beam rungs), emit segments
-        and advance seeks."""
+        and advance seeks.  ContinuousBatcher calls it directly, refilling
+        `batch` between iterations."""
         p = self.params
         t_iter = time.perf_counter()
         B = len(batch)
+
+        # the language pre-pass for auto-language streams joining the batch
+        # (fresh streams of the continuous engine arrive unresolved)
+        fresh = [i for i in batch if states[i].prompt_init is None]
+        if fresh:
+            self._detect_languages(states, fresh, pcm_dev)
+            if p.detect_language:
+                # detection is the request (reference: whisper.cpp:5515)
+                for i in fresh:
+                    states[i].done = True
+                self.window_times.append((B, time.perf_counter() - t_iter))
+                return
+
         prompts, prompts_bare = self._build_prompts(states, batch)
         self.phase_times["prep"] += time.perf_counter() - t_iter
 
@@ -517,18 +631,56 @@ class BatchTranscriber:
                 out, K, last)
         return still_failed
 
-    def _encode_slots(self, states, slot_streams, pcm_dev):
+    def _encode_slots(self, states, slot_streams, pcm_dev, seeks=None):
         """Batched encode where slot i carries stream slot_streams[i]'s
-        current window (None = dead slot, row 0 at offset 0)."""
+        window at its seek, or at seeks[i] when given (None = dead slot:
+        row 0 at offset 0 of the resident stack, else zeros).  The encode
+        batch is len(slot_streams): callers pad to their fixed slot count.
+
+        Three sources: the resident PCM stack `pcm_dev` (indexed by the
+        stream's pool row when it has one, else by its position), PCM
+        windows uploaded this iteration (device_mel without a resident
+        stack), or host log-mel windows."""
+        ctx = self.ctx
+        n_ctx = ctx.config.n_audio_ctx
         nB = len(slot_streams)
-        rows_idx = np.zeros((nB,), np.int64)
-        starts = np.zeros((nB,), np.int64)
-        for row, si in enumerate(slot_streams):
-            if si is None:
-                continue
-            rows_idx[row] = si
-            starts[row] = states[si].seek * HOP_LENGTH
-        return self._encode_batch_sliced(pcm_dev, rows_idx, starts)
+
+        def seek_of(row, si):
+            return int(seeks[row]) if seeks is not None else states[si].seek
+
+        if pcm_dev is not None:
+            rows_idx = np.zeros((nB,), np.int64)
+            starts = np.zeros((nB,), np.int64)
+            for row, si in enumerate(slot_streams):
+                if si is None:
+                    continue
+                pr = states[si].pcm_row
+                rows_idx[row] = si if pr is None else pr
+                starts[row] = seek_of(row, si) * HOP_LENGTH
+            return self._encode_batch_sliced(pcm_dev, rows_idx, starts)
+        if self.device_mel:
+            S = 2 * n_ctx * HOP_LENGTH + N_FFT
+            all_i16 = all(states[si].pcm_padded.dtype == np.int16
+                          for si in slot_streams if si is not None)
+            windows = np.zeros((nB, S), np.int16 if all_i16 else np.float32)
+            for row, si in enumerate(slot_streams):
+                if si is None:
+                    continue
+                start = seek_of(row, si) * HOP_LENGTH
+                chunk = states[si].pcm_padded[start:start + S]
+                if chunk.dtype == np.int16 and not all_i16:
+                    chunk = chunk.astype(np.float32) / 32768.0
+                windows[row, :len(chunk)] = chunk
+        else:
+            windows = np.zeros((nB, 2 * n_ctx, ctx.hparams.n_mels),
+                               np.float32)
+            for row, si in enumerate(slot_streams):
+                if si is None:
+                    continue
+                mel, sk = states[si].mel, seek_of(row, si)
+                avail = max(0, min(2 * n_ctx, mel.shape[0] - sk))
+                windows[row, :avail] = mel[sk:sk + avail]
+        return self._encode_batch(torch.from_numpy(windows).to(ctx.device))
 
     def _prompt_bucket(self, prompts) -> int:
         """Fixed prompt-buffer size: one small bucket for bare prompts, one
@@ -557,9 +709,13 @@ class BatchTranscriber:
             pad_len[row] = P - len(q)
             buf[row, P - len(q):] = q
         if beam_size:
+            # suppress_regex reaches the batched beam only: whisper_tpu's
+            # batched greedy rows pass no extra suppression either
+            extra = (ctx._regex_suppress_ids(p.suppress_regex)
+                     if p.suppress_regex else ())
             fn = ctx._beam_batch_window_fn(
                 n, beam_size, P, self.opts, p.single_segment,
-                self.no_timestamps, p.max_tokens)
+                self.no_timestamps, p.max_tokens, extra)
         else:
             assert n == self.B
             fn = ctx._decode_window_fn(
@@ -569,13 +725,19 @@ class BatchTranscriber:
                   keys, live)
 
     def warmup(self, pcm_dtype=np.float32) -> None:
-        """Run the encoder and both prompt-bucket decode variants once, so
-        the first request pays no one-time set-up (kernel build, cuBLAS
-        handles, allocator growth)."""
+        """Run the encoder, both prompt-bucket decode variants and (for
+        auto language) the detection step once, so the first request pays
+        no one-time set-up (kernel build, cuBLAS handles, allocator
+        growth).  pcm_dtype: the streams' dtype (device_mel only)."""
         ctx = self.ctx
-        S = 2 * ctx.config.n_audio_ctx * HOP_LENGTH + N_FFT
-        pcm = torch.from_numpy(np.zeros((self.B, S), pcm_dtype))
-        kc, vc = self._encode_batch(pcm.to(ctx.device))
+        n_ctx = ctx.config.n_audio_ctx
+        if self.device_mel:
+            windows = np.zeros((self.B, 2 * n_ctx * HOP_LENGTH + N_FFT),
+                               pcm_dtype)
+        else:
+            windows = np.zeros((self.B, 2 * n_ctx, ctx.hparams.n_mels),
+                               np.float32)
+        kc, vc = self._encode_batch(torch.from_numpy(windows).to(ctx.device))
         bare = list(self.prompt_init)
         cap = min(self.params.n_max_text_ctx, ctx.config.n_text_ctx // 2)
         carried = [ctx.vocab.token_prev] + [0] * cap + bare
@@ -586,6 +748,8 @@ class BatchTranscriber:
         for prompt in (bare, carried):
             self._decode_rows([prompt] * self.B, kc, vc, live, zeros, zeros,
                               0.0, keys)
+        if self.auto_lang:
+            self._detect_probs(kc, vc)
 
     def _finish_window(self, st: StreamState, best: dict) -> None:
         """Emit one window's winning candidate into the stream's session
@@ -609,3 +773,281 @@ class BatchTranscriber:
             st.done = True
         if st.seek > 0 and st.seek + 500 >= st.seek_end:
             st.prompt_past = []
+
+
+class _Job:
+    """One submitted stream riding the continuous batch."""
+
+    __slots__ = ("pcm", "st", "done", "error", "t_submit", "t_first_segment",
+                 "t_done", "iter_joined", "iter_done", "iter_first",
+                 "_had_segment", "on_segment", "_n_emitted", "_last_sched")
+
+    def __init__(self, pcm, on_segment=None):
+        self.pcm = pcm
+        self.st: StreamState | None = None
+        self.done = threading.Event()
+        self.error: str | None = None
+        self.t_submit = time.perf_counter()
+        self.t_first_segment: float | None = None
+        self.t_done: float | None = None
+        self.iter_joined: int | None = None
+        self.iter_done: int | None = None
+        self.iter_first: int | None = None   # iteration of the first segment
+        self._had_segment = False
+        # called with each finalized Segment between window iterations,
+        # from the scheduler thread: it must be quick
+        self.on_segment = on_segment
+        self._n_emitted = 0
+        # iteration of the last slot this job held; -1 = never scheduled
+        # (first-window-first, then round-robin)
+        self._last_sched = -1
+
+
+class ContinuousBatcher:
+    """Continuous batching: a persistent batch whose rows are refilled
+    between window iterations (port of whisper_tpu's).
+
+    A scheduler thread re-picks the batch before every window iteration:
+    finished streams free their slot at once and queued or new requests
+    join mid-flight, so a request that arrives while a long batch decodes
+    gets its first segment within about one iteration.  Scheduling is
+    first-window-first (never-scheduled streams take slots before
+    in-flight ones, FIFO among themselves), then round-robin (in-flight
+    streams least recently scheduled first).  Admission is just in time:
+    at most one iteration's worth of fresh streams is prepared a cycle,
+    and at most max_active (2 x batch_size by default) are admitted.
+
+    With device_mel, each admitted stream's padded PCM is copied once into
+    its row of a resident (max_active, plen) pool on the device, and the
+    windows are cut there; a stream the pool declines (no free row, another
+    dtype, over POOL_BYTES) takes the per-iteration upload.
+    """
+
+    # the pool's rows x row length stay under this many bytes (it shares
+    # device memory with the weights, the cross-KV and the decode caches)
+    POOL_BYTES = 1 << 30
+
+    def __init__(self, ctx: WhisperContext, batch_size: int = 8,
+                 params: FullParams | None = None, device_mel: bool = False,
+                 max_active: int | None = None, warmup: bool = False):
+        self.bt = BatchTranscriber(ctx, batch_size=batch_size, params=params,
+                                   device_mel=device_mel)
+        if warmup:
+            self.bt.warmup()
+        self.B = batch_size
+        # admission cap: streams past it wait in the queue unprepared
+        self.max_active = max_active or 2 * batch_size
+        self._pool: torch.Tensor | None = None
+        self._pool_len = 0
+        self._pool_dtype: np.dtype | None = None
+        self._pool_free = list(range(self.max_active))
+        # per-row high-water mark: a recycled row is rewritten up to its
+        # previous occupant's extent, so no stale tail is ever read
+        self._pool_water = [0] * self.max_active
+        self.queue: "queue.Queue[_Job | None]" = queue.Queue()
+        self.active: list[_Job] = []
+        self.n_iterations = 0
+        # called as iteration_hook(n_iterations) at the top of every
+        # scheduler cycle, before admission: lets tests and metrics observe
+        # (or pause) the engine between iterations
+        self.iteration_hook = None
+        self._closed = False
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    # -- client side -------------------------------------------------------
+
+    def submit(self, pcm) -> list[Segment]:
+        """Blocks until this stream finishes; returns its segments.
+        Thread-safe."""
+        if self._closed:
+            raise RuntimeError("ContinuousBatcher is closed")
+        job = _Job(pcm)
+        self.queue.put(job)
+        job.done.wait()
+        if job.error is not None:
+            raise RuntimeError(job.error)
+        return job.st.result_all
+
+    def submit_async(self, pcm, on_segment=None) -> _Job:
+        """Non-blocking submit: wait on job.done, then read
+        job.st.result_all.  on_segment(Segment) is called for each
+        finalized segment as the engine produces it, from the scheduler
+        thread (the server's /stream endpoint rides it)."""
+        job = _Job(pcm, on_segment=on_segment)
+        self.queue.put(job)
+        return job
+
+    def close(self) -> None:
+        self._closed = True
+        self.queue.put(None)   # wake the engine
+        self.thread.join(timeout=30)
+
+    # -- the resident PCM pool ---------------------------------------------
+
+    def _pool_admit(self, st: StreamState) -> None:
+        """Copy st's padded PCM into a free pool row, once for the stream's
+        life.  Declines (the stream then uploads its windows each
+        iteration) when no row is free, the dtype differs from the pool's,
+        or the pool would pass POOL_BYTES.  Growth doubles the row length:
+        a new pool, the old rows copied in."""
+        arr = st.pcm_padded
+        if arr is None or not self._pool_free:
+            return
+        if self._pool_dtype is None:
+            self._pool_dtype = arr.dtype
+        if arr.dtype != self._pool_dtype:
+            return
+        gran = 16000 * CHUNK_SIZE            # 30 s of samples
+        plen = max(self._pool_len, 2 * gran)
+        while plen < len(arr):
+            plen *= 2
+        if self.max_active * plen * arr.itemsize > self.POOL_BYTES:
+            return
+        dev = self.bt.ctx.device
+        if self._pool is None or plen > self._pool_len:
+            old, old_len = self._pool, self._pool_len
+            self._pool = torch.zeros(
+                (self.max_active, plen),
+                dtype=torch.from_numpy(arr[:0]).dtype, device=dev)
+            if old is not None:
+                self._pool[:, :old_len].copy_(old)
+            self._pool_len = plen
+        row = self._pool_free.pop()
+        # only the stream's own samples (rounded up to 30 s) are written, or
+        # the previous occupant's extent if longer: window reads never pass
+        # len(arr), whose 30 s + N_FFT tail covers the last window
+        ulen = min(self._pool_len,
+                   max(-(-len(arr) // gran) * gran, self._pool_water[row]))
+        self._pool_water[row] = ulen
+        pinned = dev.type == "cuda"
+        host = torch.zeros((ulen,), dtype=self._pool.dtype, pin_memory=pinned)
+        host[:len(arr)] = torch.from_numpy(arr)
+        self._pool[row, :ulen].copy_(host, non_blocking=pinned)
+        st.pcm_row = row
+
+    def _pool_release(self, st: StreamState | None) -> None:
+        if st is not None and st.pcm_row is not None:
+            self._pool_free.append(st.pcm_row)
+            st.pcm_row = None
+
+    # -- engine ------------------------------------------------------------
+
+    def _admit(self, job: _Job | None) -> None:
+        if job is None:
+            return
+        try:
+            job.st = self.bt._make_stream(job.pcm)
+            job.pcm = None          # the mel / padded PCM is what is needed
+            job.iter_joined = self.n_iterations
+            if self.bt.device_mel and not job.st.done:
+                self._pool_admit(job.st)
+        except Exception as e:  # noqa: BLE001 - fail this job, not the engine
+            job.error = f"stream prep failed: {e}"
+            self._pool_release(job.st)
+            job.done.set()
+            return
+        if job.st.done:             # too short to decode: resolved at once
+            job.t_done = time.perf_counter()
+            job.iter_done = self.n_iterations
+            job.done.set()
+            return
+        self.active.append(job)
+
+    def _run(self):
+        # grad mode is thread-local: this thread sets its own
+        with torch.no_grad():
+            self._loop()
+        # fail anything still queued after close
+        while True:
+            try:
+                job = self.queue.get_nowait()
+            except queue.Empty:
+                break
+            if job is not None:
+                job.error = "ContinuousBatcher closed"
+                job.done.set()
+
+    def _loop(self):
+        while True:
+            hook = self.iteration_hook
+            if hook is not None:
+                hook(self.n_iterations)
+            # admit new work: block when idle, drain when busy
+            if not self.active:
+                try:
+                    job = self.queue.get(timeout=0.25)
+                except queue.Empty:
+                    if self._closed:
+                        return
+                    continue
+                if job is None and self._closed:
+                    return
+                self._admit(job)
+            while len(self.active) < self.max_active:
+                # just in time: at most one iteration's worth of
+                # never-scheduled streams is prepared a cycle
+                if sum(1 for j in self.active if j._last_sched < 0) >= self.B:
+                    break
+                try:
+                    job = self.queue.get_nowait()
+                except queue.Empty:
+                    break
+                if job is None and self._closed:
+                    break
+                self._admit(job)
+            if self._closed and not self.active:
+                return
+            if not self.active:
+                continue
+
+            # first-window-first, then round-robin
+            fresh = [i for i, j in enumerate(self.active)
+                     if j._last_sched < 0]
+            inflight = sorted(
+                (i for i, j in enumerate(self.active) if j._last_sched >= 0),
+                key=lambda i: self.active[i]._last_sched)
+            batch = (fresh + inflight)[:min(len(self.active), self.B)]
+            for i in batch:
+                self.active[i]._last_sched = self.n_iterations
+            # the resident pool only when every scheduled stream holds a row
+            sts = [j.st for j in self.active]
+            pcm_dev = (self._pool if self._pool is not None and all(
+                sts[i].pcm_row is not None for i in batch) else None)
+            try:
+                self.bt._iterate(sts, batch, pcm_dev)
+            except Exception as e:  # noqa: BLE001 - a dead engine thread
+                # would leave every submitter waiting forever
+                log_error("ContinuousBatcher: batch iteration failed:\n"
+                          + traceback.format_exc())
+                for j in self.active:
+                    j.error = f"batch iteration failed: {e}"
+                    j.done.set()
+                    self._pool_release(j.st)
+                self.active.clear()
+                continue
+            self.n_iterations += 1
+
+            now = time.perf_counter()
+            still = []
+            for idx, j in enumerate(self.active):
+                if not j._had_segment and idx in batch and j.st.result_all:
+                    j._had_segment = True
+                    j.t_first_segment = now
+                    j.iter_first = self.n_iterations
+                if j.on_segment is not None:
+                    segs = j.st.result_all
+                    while j._n_emitted < len(segs):
+                        try:
+                            j.on_segment(segs[j._n_emitted])
+                        except Exception:  # noqa: BLE001 - a client's
+                            pass           # callback must not kill the engine
+                        j._n_emitted += 1
+                if j.st.done:
+                    j.t_done = now
+                    j.iter_done = self.n_iterations
+                    self._pool_release(j.st)
+                    j.done.set()
+                else:
+                    still.append(j)
+            self.active = still
