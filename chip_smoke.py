@@ -174,7 +174,9 @@ SERVER_S = 30                      # seconds of each WAV the server gets
 # weights every rung of the ladder fails its log-prob test (a window then
 # decodes 6 rungs of ~220 steps; the phase took 453 s on an H100 80GB
 # HBM3 at 700 W), where a trained model's windows mostly pass at t = 0.  A
-# threshold of -1000 lets them pass at t = 0 and keeps the ladder live
+# threshold of -1000 lets them pass at t = 0; the ladder stays live (the
+# entropy test still sends windows to the t > 0 rungs at best_of 2, and
+# the phase asserts that some did)
 SERVER_FIELDS = {"logprob_thold": "-1000"}
 BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
@@ -595,8 +597,9 @@ def check_kernels(gen):
 
 
 # (kernel key, shape) of every launch on the main paths, as path_shapes
-# writes them, while LAUNCHED["on"]; filled by record_launches
-LAUNCHED = {"on": False, "shapes": {}}
+# writes them, while LAUNCHED["on"], in all and by the phase running
+# (LAUNCHED["phase"]); filled by record_launches
+LAUNCHED = {"on": False, "shapes": {}, "phase": None, "by_phase": {}}
 
 
 def launch_shape(entry: str, args) -> tuple[str, tuple]:
@@ -636,6 +639,8 @@ def record_launches(lib) -> None:
         if LAUNCHED["on"]:
             key, shape = launch_shape(entry, args)
             LAUNCHED["shapes"].setdefault(key, set()).add(shape)
+            LAUNCHED["by_phase"].setdefault(LAUNCHED["phase"], {}).setdefault(
+                key, set()).add(shape)
         return call(entry, *args)
     lib.call = recording
 
@@ -1452,9 +1457,17 @@ def check_continuous(card_line: str, ctx) -> dict:
     def run_gated(device_mel: bool, label: str):
         eng = ContinuousBatcher(ctx, batch_size=N_STREAMS, params=p,
                                 device_mel=device_mel)
-        go = threading.Event()
-        eng.iteration_hook = lambda n: go.wait(timeout=600)
+        parked, go = threading.Event(), threading.Event()
+
+        def hook(n):   # the idle engine waits here while the streams queue
+            parked.set()
+            go.wait(timeout=600)
+
+        eng.iteration_hook = hook
         try:
+            if not parked.wait(timeout=60):
+                raise AssertionError(f"{label}: the engine never reached "
+                                     "its iteration hook")
             jobs = [eng.submit_async(pcm) for pcm in streams]
             t0 = time.perf_counter()
             go.set()
@@ -1582,8 +1595,10 @@ def check_server(card_line: str, path: Path) -> dict:
     they decode (it joins that engine), then a verbose_json request with
     language=auto (token timestamps and language detection, an engine of
     its own) and an srt request with offset_n=3, then /health.  Every
-    response must be 200 and parse.  -> the kernel launch counts of the
-    requests."""
+    response must be 200 and parse; the /stream request must ride the
+    json requests' engine and have its first segment within one iteration
+    of joining; that engine must have retried a window on the ladder's
+    t > 0 rungs.  -> the kernel launch counts of the requests."""
     import socket
     import threading
     from concurrent.futures import ThreadPoolExecutor
@@ -1627,7 +1642,17 @@ def check_server(card_line: str, path: Path) -> dict:
             else:
                 raise AssertionError("server: the four requests never "
                                      "filled the engine's batch")
-            joined_at = engs[0].n_iterations
+            json_eng, stream_jobs = engs[0], []
+            submit_async = json_eng.submit_async
+
+            def note_stream(pcm, on_segment=None):
+                job = submit_async(pcm, on_segment=on_segment)
+                if on_segment is not None:
+                    stream_jobs.append(job)
+                return job
+
+            json_eng.submit_async = note_stream
+            joined_at = json_eng.n_iterations
             stream = pool.submit(http, port, "/stream", SERVER_FIELDS,
                                  wavs[4])
             for i, f in enumerate(first):
@@ -1648,7 +1673,8 @@ def check_server(card_line: str, path: Path) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_start
         counts = read_counts()
-        iters = [e.n_iterations for e in srv.STATE.batcher.engines.values()]
+        engines = list(srv.STATE.batcher.engines.values())
+        iters = [e.n_iterations for e in engines]
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1664,6 +1690,20 @@ def check_server(card_line: str, path: Path) -> dict:
     for i in range(4):
         if not json.loads(results[f"json {i}"][2])["text"]:
             raise AssertionError(f"server json {i}: empty text")
+    if len(stream_jobs) != 1:
+        raise AssertionError("server stream: the /stream request did not "
+                             "ride the json requests' engine")
+    sj = stream_jobs[0]
+    if sj.iter_first is None or sj.iter_first > sj.iter_joined + 1:
+        raise AssertionError(f"server stream: joined at iteration "
+                             f"{sj.iter_joined}, first segment at "
+                             f"{sj.iter_first}")
+    retried = {("json" if e is json_eng else "verbose_json"):
+               (e.bt.n_windows, e.bt.n_retried_windows) for e in engines}
+    if json_eng.bt.n_retried_windows <= 0:
+        raise AssertionError(f"server: the json engine retried no window "
+                             f"at t > 0 (windows, retried by engine: "
+                             f"{retried})")
     events = results["stream"][2].decode().split("\n\n")
     if "event: error" in results["stream"][2].decode() or \
             events[-2:] != ["data: [DONE]", ""] or len(events) < 3:
@@ -1691,9 +1731,12 @@ def check_server(card_line: str, path: Path) -> dict:
         raise AssertionError("server health: bad body")
     audio_s = 7 * SERVER_S
     elog(f"[{card_line}] server (large-v3 q5_0, --batch 4, {len(iters)} "
-         f"engines of {iters} iterations): load {load_s:.3f} s; 7 requests "
-         f"of {SERVER_S} s in {wall:.3f} s, {audio_s / wall:.2f} audio-s "
-         f"per wall-s; /stream sent during iteration {joined_at}; "
+         f"engines of {iters} iterations; windows and retried windows by "
+         f"engine {retried}): load {load_s:.3f} s; 7 requests of "
+         f"{SERVER_S} s in {wall:.3f} s, "
+         f"{audio_s / wall:.2f} audio-s per wall-s; /stream sent during "
+         f"iteration {joined_at}, joined the json engine at iteration "
+         f"{sj.iter_joined}, first segment at {sj.iter_first}; "
          f"{len(events) - 2} SSE events; verbose_json language "
          f"{doc['language']!r}, {len(words)} words")
     elog(f"[{card_line}] server: kernel launches K1 {counts['K1']}, K3 "
@@ -1840,39 +1883,52 @@ def main() -> int:
     # the main paths, each read with the counts set to 0 just before it;
     # the shapes they launch are noted, for check_launched
     LAUNCHED["on"] = True
-    paths = {
-        "path A": run_full("path A", big_file, "pallas_q8",
-                           ("K1", "K3", "K5"), card_line),
-        "path B": run_full("path B", small, "pallas",
-                           ("K1", "K3", "K3+mins", "K4"), card_line),
-        "transcribe": serve(card_line, big, "transcribe", ("K1", "K2")),
-        "transcribe q4": serve(card_line, big_q4, "transcribe q4", ("K1",)),
-        "path C q8": run_full("path C q8", big_file, "einsum_q8",
-                              ("K1", "K2", "K3"), card_line, PATH_C_S),
-        "path C q4": run_full("path C q4", big_file, "einsum_q4",
-                              ("K1", "K3"), card_line, PATH_C_S),
-        "path D": front_end(card_line, big.params, big.config),
+    phases = {
+        "path A": lambda: run_full("path A", big_file, "pallas_q8",
+                                   ("K1", "K3", "K5"), card_line),
+        "path B": lambda: run_full("path B", small, "pallas",
+                                   ("K1", "K3", "K3+mins", "K4"), card_line),
+        "transcribe": lambda: serve(card_line, big, "transcribe",
+                                    ("K1", "K2")),
+        "transcribe q4": lambda: serve(card_line, big_q4, "transcribe q4",
+                                       ("K1",)),
+        "path C q8": lambda: run_full("path C q8", big_file, "einsum_q8",
+                                      ("K1", "K2", "K3"), card_line,
+                                      PATH_C_S),
+        "path C q4": lambda: run_full("path C q4", big_file, "einsum_q4",
+                                      ("K1", "K3"), card_line, PATH_C_S),
+        "path D": lambda: front_end(card_line, big.params, big.config),
         # bench.py's other quality tiers at 20 rows: best_of 5 with the
         # ladder live (t > 0 rungs: K2 at G = 1), beam 5 (4 streams x 5
         # beams: K2 at G = 5)
-        "transcribe bo5": serve(card_line, big, "transcribe bo5",
-                                ("K1", "K2"), "bo5", QUALITY_BATCH, True),
-        "transcribe beam5": serve(card_line, big, "transcribe beam5",
-                                  ("K1", "K2G"), "beam5", QUALITY_BATCH,
-                                  True),
+        "transcribe bo5": lambda: serve(card_line, big, "transcribe bo5",
+                                        ("K1", "K2"), "bo5", QUALITY_BATCH,
+                                        True),
+        "transcribe beam5": lambda: serve(card_line, big, "transcribe beam5",
+                                          ("K1", "K2G"), "beam5",
+                                          QUALITY_BATCH, True),
         # the CLI's defaults: whisper_tpu's serial beam reads the window's
         # dense cross-KV through the einsum in every cross mode
         # (decode/beam.py passes it to decode_step as it comes), so K5
         # does not run here; K1 and K3 (M = 5 and 5 x P) do
-        "path A cli": run_full("path A cli", big_file, "pallas_q8",
-                               ("K1", "K3"), card_line, CLI_S,
-                               cli_params(CLI_S), trace=True),
-        "parity": check_parity(card_line),
+        "path A cli": lambda: run_full("path A cli", big_file, "pallas_q8",
+                                       ("K1", "K3"), card_line, CLI_S,
+                                       cli_params(CLI_S), trace=True),
+        "parity": lambda: check_parity(card_line),
         # the serving engine and the server (whisper_tpu_torch/server.py)
-        "continuous": check_continuous(card_line, big),
-        "server": check_server(card_line, big_file),
+        "continuous": lambda: check_continuous(card_line, big),
+        "server": lambda: check_server(card_line, big_file),
     }
+    paths = {}
+    for name, run in phases.items():
+        LAUNCHED["phase"] = name
+        paths[name] = run()
     LAUNCHED["on"] = False
+    # which phase launches K3's prompt passes (M > 8), at which shapes
+    log("K3 shapes at M > 8 by phase: " + json.dumps(
+        {name: {key: sorted(list(x) for x in shapes if x[0] > 8)
+                for key, shapes in by.items() if key in ("K3", "K3+mins")}
+         for name, by in LAUNCHED["by_phase"].items()}))
     del big, big_q4
     torch.cuda.empty_cache()
     check_launched(gen, res)

@@ -90,9 +90,16 @@ def _full_segs(segments):
 
 
 def _run_gated(engine, streams):
-    """Submit every stream before the engine's first iteration."""
-    go = threading.Event()
-    engine.iteration_hook = lambda n: go.wait(timeout=120)
+    """Submit every stream while the idle engine waits in its hook, so
+    its first iteration admits them all."""
+    parked, go = threading.Event(), threading.Event()
+
+    def hook(n):
+        parked.set()
+        go.wait(timeout=120)
+
+    engine.iteration_hook = hook
+    assert parked.wait(timeout=60)
     jobs = [engine.submit_async(pcm) for pcm in streams]
     go.set()
     try:

@@ -928,10 +928,16 @@ def test_continuous_batcher_on_card(gen, device_mel):
         return orig(states, batch, pcm_dev)
 
     eng.bt._iterate = spy
-    go = threading.Event()
-    eng.iteration_hook = lambda n: go.wait(timeout=60)
+    parked, go = threading.Event(), threading.Event()
+
+    def hook(n):   # the idle engine waits here while the streams queue
+        parked.set()
+        go.wait(timeout=60)
+
+    eng.iteration_hook = hook
     ea.self_attention.launches = xa.cross_attention_decode_q8dt.launches = 0
     try:
+        assert parked.wait(timeout=60)
         jobs = [eng.submit_async(pcm) for pcm in streams]
         go.set()
         for j in jobs:

@@ -72,8 +72,8 @@ def test_entry_points_default_to_the_card():
     from whisper_tpu_torch.decode import filters, loop
     from whisper_tpu_torch.models.whisper import WhisperConfig
     from whisper_tpu_torch.weights import convert
-    from whisper_tpu_torch.server import _State
-    assert _State.device == "cuda"
+    from whisper_tpu_torch.server import _arg_parser
+    assert _arg_parser().parse_args(["-m", "x.bin"]).device == "cuda"
     fns = (WhisperContext.__init__, WhisperContext.from_random,
            WhisperContext.from_jax, convert.params_from_ggml,
            convert.zero_params, convert.random_params, convert.from_jax,

@@ -74,7 +74,6 @@ def servers(request, model_path, tmp_path_factory):
     tctx = WhisperContext.from_file(model_path, compute_dtype=torch.float32,
                                     device="cpu")
     saved = {m: dict(vars(m.STATE)) for m in (jsrv, tsrv)}
-    tsrv.STATE.device, tsrv.STATE.compute_dtype = "cpu", torch.float32
     httpds, ports = [], {}
     for tag, mod, ctx in (("jax", jsrv, jctx), ("torch", tsrv, tctx)):
         mod.STATE.ctx, mod.STATE.model_path = ctx, model_path
@@ -92,7 +91,7 @@ def servers(request, model_path, tmp_path_factory):
     for mod in (jsrv, tsrv):
         if mod.STATE.batcher is not None:
             mod.STATE.batcher.close()
-        for k in ("ctx", "model_path", "batcher", "device", "compute_dtype"):
+        for k in ("ctx", "model_path", "batcher"):
             if k in saved[mod]:
                 setattr(mod.STATE, k, saved[mod][k])
             elif k in vars(mod.STATE):
@@ -199,6 +198,40 @@ def test_concurrent_requests(servers, wav_bytes):
     assert all(r == alone for r in res)
 
 
+def test_concurrent_signatures_and_serial_fallback(servers, wav_bytes,
+                                                  monkeypatch):
+    """Two decode signatures (two engines under --batch) and a beam wider
+    than the batch (the serial fallback) at once on the port's server:
+    each body equals the same request's alone.  The engines and the
+    fallback share one context, so each thread keeps its own current
+    session state.  Segment emission is slowed so that one thread's
+    emission overlaps the others' decodes."""
+    import time
+    emit = WhisperContext._emit_segments
+
+    def slow_emit(self, *args, **kwargs):
+        time.sleep(0.05)
+        seek = emit(self, *args, **kwargs)
+        time.sleep(0.05)
+        return seek
+
+    monkeypatch.setattr(WhisperContext, "_emit_segments", slow_emit)
+    requests = [
+        _multipart(wav_bytes, FORMATS["json"]),
+        _multipart(wav_bytes, {"response_format": "verbose_json",
+                               "language": "auto"}),
+        _multipart(wav_bytes, {"response_format": "srt", "beam_size": "3"}),
+    ]
+    port = servers["torch"]
+    alone = [_request(port, "/inference", *r) for r in requests]
+    assert all(r[0] == 200 for r in alone), alone
+    for _ in range(2):
+        with ThreadPoolExecutor(len(requests)) as pool:
+            res = list(pool.map(
+                lambda r: _request(port, "/inference", *r), requests))
+        assert res == alone
+
+
 def test_health_404_and_load(servers, model_path, tmp_path):
     for tag, port in servers.items():
         assert _request(port, "/health") == (
@@ -225,7 +258,7 @@ def test_health_404_and_load(servers, model_path, tmp_path):
         mod.STATE.ctx = prev
         if mod.STATE.batcher is not None:
             mod.STATE.batcher.rebind(prev)
-    # the port loads onto its STATE's device and dtype
+    # the port loads onto the replaced context's device and dtype
     assert mod_ctx["torch"].device.type == "cpu"
     assert mod_ctx["torch"].compute_dtype == torch.float32
 

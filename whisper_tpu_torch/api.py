@@ -24,6 +24,7 @@ import contextlib
 import dataclasses
 import math
 import re
+import threading
 import time
 from typing import Callable, Optional
 
@@ -271,7 +272,9 @@ class WhisperContext:
         self.cross_mode = cross_mode
         self.dtw_token_timestamps = False
         self._default_state = WhisperState()
-        self._cur_state = self._default_state
+        # the state that use_state / full(state=) select is per thread: the
+        # server's engine threads and its serial fallback share one context
+        self._tls = threading.local()
         self._fn_cache: dict = {}
 
     # ---- constructors (whisper_init_*; reference: whisper.h:195-228) -----
@@ -463,6 +466,14 @@ class WhisperContext:
                 n_streams=S, beam_size=K, extra_suppress=extra_suppress,
                 device=self.device)
         return self._fn_cache[key]
+
+    @property
+    def _cur_state(self) -> WhisperState:
+        return getattr(self._tls, "state", self._default_state)
+
+    @_cur_state.setter
+    def _cur_state(self, state: WhisperState) -> None:
+        self._tls.state = state
 
     def use_state(self, state: WhisperState):
         """Context manager routing session fields to `state`."""
@@ -887,7 +898,7 @@ class WhisperContext:
 
 
 # session-state attribute proxies: WhisperContext.<field> reads/writes the
-# state selected by use_state()
+# state selected by use_state() in the calling thread
 for _f in ("mel", "mel_n_len_org", "lang_id_state", "no_speech_prob",
            "result_all", "prompt_past", "energy", "t_beg", "t_last",
            "tid_last", "exp_n_audio_ctx", "timings"):

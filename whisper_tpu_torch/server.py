@@ -34,8 +34,6 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-import torch
-
 from .api import SamplingStrategy, WhisperContext, full_default_params
 from .audio.io import load_audio
 from .outputs import to_timestamp
@@ -46,9 +44,6 @@ class _State:
     model_path: str = ""
     lock = threading.Lock()
     batcher: "_BatchWorker | None" = None
-    # where POST /load puts the new model
-    device: str = "cuda"
-    compute_dtype: torch.dtype = torch.bfloat16
 
 
 STATE = _State()
@@ -443,9 +438,10 @@ class Handler(BaseHTTPRequestHandler):
             try:
                 req = json.loads(body)
                 with STATE.lock:
+                    # the new model goes where the one it replaces was
                     STATE.ctx = WhisperContext.from_file(
-                        req["model"], device=STATE.device,
-                        compute_dtype=STATE.compute_dtype)
+                        req["model"], device=STATE.ctx.device,
+                        compute_dtype=STATE.ctx.compute_dtype)
                     STATE.model_path = req["model"]
                     if STATE.batcher is not None:
                         # engines hold the old weights; drain them and
@@ -613,7 +609,7 @@ class Handler(BaseHTTPRequestHandler):
                 pass
 
 
-def main(argv=None) -> int:
+def _arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="whisper-server")
     ap.add_argument("-m", "--model", required=True)
     ap.add_argument("--host", default="127.0.0.1")
@@ -624,9 +620,12 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-window-ms", type=int, default=50)
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model: cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap
 
-    STATE.device = args.device
+
+def main(argv=None) -> int:
+    args = _arg_parser().parse_args(argv)
+
     STATE.ctx = WhisperContext.from_file(args.model, device=args.device)
     STATE.model_path = args.model
     if args.batch > 0:
