@@ -43,7 +43,7 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      serving settings: K1 and K2 launch; then once more with 4-bit cross-KV
      (cross_mode="einsum_q4", bench.py's kv=q4): K1 launches
   8. path C, the CLI's --kv-q8 / --kv-q4: path A's file through
-     from_file(..., cross_mode="einsum_q8") + full on 30 s of PCM (K1, K2,
+     from_file(..., cross_mode="einsum_q8") + full on 15 s of PCM (K1, K2,
      K3 launch), then cross_mode="einsum_q4" (K1, K3)
   9. path D, the encoder front end: 60 s of PCM through log_mel_pallas
      (K7), then large-v3 `encode` (32 layers, random weights, seed 0) on
@@ -84,7 +84,16 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      verbose_json with language=auto (token timestamps, language
      detection) and srt with offset_n=3, then /health: every response 200
      and well formed; request times to stderr
- 15. the port's draws (decode/rng.py) on the card against the CPU for the
+ 15. "cli": whisper_tpu_torch.cli.main as a user runs it, five runs
+     (check_cli): large-v3 q5_0 with -dtw large-v3 -kvq -bs 5 -nf -p 2 and
+     every writer on 20 s (DTW stamps inside their windows, chunk 2 after
+     10 s; K1, K3 at M = T_pad), a small q5_1 file with
+     grammars/colors.gbnf's pieces in its vocab under that grammar with
+     -bs 1 (speculative chunks) and -bs 5 (the host beam) on 10 s (the
+     native engine; the tokens replay through a fresh grammar), -p 2
+     batched with -kvq on 20 s (K1, K2), and BatchTranscriber with DTW
+     on two 10 s streams (K1, K2, K3 at M = 2 x T_pad); figures on stderr
+ 16. the port's draws (decode/rng.py) on the card against the CPU for the
      same keys and logits, and one step's draw cost at the bo5 and beam5
      shapes from a torch.profiler trace
 In 5-8, 10, 11 and 13 every segment list must be non-empty and every
@@ -163,10 +172,11 @@ QUALITY_BATCH = N_STREAMS * BEAM   # bo5 and beam5: four streams of five rows
 # best_of ladder's) five decoders a step, and their prompt passes
 K3_CLI_M = (BEAM, BEAM * 8, BEAM * 232)
 # paths A and B (once 60 s) and path A with the CLI's defaults (once 30 s)
-# were shortened when the serving phases came, to keep the script's total
+# were shortened when the serving phases came, path C (once 30 s) when
+# the phase "cli" came, to keep the script's total
 CLI_S = 15                         # seconds of PCM for path A's CLI defaults
 FULL_S = 30                        # seconds of PCM for paths A and B
-PATH_C_S = 30                      # seconds of PCM for path C
+PATH_C_S = 15                      # seconds of PCM for path C
 MEL_S = 60                         # seconds of PCM for path D's mel
 CONT_LATE = 2                      # continuous run 2: streams joining late
 SERVER_S = 30                      # seconds of each WAV the server gets
@@ -179,6 +189,15 @@ SERVER_S = 30                      # seconds of each WAV the server gets
 # the phase asserts that some did)
 SERVER_FIELDS = {"logprob_thold": "-1000"}
 BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the phase "cli": seconds of the WAVs of runs 1 and 4 (-p 2: two chunks of
+# 10 s) and of runs 2, 3 and 5; grammars/colors.gbnf's pieces, written into
+# the small grammar file's vocab from PIECE_ID0 on
+CLI_RUN_S, CLI_SHORT_S = 20, 10
+COLORS = Path(__file__).resolve().parent / "grammars" / "colors.gbnf"
+PIECE_ID0 = 1000
+GRAMMAR_PIECES = [b" ", b"red", b"green", b"blue", b"yellow", b"purple",
+                  b"orange", b" and ", b" red", b" green", b" blue", b" and",
+                  b" yellow", b"and ", b"and", b" and red", b"blue and "]
 
 
 def log(msg: str) -> None:
@@ -822,16 +841,17 @@ def check_segments(path: str, results) -> None:
                                  "probabilities (NaN logits)")
 
 
-def model_file(size: str, kind: str) -> Path:
+def model_file(size: str, kind: str, pieces: bool = False) -> Path:
     """A random-weight ggml file at `size`'s published dims in block type
     `kind`, written once (tensor by tensor, random valid blocks, seed 0)
-    and reused."""
+    and reused.  pieces: the vocab holds GRAMMAR_PIECES from id
+    PIECE_ID0 on (the synthetic " t<i>" tokens alone match no grammar)."""
     from whisper_tpu_torch.audio.filters import mel_filterbank
     from whisper_tpu_torch.models.whisper import MODEL_DIMS
     from whisper_tpu_torch.weights import ggml_writer
     from whisper_tpu_torch.weights.vocab import synthetic_vocab
 
-    path = BUILD / f"{size}-{kind}.bin"
+    path = BUILD / f"{size}-{kind}{'-pieces' if pieces else ''}.bin"
     if path.is_file():
         log(f"reusing {path.name} ({path.stat().st_size / 2**20:.1f} MiB)")
         return path
@@ -840,13 +860,55 @@ def model_file(size: str, kind: str) -> Path:
     hp = dict(zip(ggml_writer.HPARAM_KEYS, dims))
     tmp = path.with_suffix(".tmp")
     t0 = time.perf_counter()
+    tokens = synthetic_vocab(hp["n_vocab"]).id_to_token[:50257]
+    if pieces:
+        tokens[PIECE_ID0:PIECE_ID0 + len(GRAMMAR_PIECES)] = GRAMMAR_PIECES
     ggml_writer.write_random_model(
-        str(tmp), hp, mel_filterbank(hp["n_mels"]),
-        synthetic_vocab(hp["n_vocab"]).id_to_token[:50257], kind, seed=0)
+        str(tmp), hp, mel_filterbank(hp["n_mels"]), tokens, kind, seed=0)
+    if pieces:
+        raise_pieces(tmp)
     tmp.replace(path)
     log(f"wrote {path.name}: {path.stat().st_size / 2**20:.1f} MiB in "
         f"{time.perf_counter() - t0:.2f} s")
     return path
+
+
+def raise_pieces(path: Path, scale: float = 80.0) -> None:
+    """Raise GRAMMAR_PIECES' logits in a random-weight file: the decoder's
+    final layernorm bias (f32, zero as written) becomes `scale` times the
+    unit vector u along the sum of the pieces' token-embedding rows, so
+    each piece's logit gains scale * (row . u) (~ +10 at small's widths:
+    rows of norm ~0.55, 17 pieces) and every other token's ~ scale * 0.02
+    * N(0, 1).  The pieces then outrank the end-of-text token and the
+    timestamps' summed mass, and the grammar picks among them for a whole
+    window: runs 2-3 measure ~220 host grammar steps, not two.  The bias
+    is patched in place: its 4 * n_text_state bytes follow its name."""
+    from whisper_tpu_torch.weights import quant
+    from whisper_tpu_torch.weights.ggml_reader import read_ggml_file
+
+    mf = read_ggml_file(str(path))
+    emb = mf.tensors["decoder.token_embedding.weight"]
+    width = emb.shape[1]
+    row_bytes = quant.type_nbytes(emb.ttype, width)
+    rows = np.stack([quant.decode_tensor(
+        emb.data[i * row_bytes:(i + 1) * row_bytes], emb.ttype, (width,))
+        for i in range(PIECE_ID0, PIECE_ID0 + len(GRAMMAR_PIECES))])
+    u = rows.sum(axis=0)
+    u /= np.linalg.norm(u)
+    blob = path.read_bytes()
+    name = b"decoder.ln.bias"
+    at = blob.index(name) + len(name)
+    if blob.count(name) != 1 or mf.tensors["decoder.ln.bias"].data != \
+            blob[at:at + 4 * width]:
+        raise AssertionError("raise_pieces: decoder.ln.bias not found once")
+    with open(path, "r+b") as f:
+        f.seek(at)
+        f.write((scale * u).astype("<f4").tobytes())
+    others = quant.decode_tensor(emb.data[:row_bytes * 200], emb.ttype,
+                                 (200, width))
+    log(f"{path.name}: the grammar pieces' logits raised by "
+        f"{float(scale * (rows @ u).mean()):.2f} on average, 200 other "
+        f"tokens' by {float(scale * (others @ u).std()):.2f} std")
 
 
 def check_file_model(path: Path) -> None:
@@ -1746,6 +1808,260 @@ def check_server(card_line: str, path: Path) -> dict:
     return counts
 
 
+def _replay_grammar(label: str, vocab, tokens) -> int:
+    """A fresh grammar (native) over one window's tokens: no text token
+    may be penalized at its step.  -> text tokens replayed."""
+    from whisper_tpu_torch.grammar import grammar_from_gbnf
+    g = grammar_from_gbnf(COLORS.read_text())
+    n = 0
+    for tid in tokens:
+        if tid >= vocab.token_eot:
+            continue
+        mask = np.zeros(vocab.n_vocab, np.float32)
+        g.suppress_invalid(vocab, mask, 100.0)
+        if mask[tid] != 0.0:
+            raise AssertionError(f"{label}: token {tid} "
+                                 f"({vocab.token_str(tid)!r}) violates the "
+                                 "grammar")
+        g.accept_token(vocab, tid)
+        n += 1
+    return n
+
+
+def check_cli(card_line: str, big_file: Path, small_file: Path) -> dict:
+    """The phase "cli": whisper_tpu_torch.cli.main as a user runs it, and
+    the batched DTW pass.  Five runs, each read with the counts set to 0
+    just before it:
+      1. large-v3 q5_0 (path A's file), -dtw large-v3 -kvq -bs 5 -nf -p 2
+         on CLI_RUN_S s, every writer on: DTW forces full_parallel's serial
+         chunks; every output file non-empty, every text token's t_dtw >= 0
+         and, within a window, nondecreasing and inside it; chunk 2's
+         segments start at or after its 10 s; K1 and K3 launch (K3 at
+         M = T_pad in the re-decode).  ("large.v3", the reference's
+         spelling, is not a preset in whisper_tpu's CLI: exit 3.)
+      2. small q5_1 with grammars/colors.gbnf's pieces in its vocab,
+         -bs 1 --grammar colors --grammar-rule root -nf -oj on
+         CLI_SHORT_S s: the speculative greedy path, the native engine;
+         the first segment's tokens replay through a fresh grammar
+         unpenalized
+      3. the same with -bs 5: the host beam, held the same way
+      4. the same file, -p 2 -bs 1 -kvq -nf on CLI_RUN_S s: the batched
+         route (K1, K2), chunk 2's segments shifted by 10 s
+      5. BatchTranscriber(small file, einsum_q8, DTW preset "small"),
+         batch 2, two CLI_SHORT_S s streams: t_dtw >= 0 on every text
+         token; K1, K2 and K3 (M = 2 x T_pad) launch.
+    Each run's wall, load, audio-s per wall-s, tokens, grammar ms a step
+    and DTW host ms a window go to stderr.  -> the phase's launch counts."""
+    import contextlib
+    import io
+
+    from whisper_tpu_torch import api as tapi
+    from whisper_tpu_torch import cli
+    from whisper_tpu_torch.grammar import NativeGrammar
+    from whisper_tpu_torch.parallel.batch import BatchTranscriber
+
+    out_dir = BUILD / "cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    wavs = {}
+    for sec in (CLI_RUN_S, CLI_SHORT_S):
+        wavs[sec] = out_dir / f"noise{sec}.wav"
+        wavs[sec].write_bytes(wav_bytes(int16_noise(sec, 40 + sec)))
+
+    # what the CLI builds inside main(): its context (and load time), its
+    # params, the DTW windows and the batched route's chunks
+    seen: dict = {}
+    cls = tapi.WhisperContext
+    orig_from_file = cls.__dict__["from_file"]
+    orig_fp = cls.full_parallel
+    orig_full = cls.full
+    orig_dtw = tapi.compute_token_level_timestamps_dtw
+    orig_transcribe = BatchTranscriber.transcribe
+
+    def from_file(c, path, **kw):
+        t0 = time.perf_counter()
+        ctx = orig_from_file.__func__(c, path, **kw)
+        torch.cuda.synchronize()
+        seen["ctx"], seen["load"] = ctx, time.perf_counter() - t0
+        return ctx
+
+    def full_parallel(self, params, samples, n_processors=1):
+        seen["params"] = params
+        return orig_fp(self, params, samples, n_processors)
+
+    def full(self, params, samples, state=None):
+        rc = orig_full(self, params, samples, state)
+        seen.setdefault("full_segments", []).append(
+            len((state or self).result_all))
+        return rc
+
+    def dtw(ctx, params, i_seg, n_new, seek, n_frames, **kw):
+        host0 = ctx.timings.t_dtw_host_us
+        orig_dtw(ctx, params, i_seg, n_new, seek, n_frames, **kw)
+        seen.setdefault("windows", []).append((
+            seek, n_frames, [t.t_dtw for s in ctx.result_all[i_seg:i_seg + n_new]
+                             for t in s.tokens if t.id < ctx.token_eot()],
+            ctx.timings.t_dtw_host_us - host0))
+
+    def transcribe(self, streams):
+        res = orig_transcribe(self, streams)
+        seen.setdefault("chunks", []).append([list(segs) for segs in res])
+        return res
+
+    def run_cli(label, model, sec, argv):
+        for k in ("ctx", "params", "windows", "chunks", "full_segments"):
+            seen.pop(k, None)
+        base = out_dir / label.replace(" ", "_")
+        reset_counts()
+        t0 = time.perf_counter()
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(["-m", str(model), "-f", str(wavs[sec]), "-of",
+                           str(base), *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if rc != 0:
+            raise AssertionError(f"cli {label}: exit {rc}")
+        ctx = seen["ctx"]
+        tm = ctx.timings
+        n_tok = sum(len(s.tokens) for s in ctx.result_all)
+        win = seen.get("windows", [])
+        run_s = wall - seen["load"]
+        elog(f"[{card_line}] cli {label}: load {seen['load']:.3f} s; wall "
+             f"{wall:.3f} s, {run_s:.3f} s past the load, "
+             f"{sec / run_s:.2f} audio-s per wall-s; {len(ctx.result_all)} "
+             f"segments, {n_tok} tokens, "
+             f"{len(stdout.getvalue().splitlines())} lines printed; host "
+             f"filter chain with the grammar mask "
+             f"{tm.t_grammar_us / 1e3 / max(1, tm.n_grammar):.3f} ms a "
+             f"decoder step over {tm.n_grammar} ({tm.n_grammar_chunk} device "
+             f"chunks, {tm.n_grammar_restart} restarts); DTW host "
+             + (f"{sum(w[3] for w in win) / 1e3 / len(win):.3f} ms a window "
+                f"over {len(win)}" if win else "none")
+             + f"; launches {counts}")
+        return base, ctx, counts
+
+    cls.from_file = classmethod(from_file)
+    cls.full_parallel = full_parallel
+    cls.full = full
+    tapi.compute_token_level_timestamps_dtw = dtw
+    BatchTranscriber.transcribe = transcribe
+    total: dict = {}
+    try:
+        # 1. large-v3, DTW, beam 5, -p 2 (serial chunks), every writer
+        base, ctx, counts = run_cli(
+            "run 1 large-v3 dtw", big_file, CLI_RUN_S,
+            ["-dtw", "large-v3", "-kvq", "-bs", "5", "-nf", "-p", "2",
+             "-otxt", "-ovtt", "-osrt", "-ocsv", "-olrc", "-ojf", "-owts",
+             "-ls", "-fp", str(Path(__file__).resolve())])
+        require_launches("cli run 1", counts, ("K1", "K3"))
+        for ext in (".txt", ".vtt", ".srt", ".csv", ".lrc", ".json", ".wts",
+                    ".score.txt"):
+            f = Path(str(base) + ext)
+            if not f.is_file() or f.stat().st_size == 0:
+                raise AssertionError(f"cli run 1: {f.name} missing or empty")
+        doc = json.loads(Path(str(base) + ".json").read_text())
+        text = [t for s in doc["transcription"] for t in s["tokens"]
+                if t["id"] < ctx.token_eot()]
+        if not text or any(t["t_dtw"] < 0 for t in text):
+            raise AssertionError("cli run 1: a text token without t_dtw")
+        windows = seen.get("windows", [])
+        if len(windows) < 2:
+            raise AssertionError(f"cli run 1: {len(windows)} DTW windows")
+        for seek, n_frames, stamps, _ in windows:
+            if not stamps or stamps != sorted(stamps) or not (
+                    seek <= stamps[0] and stamps[-1] < seek + n_frames):
+                raise AssertionError(f"cli run 1: window at {seek} "
+                                     f"({n_frames} frames): stamps {stamps}")
+        # the serial chunks: chunk 1 on the context's state, chunk 2 on a
+        # fresh one
+        n_chunk1 = seen["full_segments"][0]
+        chunk2 = doc["transcription"][n_chunk1:]
+        if not chunk2 or any(s["offsets"]["from"] < CLI_RUN_S // 2 * 1000
+                             for s in chunk2):
+            raise AssertionError(f"cli run 1: chunk 2's segments "
+                                 f"{[s['offsets'] for s in chunk2]}")
+        total = counts
+
+        # 2, 3. grammar: speculative greedy, then the host beam
+        small_g = model_file("small", "q5_1", pieces=True)
+        for label, bs in (("run 2 grammar greedy", "1"),
+                          ("run 3 grammar beam 5", "5")):
+            _, ctx, counts = run_cli(
+                label, small_g, CLI_SHORT_S,
+                ["-bs", bs, "--grammar", str(COLORS), "--grammar-rule",
+                 "root", "-nf", "-oj"])
+            if not isinstance(seen["params"].grammar_rules, NativeGrammar):
+                raise AssertionError(f"cli {label}: grammar engine "
+                                     f"{type(seen['params'].grammar_rules)}")
+            if ctx.timings.n_grammar <= 0 or (
+                    bs == "1" and ctx.timings.n_grammar_chunk <= 0):
+                raise AssertionError(f"cli {label}: the host loop did not "
+                                     "run")
+            n_text = (_replay_grammar(label, ctx.vocab,
+                                      [t.id for t in ctx.result_all[0].tokens])
+                      if ctx.result_all else 0)
+            elog(f"cli {label}: {n_text} text tokens of the first segment "
+                 "replayed through a fresh grammar")
+            require_launches(f"cli {label}", counts, ("K1", "K3"))
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+
+        # 4. -p 2 batched: the chunks ride one BatchTranscriber batch
+        _, ctx, counts = run_cli("run 4 p2 batched", small_g, CLI_RUN_S,
+                                 ["-p", "2", "-bs", "1", "-kvq", "-nf"])
+        chunks = seen.get("chunks", [])
+        if len(chunks) != 1 or len(chunks[0]) != 2:
+            raise AssertionError(f"cli run 4: batched route not taken "
+                                 f"({len(chunks)} transcribe calls)")
+        first, second = chunks[0]
+        if not second or any(s.t0 < CLI_RUN_S // 2 * 100 for s in second) \
+                or ctx.result_all != first + second:
+            raise AssertionError("cli run 4: chunk 2 not shifted or not "
+                                 "merged")
+        require_launches("cli run 4", counts, ("K1", "K2"))
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    finally:
+        cls.from_file = orig_from_file
+        cls.full_parallel = orig_fp
+        cls.full = orig_full
+        tapi.compute_token_level_timestamps_dtw = orig_dtw
+        BatchTranscriber.transcribe = orig_transcribe
+
+    # 5. the batched DTW pass
+    t0 = time.perf_counter()
+    ctx = tapi.WhisperContext.from_file(
+        str(small_file), cross_mode="einsum_q8", dtw_token_timestamps=True,
+        dtw_aheads_preset="small")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    streams = [int16_noise(CLI_SHORT_S, 60 + i) for i in range(2)]
+    reset_counts()
+    t0 = time.perf_counter()
+    res = BatchTranscriber(ctx, batch_size=2,
+                           params=full_params()).transcribe(streams)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_segments("cli run 5 batched dtw", res)
+    stamps = [t.t_dtw for segs in res for s in segs for t in s.tokens
+              if t.id < ctx.token_eot()]
+    if not stamps or min(stamps) < 0:
+        raise AssertionError("cli run 5: a text token without t_dtw")
+    tm = ctx.timings
+    elog(f"[{card_line}] cli run 5 batched dtw (small q5_1, einsum_q8, "
+         f"batch 2): load {load_s:.3f} s; wall {wall:.3f} s, "
+         f"{2 * CLI_SHORT_S / wall:.2f} audio-s per wall-s; "
+         f"{sum(len(s.tokens) for segs in res for s in segs)} tokens; DTW "
+         f"{tm.n_dtw} windows, re-decode "
+         f"{tm.t_dtw_qk_us / 1e3:.3f} ms, host "
+         f"{tm.t_dtw_host_us / 1e3 / max(1, tm.n_dtw):.3f} ms a window; "
+         f"launches {counts}")
+    require_launches("cli run 5", counts, ("K1", "K2", "K3"))
+    del ctx
+    torch.cuda.empty_cache()
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
 def front_end(card_line: str, params, cfg):
     """Path D: MEL_S s of PCM through log_mel_pallas (K7); large-v3 encode
     of the first window at B = 1 in each attn_impl, held against "pallas"
@@ -1842,6 +2158,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    t_start = time.perf_counter()
     card_line = card()
     log(card_line)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1918,6 +2235,9 @@ def main() -> int:
         # the serving engine and the server (whisper_tpu_torch/server.py)
         "continuous": lambda: check_continuous(card_line, big),
         "server": lambda: check_server(card_line, big_file),
+        # whisper-cli: DTW, grammars, -p 2 (serial and batched), and the
+        # batched DTW pass (K3 at M = B x T_pad)
+        "cli": lambda: check_cli(card_line, big_file, small),
     }
     paths = {}
     for name, run in phases.items():
@@ -1989,6 +2309,8 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} launched on no path")
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ bf16 rounding its kernels state is made (see tests/test_torch_quant.py).
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -32,9 +33,13 @@ from whisper_tpu.ops import quantized as _jq  # noqa: E402,F401
 from whisper_tpu.weights import convert as jconvert  # noqa: E402
 from whisper_tpu.weights.ggml_reader import read_ggml_file as jread  # noqa: E402
 from whisper_tpu_torch import WhisperContext, full_default_params  # noqa: E402
+from whisper_tpu_torch.grammar import grammar_from_gbnf  # noqa: E402
 from whisper_tpu_torch.ops import cross_attention as txa  # noqa: E402
 from whisper_tpu_torch.ops import quantized as tq  # noqa: E402
 from whisper_tpu_torch.parallel.batch import BatchTranscriber  # noqa: E402
+
+COLORS = open(os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "grammars", "colors.gbnf")).read()
 
 STRICT = {"xla_allow_excess_precision": False}
 
@@ -201,43 +206,46 @@ def test_batch_transcriber_over_file(files, jax_strict):
     ("suppress_regex", "t1.*"),
 ])
 def test_full_refuses_unported_options(files, pcm, field, value):
-    """Grammars and logits-filter callbacks are refused before any work;
-    token timestamps and suppress_regex are ported (held against
-    whisper_tpu in tests/test_torch_timestamps.py, test_torch_regex.py)."""
+    """full() refuses none of these now: a grammar (the [] stands for
+    grammars/colors.gbnf) and a logits-filter callback decode on the host
+    loop (held against whisper_tpu in tests/test_torch_grammar.py), token
+    timestamps and suppress_regex in the window loop
+    (tests/test_torch_timestamps.py, test_torch_regex.py)."""
     tctx = WhisperContext.from_file(files["q8_0"], device="cpu",
                                     compute_dtype=torch.float32)
-    p = _params(full_default_params, {field: value})
+    if field == "grammar_rules":
+        value = grammar_from_gbnf(COLORS)
+    p = _params(full_default_params, {field: value, "duration_ms": 3000})
     calls = []
     p.progress_callback = lambda *a: calls.append(a)
-    if field in ("token_timestamps", "suppress_regex"):
-        tctx._check_full_supported(p)
-        return
-    with pytest.raises(NotImplementedError, match="grammar"):
-        tctx.full(p, pcm)
-    assert not calls and tctx.mel is None       # refused before any work
+    assert tctx.full(p, pcm) == 0
+    assert calls and tctx.mel is not None
 
 
 def test_full_refuses_einsum_q8(files, pcm):
-    """With cross mode einsum_q8, full() refuses only what it refuses in
-    every mode (here a grammar), before any work, and not for the mode:
-    the mode runs (tests/test_torch_cross_modes.py holds its segments)."""
+    """With cross mode einsum_q8, full() refuses neither the mode nor a
+    grammar: the grammar's host loop reads the window's dense cross-KV,
+    as whisper_tpu's does (tests/test_torch_cross_modes.py holds the
+    mode's segments)."""
     tctx = WhisperContext.from_file(files["q8_0"], device="cpu",
                                     compute_dtype=torch.float32,
                                     cross_mode="einsum_q8")
-    with pytest.raises(NotImplementedError, match="grammar") as err:
-        tctx.full(_params(full_default_params, {"grammar_rules": []}),
-                  pcm)
-    assert "einsum_q8" not in str(err.value)
-    assert tctx.mel is None
+    p = _params(full_default_params, {"grammar_rules": grammar_from_gbnf(
+        COLORS), "duration_ms": 3000})
+    assert tctx.full(p, pcm) == 0
+    assert tctx.timings.n_grammar > 0 and tctx.mel is not None
 
 
 def test_unported_context_options_refused(files):
-    """DTW is refused; a cross mode outside the seven is rejected; each of
-    the seven builds a context, and BatchTranscriber takes each."""
+    """DTW token timestamps are taken (tests/test_torch_dtw.py holds them);
+    a cross mode outside the seven is rejected; each of the seven builds
+    a context, and BatchTranscriber takes each."""
     from whisper_tpu_torch.decode.loop import CROSS_MODES
-    with pytest.raises(NotImplementedError):
-        WhisperContext.from_file(files["q8_0"], device="cpu",
-                                 dtw_token_timestamps=True)
+    ctx = WhisperContext.from_file(files["q8_0"], device="cpu",
+                                   dtw_token_timestamps=True,
+                                   dtw_aheads_preset="n_top_most",
+                                   dtw_n_top=1)
+    assert ctx.dtw_token_timestamps and ctx.dtw_n_top == 1
     with pytest.raises(ValueError, match="cross_mode"):
         WhisperContext.from_file(files["q8_0"], device="cpu",
                                  cross_mode="pallas_q4")

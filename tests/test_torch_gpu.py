@@ -1012,3 +1012,82 @@ def test_server_round_trip_on_card(gen, tmp_path):
         srv.STATE.batcher = srv.STATE.ctx = None
     assert ea.self_attention.launches > 0
     assert qm.quantized_matmul.launches > 0
+
+
+@pytest.mark.parametrize("form", ["dense", "q8"])
+def test_decode_prompt_cross_qk_on_card(gen, form):
+    """The DTW re-decode's teacher-forced pass (packed linears through K3
+    at M = B x T_pad) in bf16 on the card against f32 on the CPU (plain
+    versions), at large-v3's widths cut to 2 + 2 layers: logits and the
+    captured cross-attention within the model checks' 5e-2."""
+    from whisper_tpu_torch.dtw import head_select_matrix
+    from whisper_tpu_torch.weights.convert import random_params
+    dims = list(wm.MODEL_DIMS["large-v3"])
+    dims[4] = dims[8] = 2
+    cfg = wm.WhisperConfig(*dims, model_type="large-v3-2+2")
+    params = random_params(cfg, seed=3, dtype=torch.bfloat16, device="cuda")
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.float().cpu()
+                for k, v in tree.items()}
+
+    B, T, L, H = 2, 64, cfg.n_text_layer, cfg.n_text_head
+    kc, vc = ((torch.randn(L, B, H, 64, cfg.n_audio_ctx, generator=gen,
+                           device="cuda") * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    if form == "q8":
+        kc, vc = (("q8",) + xa.quantize_kv_bhdt(x) for x in (kc, vc))
+    sel = head_select_matrix([(0, 3), (1, 7), (1, 0)], L, H)
+    toks = torch.randint(0, 50000, (B, T), generator=gen, device="cuda")
+    out = {}
+    for dev, cd, p in (("cuda", torch.bfloat16, params),
+                       ("cpu", torch.float32, to_cpu(params))):
+        move = (lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                else (x[0],) + tuple(a.to(dev) for a in x[1:]))
+        with torch.no_grad():
+            lg, qk = wm.decode_prompt_cross_qk(
+                p, toks.to(dev), torch.arange(T, device=dev), move(kc),
+                move(vc), n_head=H, head_select=sel,
+                self_mask=wm.make_causal_mask(T, device=dev),
+                compute_dtype=cd)
+        out[dev] = (lg.float().cpu(), qk.float().cpu())
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= 5e-2
+    assert out["cuda"][1].shape == (L, B, 2, T, cfg.n_audio_ctx)
+
+
+def test_native_grammar_matches_python_on_card_host(gen):
+    """The native grammar engine, built on the card's host, against the
+    Python engine: the same masks and accepts over a vocab with
+    grammars/colors.gbnf's pieces in it."""
+    import os
+    from whisper_tpu_torch import grammar as gr
+    from whisper_tpu_torch.weights.vocab import Vocab
+    if gr._load_native() is None:
+        pytest.fail("the native grammar engine did not build")
+    src = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "grammars", "colors.gbnf")).read()
+    toks = [b" t%d" % i for i in range(4000)]
+    toks[1000:1009] = [b" ", b"red", b" red", b" and ", b" and", b"and ",
+                       b"green", b" green", b"blue and "]
+    vocab = Vocab(n_vocab=4001, id_to_token=toks + [b"<eot>"],
+                  token_to_id={t: i for i, t in enumerate(toks)},
+                  token_eot=4000)
+    rules, symbols = gr.parse_gbnf(src)
+    engines = [gr.Grammar(rules, symbols["root"]),
+               gr.NativeGrammar(rules, symbols["root"])]
+    rng = np.random.RandomState(0)
+    for _ in range(8):
+        masks = []
+        for g in engines:
+            m = np.zeros(vocab.n_vocab, np.float32)
+            g.suppress_invalid(vocab, m, 100.0)
+            masks.append(m)
+        np.testing.assert_array_equal(masks[1], masks[0])
+        allowed = np.nonzero(masks[0][:vocab.token_eot] == 0)[0]
+        if not len(allowed):
+            break
+        tok = int(rng.choice(allowed))
+        for g in engines:
+            g.accept_token(vocab, tok)

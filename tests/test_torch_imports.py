@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 42, proc.stdout
+    assert n_modules >= 48, proc.stdout
 
 
 def test_port_has_the_whisper_full_modules():
@@ -60,6 +60,20 @@ def test_port_has_the_serving_modules():
     from whisper_tpu_torch.server import _BatchWorker
     assert _BatchWorker.MAX_ENGINES == 4
     assert ContinuousBatcher.POOL_BYTES == 1 << 30
+
+
+def test_port_has_the_cli_modules():
+    """The CLI's path: its own copies of whisper_tpu's dtw, grammar,
+    host filter chain and host decode loops, and the CLI itself."""
+    import importlib
+    for name in ("cli", "dtw", "grammar", "decode.host_filters",
+                 "decode.grammar_loop", "decode.host_beam"):
+        mod = importlib.import_module(f"whisper_tpu_torch.{name}")
+        assert mod.__name__ == f"whisper_tpu_torch.{name}"
+    from whisper_tpu_torch.api import WhisperContext
+    from whisper_tpu_torch.parallel.batch import BatchTranscriber
+    assert callable(WhisperContext.full_parallel)
+    assert BatchTranscriber.DTW_QK_ROWS == 8
 
 
 def test_entry_points_default_to_the_card():

@@ -114,14 +114,15 @@ def test_batch_segments_identical(contexts, streams, case):
 def test_refused_options(contexts, field, value):
     """These options are ported (tests/test_torch_langdetect.py,
     test_torch_timestamps.py and test_torch_regex.py hold them against
-    whisper_tpu); with any of them, what is still unported is refused."""
+    whisper_tpu); with any of them, a grammar is refused with whisper_tpu's
+    ValueError: it decodes on the serial full()'s host loop."""
     _, tctx = contexts
     p = _params(full_default_params, {})
     setattr(p, field, value)
     bt = BatchTranscriber(tctx, batch_size=2, params=p, device_mel=True)
     assert bt.auto_lang == (field in ("language", "detect_language"))
     p.grammar_rules = []
-    with pytest.raises(NotImplementedError, match="grammar"):
+    with pytest.raises(ValueError, match="grammar"):
         BatchTranscriber(tctx, batch_size=2, params=p, device_mel=True)
 
 

@@ -3,7 +3,7 @@
 The package mirrors whisper_tpu's module names.  It imports torch and
 numpy only (never jax, never whisper_tpu), so it runs on a machine that
 has no JAX.  Its entry points run on the card (device="cuda") unless the
-caller asks for the CPU.  Three paths are ported:
+caller asks for the CPU.  Four paths are ported:
 
     WhisperContext.from_file + full (api.py): whisper_full
       -> ggml reader, block codecs, packed decoder weights
@@ -37,6 +37,20 @@ caller asks for the CPU.  Three paths are ported:
          signature, its batch refilled between window iterations, else
          `full` under a lock; bodies formatted as whisper_tpu's
 
+    python -m whisper_tpu_torch.cli (cli.py): whisper-cli
+      -> load_audio, then WhisperContext.full_parallel (api.py): `full`,
+         or with -p N the chunks batched through BatchTranscriber, or run
+         serially on fresh states when the params need the serial path
+      -> DTW token timestamps (dtw.py): a teacher-forced re-decode of each
+         window that captures the alignment heads' cross-attention
+         (models/whisper.py decode_prompt_cross_qk, its linears through
+         K3), then a host DTW
+      -> GBNF grammars (grammar.py, the native C++ engine built from
+         native/wtpu_grammar.cpp) and logits-filter callbacks on the host
+         loops of decode/grammar_loop.py (speculative device chunks at
+         t = 0) and decode/host_beam.py
+      -> the writers of outputs.py
+
 The fused log-mel kernel K7 (ops/mel_pallas.py, csrc/log_mel.cu) runs in
 `log_mel_pallas`, as whisper_tpu's Pallas mel kernel does.  On CPU tensors
 every kernel wrapper runs its plain PyTorch version; on CUDA tensors it
@@ -46,9 +60,14 @@ launches the hand-written kernel or raises.
 from .api import (BeamSearchParams, FullParams, GreedyParams,
                   SamplingStrategy, Segment, TokenData, WhisperContext,
                   WhisperState, full_default_params)
+from .constants import CHUNK_SIZE, HOP_LENGTH, N_FFT, SAMPLE_RATE
+from .languages import lang_id, lang_max_id, lang_str, lang_str_full
 from .parallel.batch import BatchTranscriber, ContinuousBatcher
+from .utils.logging import log_set
 
 __all__ = ["BatchTranscriber", "BeamSearchParams", "ContinuousBatcher",
            "FullParams", "GreedyParams", "SamplingStrategy", "Segment",
            "TokenData", "WhisperContext", "WhisperState",
-           "full_default_params"]
+           "full_default_params", "SAMPLE_RATE", "N_FFT", "HOP_LENGTH",
+           "CHUNK_SIZE", "lang_id", "lang_str", "lang_str_full",
+           "lang_max_id", "log_set"]

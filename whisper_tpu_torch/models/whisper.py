@@ -521,6 +521,69 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
     return logits, torch.stack(ks_out), torch.stack(vs_out)
 
 
+def decode_prompt_cross_qk(params, tokens, positions, k_cross, v_cross,
+                           n_head: int, head_select, self_mask=None,
+                           compute_dtype=torch.bfloat16):
+    """Teacher-forced decode that also returns the selected cross-attention
+    weights (the DTW alignment signal; reference saves KQ_soft_max of the
+    alignment heads, src/whisper.cpp:2730-2747).
+
+    head_select: (L, S, H) float32 one-hot rows selecting <= S heads a
+    layer (zero rows: unused slots), so deep models capture S maps a layer
+    rather than H.  k_cross/v_cross: dense (L, B, H, Dh, Ta), or tagged
+    ("q8" / "q4", codes, scales), dequantized a layer at a time as
+    decode_prompt does.  The linears are decode_prompt's (K3 at M = B*T
+    over packed weights); the cross-attention softmax is explicit, in f32
+    over the compute-dtype QK, as whisper_tpu's.
+    Returns (logits (B, T, V), qk_sel (L, B, S, T, Ta) float32).
+    """
+    tagged = isinstance(k_cross, tuple)
+    if tagged and k_cross[0] not in ("q8", "q4", "q4e"):
+        raise ValueError(f"decode_prompt_cross_qk: unknown cross-KV tag "
+                         f"{k_cross[0]!r}")
+    dec = params["decoder"]
+    nh = n_head
+    cd = compute_dtype
+    head_select = torch.as_tensor(head_select, dtype=torch.float32,
+                                  device=tokens.device)
+
+    x = (dec["tok_emb"][tokens] + dec["pos"][positions]).float()
+    qk_all = []
+    for l, blk in enumerate(_layers(dec["blocks"])):
+        if tagged:
+            kc = _dequant(k_cross[0], k_cross[1][l], k_cross[2][l], cd)
+            vc = _dequant(v_cross[0], v_cross[1][l], v_cross[2][l], cd)
+        else:
+            kc, vc = k_cross[l].to(cd), v_cross[l].to(cd)
+
+        ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
+        q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd), nh)
+        k = _split_heads(_linear(ln, blk["k_w"], None, cd), nh)
+        v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], cd), nh)
+        attn = _attention(q, k, v, self_mask, cd)
+        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd)
+
+        ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
+        xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
+        # the cross attention with its softmax explicit, so that the
+        # weights can be captured
+        dh = xq.shape[-1]
+        qk = torch.matmul(xq.to(cd).transpose(1, 2), kc).float() * (dh ** -0.5)
+        w = torch.softmax(qk, dim=-1)                       # (B, H, T, Ta)
+        qk_all.append(torch.einsum("bhta,sh->bsta", w, head_select[l]))
+        out = torch.matmul(w.to(cd), vc.transpose(-1, -2)).float()
+        x = x + _linear(_merge_heads(out.transpose(1, 2)), blk["xo_w"],
+                        blk["xo_b"], cd)
+
+        ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
+        h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
+        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd)
+
+    x = _layernorm(x, dec["ln_w"], dec["ln_b"])
+    logits = torch.matmul(x.to(cd), dec["tok_emb"].to(cd).T).float()
+    return logits, torch.stack(qk_all)
+
+
 def _q8e_attention(xq, kq, ks, vq, vs, compute_dtype):
     """The "q8e" einsum of whisper_tpu in the compute dtype: int8 K/V with
     the per-position scales folded into the logits and the weights."""

@@ -27,8 +27,12 @@ rebatching only the failed rows, with best_of candidates a stream at
 t > 0 drawn from per-row keys (`window_rng`), so a window's candidates do
 not depend on its slot or its batch.  Beam search decodes S streams x K
 beams as rows of one batch against S cross-KV rows (decode/beam.py).
-What is not ported (a device mesh, DTW token timestamps, grammars and
-logits-filter callbacks) is refused with NotImplementedError.
+With the context's dtw_token_timestamps, an iteration's finished windows
+share one teacher-forced cross-QK re-decode per DTW_QK_ROWS rows, and the
+host stamps each row's tokens (dtw.py).  A device mesh is not ported
+(NotImplementedError); grammars and logits-filter callbacks decode on the
+serial `full`'s host loop, and are refused here with ValueError, as
+whisper_tpu refuses them.
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ from ..constants import (CHUNK_SIZE, HOP_LENGTH, MAX_DECODERS, N_FFT,
                          TICKS_PER_SECOND)
 from ..decode.filters import FilterOptions
 from ..decode.loop import DELTA_MIN, prompt_cross_kv
+from ..dtw import (dtw_aheads_select, dtw_cross_qk, dtw_pad_tokens,
+                   dtw_stamp_segments, dtw_token_sequence)
 from ..languages import lang_id as _lang_id, lang_str
 from ..models import whisper as wm
 from ..timestamps import get_signal_energy
@@ -87,18 +93,17 @@ def _cross_fn_for(cross_mode: str):
 
 def _check_supported(ctx: WhisperContext, p: FullParams, mesh,
                      batch_size: int) -> None:
-    """Refuse what the port has not ported yet, with the reason."""
-    refused = []
+    """Refuse what the batch cannot decode, with the reason."""
     if mesh is not None:
-        refused.append("a device mesh")
-    if ctx.dtw_token_timestamps:
-        refused.append("DTW token timestamps")
-    if p.grammar_rules is not None or p.logits_filter_callback:
-        refused.append("grammar / logits-filter callbacks")
-    if refused:
         raise NotImplementedError(
-            "whisper_tpu_torch BatchTranscriber does not port: "
-            + "; ".join(refused))
+            "whisper_tpu_torch BatchTranscriber does not port: a device mesh")
+    if p.grammar_rules is not None or p.logits_filter_callback:
+        # grammar decoding is a host-coupled pushdown automaton between
+        # device steps: the serial full() decodes it
+        raise ValueError(
+            "grammar / logits-filter decoding is host-looped — use the "
+            "serial ctx.full() path (the server routes this "
+            "automatically)")
     beam = p.strategy == SamplingStrategy.BEAM_SEARCH
     if max(1, p.greedy.best_of,
            p.beam_search.beam_size if beam else 0) > MAX_DECODERS:
@@ -180,6 +185,10 @@ class BatchTranscriber:
         self.n_windows = 0
         self.n_retried_windows = 0
         self.last_states: list[StreamState] = []
+        # finished windows awaiting the batched DTW cross-QK pass
+        # (ctx.dtw_token_timestamps): (st, i_seg, n_new, seek, n_frames,
+        # the stream's index into `states`)
+        self._dtw_jobs: list[tuple] = []
         # the template prompt (pad rows, warmup, bucket sizing); an
         # auto-language stream gets a copy with its detected language token,
         # of the same length
@@ -475,6 +484,11 @@ class BatchTranscriber:
             pending = self._finish_groups(
                 states, batch, [(r, r, cur_prompts[r]) for r in pending],
                 out, 1, last)
+        if self._dtw_jobs:
+            # the ladder's cross-KV goes before the DTW pass makes its own
+            kc = vc = None
+            tiled_cache.clear()
+            self._run_dtw_jobs(states, pcm_dev)
         self.window_times.append((B, time.perf_counter() - t_iter))
 
     def _finish_groups(self, states, batch, groups, out, n_cand, last):
@@ -491,7 +505,7 @@ class BatchTranscriber:
                 still_failed.append(r)
             else:
                 best["prompt"] = prompt
-                self._finish_window(states[batch[r]], best)
+                self._finish_window(states[batch[r]], best, batch[r])
         self.phase_times["finish"] += time.perf_counter() - t0
         return still_failed
 
@@ -631,6 +645,52 @@ class BatchTranscriber:
                 out, K, last)
         return still_failed
 
+    # rows per DTW cross-QK pass: the captured (L, B, S, T, Ta) f32 tensor
+    # bounds it (~100 MB a row at large-v3), not the decode itself
+    DTW_QK_ROWS = 8
+
+    def _run_dtw_jobs(self, states, pcm_dev=None) -> None:
+        """The batched DTW token-timestamp pass over this iteration's
+        finished windows: one teacher-forced cross-QK re-decode per chunk
+        of rows (the serial path re-decodes per window, reference:
+        whisper.cpp:6364-6378), then the host DTW of each row."""
+        jobs, self._dtw_jobs = self._dtw_jobs, []
+        ctx = self.ctx
+        aheads, sel = dtw_aheads_select(ctx)
+        if aheads is None:
+            return
+        nB = max(1, min(self.B, self.DTW_QK_ROWS))
+        for c0 in range(0, len(jobs), nB):
+            chunk = jobs[c0:c0 + nB]
+            seqs = []
+            for st, i_seg, n_new, _, _, _ in chunk:
+                segs = st.result_all[i_seg:i_seg + n_new]
+                toks, sot_len = dtw_token_sequence(ctx, self.params, segs)
+                seqs.append((toks, sot_len, segs))
+            # one shared token bucket a chunk: one K3 shape
+            T_pad = max(dtw_pad_tokens(ctx, toks)[1] for toks, _, _ in seqs)
+            toks_arr = np.full((nB, T_pad), ctx.vocab.token_eot, np.int64)
+            for r, (toks, _, _) in enumerate(seqs):
+                toks_arr[r, :min(len(toks), T_pad)] = toks[:T_pad]
+            seeks = np.zeros((nB,), np.int64)
+            seeks[:len(chunk)] = [seek for _, _, _, seek, _, _ in chunk]
+            slot_streams = [si for *_, si in chunk]
+            slot_streams += [None] * (nB - len(chunk))
+            kc, vc = self._encode_slots(states, slot_streams, pcm_dev,
+                                        seeks=seeks)
+            t0 = time.perf_counter()
+            qk = dtw_cross_qk(ctx, toks_arr, kc, vc, sel)
+            kc = vc = None
+            t1 = time.perf_counter()
+            for r, ((_, _, _, seek, n_frames, _), (toks, sot_len, segs)) in \
+                    enumerate(zip(chunk, seqs)):
+                dtw_stamp_segments(ctx, qk[:, r], aheads,
+                                   min(len(toks), T_pad), sot_len, seek,
+                                   n_frames, segs)
+            ctx.timings.t_dtw_qk_us += int((t1 - t0) * 1e6)
+            ctx.timings.t_dtw_host_us += int((time.perf_counter() - t1) * 1e6)
+            ctx.timings.n_dtw += len(chunk)
+
     def _encode_slots(self, states, slot_streams, pcm_dev, seeks=None):
         """Batched encode where slot i carries stream slot_streams[i]'s
         window at its seek, or at seeks[i] when given (None = dead slot:
@@ -751,23 +811,35 @@ class BatchTranscriber:
         if self.auto_lang:
             self._detect_probs(kc, vc)
 
-    def _finish_window(self, st: StreamState, best: dict) -> None:
+    def _finish_window(self, st: StreamState, best: dict, si: int) -> None:
         """Emit one window's winning candidate into the stream's session
         state and advance its seek (best: _rank_window_candidates output
-        plus "prompt")."""
+        plus "prompt").  si: the stream's index into the iteration's
+        `states`, which queues the window for the batched DTW pass when
+        the context has dtw_token_timestamps on."""
         ctx = self.ctx
         p = self.params
         st.no_speech_prob = best["no_speech_prob"]
+        seek_old = st.seek
 
         if ctx.n_loaded == 0:
             st.seek += TICKS_PER_SECOND * CHUNK_SIZE
         else:
+            n_seg_before = len(st.result_all)
             with ctx.use_state(st):
                 ctx.no_speech_prob = st.no_speech_prob
                 st.seek = ctx._emit_segments(best, st.seek, st.seek_end, p,
                                              st.prompt_init
                                              or self.prompt_init,
                                              self.no_timestamps)
+            n_new = len(st.result_all) - n_seg_before
+            if ctx.dtw_token_timestamps and n_new:
+                # deferred: the iteration's finished windows share one
+                # batched cross-QK re-decode
+                n_frames = min(TICKS_PER_SECOND * CHUNK_SIZE,
+                               best["seek_delta"], st.seek_end - seek_old)
+                self._dtw_jobs.append(
+                    (st, n_seg_before, n_new, seek_old, n_frames, si))
 
         if st.seek + DELTA_MIN >= st.seek_end:
             st.done = True

@@ -25,6 +25,19 @@ class Timings:
     n_fail_p: int = 0
     n_fail_h: int = 0
 
+    # the port's host-side passes: the DTW cross-QK re-decode and the host
+    # DTW (normalize, median filter, backtrace) a window; the host filter
+    # chain with its grammar mask a decoder step (t_grammar_us also holds
+    # the speculative chunks' first-token masks), the speculative path's
+    # device chunks and its restarts after a mismatch
+    t_dtw_qk_us: int = 0
+    t_dtw_host_us: int = 0
+    n_dtw: int = 0
+    t_grammar_us: int = 0
+    n_grammar: int = 0
+    n_grammar_chunk: int = 0
+    n_grammar_restart: int = 0
+
     def reset(self) -> None:
         for f in dataclasses.fields(self):
             setattr(self, f.name, 0)
