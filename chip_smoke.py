@@ -93,7 +93,18 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      native engine; the tokens replay through a fresh grammar), -p 2
      batched with -kvq on 20 s (K1, K2), and BatchTranscriber with DTW
      on two 10 s streams (K1, K2, K3 at M = 2 x T_pad); figures on stderr
- 16. the port's draws (decode/rng.py) on the card against the CPU for the
+ 16. "apps": whisper-stream, whisper-command and whisper-lsp
+     (whisper_tpu_torch.stream / command / lsp; check_apps) on the native
+     host mel, which must have built (its time for 30 s against numpy's on
+     stderr): path A's file (pallas_q8) through StreamTranscriber
+     fixed-step on 12 s and in VAD mode at audio_ctx 750 (K1 at T = 750, K5
+     at Ta = 750), transcribe_utterance at its defaults (beam 5 at t =
+     0.4) and lsp unguided; the small q5_1 file with the colors words
+     (pallas) through lsp registerCommandset + guided (K3 at M = the
+     commandset prompt, with mins) + unguided (K4) and command's grammar
+     mode; then the three `main`s on their default device; the shapes
+     this phase launches first are timed against their plain versions
+ 17. the port's draws (decode/rng.py) on the card against the CPU for the
      same keys and logits, and one step's draw cost at the bo5 and beam5
      shapes from a torch.profiler trace
 In 5-8, 10, 11 and 13 every segment list must be non-empty and every
@@ -198,6 +209,16 @@ PIECE_ID0 = 1000
 GRAMMAR_PIECES = [b" ", b"red", b"green", b"blue", b"yellow", b"purple",
                   b"orange", b" and ", b" red", b" green", b" blue", b" and",
                   b" yellow", b"and ", b"and", b" and red", b"blue and "]
+# the phase "apps": seconds of PCM for whisper-stream's fixed steps and of
+# the WAV the lsp requests and the `main`s read (at 6 s chip_smoke took
+# 677 s on an H100 80GB HBM3 at 700 W: stream's `main` decodes ~220 tokens
+# a step on the small pieces file); the fixed-step window; the VAD run's
+# audio_ctx (half of large-v3's 1500: K1 at T = 750, K5 at Ta = 750); the
+# lsp words
+APPS_STREAM_S, APPS_MAIN_S = 12, 3
+APPS_STEP_MS, APPS_LENGTH_MS = 3000, 10000
+APPS_AUDIO_CTX = 750
+APPS_WORDS = ["red", "green", "blue", "yellow"]
 
 
 def log(msg: str) -> None:
@@ -673,6 +694,9 @@ def check_launched(gen, res) -> dict:
     checked = {k: {tuple(x) for x in v["shapes"]} for k, v in res.items()}
     checked["K7"] = {("frames", mel_frames(s), n)
                      for s, n in checked["K7"]}
+    # the phase "apps" launches shapes no earlier phase does (stream's -ac,
+    # lsp's commandset prompt): those are timed too, kernel and plain
+    apps = LAUNCHED["by_phase"].get("apps", {})
     extra = {}
     for key, shapes in sorted(LAUNCHED["shapes"].items()):
         res[key]["launched_shapes"] = sorted(list(x) for x in shapes)
@@ -696,6 +720,15 @@ def check_launched(gen, res) -> dict:
                 raise AssertionError(f"{key} {shape}: rel err {rel:.3e} > "
                                      f"{KERNEL_TOL[key]}")
             r = res[key]
+            if shape in apps.get(key, ()):
+                ms = time_ms(lambda: kernel(*args))
+                plain_ms = time_ms(lambda: plain(*args))
+                b_ms, b_by = bound(key, shape)
+                log(f"{key} {shape} (phase apps): kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                    f"{b_ms / ms:.3f} of it")
+                r.setdefault("apps_ms_by_shape", []).append(
+                    [list(shape), ms, plain_ms, b_ms])
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["max_rel_err"] = max(r["max_rel_err"], rel)
             r["shapes"].append(list(shape))
@@ -2062,6 +2095,231 @@ def check_cli(card_line: str, big_file: Path, small_file: Path) -> dict:
     return {k: total.get(k, 0) + v for k, v in counts.items()}
 
 
+def _speech_then_silence(seed: int) -> np.ndarray:
+    """2 s of a 440 Hz tone under noise, then 1 s of silence: whisper's
+    energy VAD (vad_simple) fires on the last 2 s."""
+    t = np.arange(2 * 16000) / 16000
+    loud = (0.3 * np.sin(2 * np.pi * 440 * t)
+            + np.random.RandomState(seed).randn(len(t)) * 0.05)
+    return np.concatenate([loud, np.zeros(16000)]).astype(np.float32)
+
+
+def _lsp_session(serve, ctx, requests: list, **kw) -> list:
+    """Frame JSON-RPC requests into an in-memory stdin, run `serve` (an
+    lsp.serve or a wrapper of lsp.main), parse every framed response."""
+    import io
+    stdin, stdout = io.BytesIO(), io.BytesIO()
+    for req in requests:
+        data = json.dumps(req).encode()
+        stdin.write(f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+    stdin.seek(0)
+    rc = serve(ctx, stdin, stdout, **kw)
+    if rc != 0:
+        raise AssertionError(f"lsp: exit {rc}")
+    stdout.seek(0)
+    out = []
+    while (header := stdout.readline()):
+        n = int(header.split(b":")[1])
+        stdout.readline()
+        out.append(json.loads(stdout.read(n)))
+    for r in out:
+        if "error" in r:
+            raise AssertionError(f"lsp: request {r['id']}: {r['error']}")
+    return out
+
+
+def check_apps(card_line: str, big_file: Path) -> dict:
+    """The phase "apps": whisper-stream, whisper-command and whisper-lsp
+    (whisper_tpu_torch.stream / command / lsp) as their users run them,
+    with the native host mel.
+      0. the native audio front end (audio/native.py) must have built; the
+         host mel of 30 s, native against numpy (median of 5, ms)
+      1. large-v3 q5_0 (path A's file), pallas_q8 (K1, K3, K5), loaded
+         once: StreamTranscriber fixed-step (3 s steps over a 10 s window,
+         200 ms kept, 32 tokens, keep_context) over APPS_STREAM_S s of
+         noise: 4 events, a line every 2nd; the VAD mode at audio_ctx 750
+         over 2 s of tone and noise and 1 s of silence (K1 at T = 750, K5
+         at Ta = 750); command's transcribe_utterance at its reference
+         defaults (beam 5 at t = 0.4, best_of 5) on 3 s; lsp unguided
+         through `serve`
+      2. small q5_1 with the colors words in its vocab, pallas (K1, K3
+         with mins, K4): lsp registerCommandset over the colors words, then
+         guided (K3 at M = the commandset prompt) and unguided; command's
+         grammar mode with grammars/colors.gbnf; then the `main`s of
+         stream (-nf on a 3 s WAV: one step), command (-f) and lsp
+         (in-memory stdin), each on its default --device.
+    Each run's wall, audio-s per wall-s and tokens go to stderr.  -> the
+    phase's launch counts."""
+    import contextlib
+    import io
+
+    from whisper_tpu_torch import WhisperContext
+    from whisper_tpu_torch import command, lsp, stream
+    from whisper_tpu_torch.audio import mel as tmel
+    from whisper_tpu_torch.audio import native
+    from whisper_tpu_torch.audio.filters import mel_filterbank
+    from whisper_tpu_torch.grammar import NativeGrammar, grammar_from_gbnf
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("apps: the native audio front end did not "
+                             "build (see the warning above)")
+    pcm30 = full_pcm(30)
+    filters = mel_filterbank(128)
+    times = {"native": [], "numpy": []}
+    for _ in range(5):
+        for kind in times:
+            t0 = time.perf_counter()
+            if kind == "native":
+                mel, _ = native.log_mel_spectrogram_native(pcm30, filters)
+            else:
+                padded, n_len, _ = tmel.pad_audio(pcm30)
+                ref = tmel._mel_from_padded_np(padded, n_len, filters)
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    mel_err = float(np.abs(mel - ref).max())
+    mel_ms = {k: statistics.median(v) for k, v in times.items()}
+    elog(f"[{card_line}] apps host mel of 30 s, 128 mels (median of 5): "
+         f"native {mel_ms['native']:.3f} ms, numpy {mel_ms['numpy']:.3f} ms "
+         f"({mel_ms['numpy'] / mel_ms['native']:.2f}x); max |native - "
+         f"numpy| {mel_err:.3e} (tol 5e-5)")
+    if mel_err > 5e-5:
+        raise AssertionError(f"apps: native mel off numpy by {mel_err:.3e}")
+
+    total: dict = {}
+
+    def timed(label, seconds, run, ctx):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        n_tok = sum(len(s.tokens) for s in ctx.result_all)
+        elog(f"[{card_line}] apps {label}: wall {wall:.3f} s, "
+             f"{seconds / wall:.2f} audio-s per wall-s, {n_tok} tokens in "
+             f"the last result; launches {counts}")
+        total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+        return out
+
+    # 1. large-v3 q5_0, pallas_q8
+    t0 = time.perf_counter()
+    big = WhisperContext.from_file(str(big_file), cross_mode="pallas_q8")
+    torch.cuda.synchronize()
+    elog(f"[{card_line}] apps large-v3 load: "
+         f"{time.perf_counter() - t0:.3f} s")
+    pcm = full_pcm(APPS_STREAM_S)
+    st = stream.StreamTranscriber(big, step_ms=APPS_STEP_MS,
+                                  length_ms=APPS_LENGTH_MS, keep_ms=200,
+                                  max_tokens=32, no_context=False)
+    n_step = 16 * APPS_STEP_MS
+    events = timed("stream fixed-step", APPS_STREAM_S, lambda: [
+        ev for i in range(APPS_STREAM_S * 1000 // APPS_STEP_MS)
+        for ev in st.feed_fixed(pcm[i * n_step:(i + 1) * n_step])], big)
+    finals = [final for final, _ in events]
+    if finals != [(i + 1) % st.n_new_line == 0 for i in range(4)] \
+            or st.n_new_line != 2 or not all(segs for _, segs in events):
+        raise AssertionError(f"apps stream fixed-step: events {events}")
+    if not st.prompt_tokens:
+        raise AssertionError("apps stream fixed-step: no carried tokens")
+
+    vad_pcm = _speech_then_silence(5)
+    st = stream.StreamTranscriber(big, step_ms=0, audio_ctx=APPS_AUDIO_CTX)
+    segs = timed("stream vad, audio_ctx 750", 3, lambda: st.feed_vad(
+        vad_pcm[-2 * 16000:], vad_pcm), big)
+    if not segs or big.exp_n_audio_ctx != APPS_AUDIO_CTX:
+        raise AssertionError(f"apps stream vad: {segs}")
+
+    cmd_pcm = full_pcm(3)
+    text = timed("command, reference defaults (beam 5, t 0.4)", 3,
+                 lambda: command.transcribe_utterance(big, cmd_pcm), big)
+    elog(f"apps command heard {text!r}")
+    wav = BUILD / "apps" / "noise.wav"
+    wav.parent.mkdir(parents=True, exist_ok=True)
+    wav.write_bytes(wav_bytes(int16_noise(APPS_MAIN_S, 70)))
+    rs = timed("lsp unguided", APPS_MAIN_S, lambda: _lsp_session(
+        lsp.serve, big, [{"jsonrpc": "2.0", "id": 1, "method": "unguided",
+                          "params": {"file": str(wav)}}]), big)
+    if not isinstance(rs[0]["result"]["transcription"], str):
+        raise AssertionError(f"apps lsp unguided: {rs}")
+    require_launches("apps large-v3", total, ("K1", "K3", "K5"))
+    del big
+    torch.cuda.empty_cache()
+
+    # 2. small q5_1 with the colors words, pallas
+    small_g = model_file("small", "q5_1", pieces=True)
+    small = WhisperContext.from_file(str(small_g), cross_mode="pallas")
+    reg = {"jsonrpc": "2.0", "id": 1, "method": "registerCommandset",
+           "params": APPS_WORDS}
+    rs = timed("lsp guided + unguided", 2 + APPS_MAIN_S,
+               lambda: _lsp_session(lsp.serve, small, [
+                   reg, {"jsonrpc": "2.0", "id": 2, "method": "guided",
+                         "params": {"file": str(wav)}},
+                   {"jsonrpc": "2.0", "id": 3, "method": "unguided",
+                    "params": {"file": str(wav)}}]), small)
+    if rs[1]["result"]["command_text"] not in APPS_WORDS:
+        raise AssertionError(f"apps lsp guided: {rs}")
+    elog(f"apps lsp guided chose {rs[1]['result']['command_text']!r}")
+    grammar = grammar_from_gbnf(COLORS.read_text(), "root")
+    if not isinstance(grammar, NativeGrammar):
+        raise AssertionError("apps command: the native grammar engine did "
+                             "not build")
+    text = timed("command grammar (colors, beam 5, t 0.4)", 3,
+                 lambda: command.transcribe_utterance(small, cmd_pcm,
+                                                      grammar=grammar),
+                 small)
+    words = set(text.replace(",", " ").split()) - {"and"}
+    if not words or not words <= {"red", "green", "blue", "yellow",
+                                  "purple", "orange"}:
+        raise AssertionError(f"apps command grammar: heard {text!r}")
+    elog(f"apps command grammar heard {text!r}")
+    require_launches("apps small", total, ("K1", "K3+mins", "K4"))
+    del small
+    torch.cuda.empty_cache()
+
+    # the mains, each on its default device (the card)
+    mains = {}
+    for label, mod, argv in (
+            ("stream main -nf", stream, ["-f", str(wav), "-nf"]),
+            ("command main -f", command, ["-f", str(wav), "-mt", "16"])):
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(["-m", str(small_g), *argv])
+        torch.cuda.synchronize()
+        mains[label] = (time.perf_counter() - t0, read_counts())
+        if rc != 0 or not out.getvalue().strip():
+            raise AssertionError(f"apps {label}: exit {rc}, printed "
+                                 f"{out.getvalue()!r}")
+        elog(f"apps {label} printed {out.getvalue().strip()[:160]!r}")
+
+    def lsp_main(ctx, stdin, stdout):
+        saved = sys.stdin, sys.stdout
+        sys.stdin = type("In", (), {"buffer": stdin})()
+        sys.stdout = type("Out", (), {"buffer": stdout})()
+        try:
+            return lsp.main(["-m", str(small_g)])
+        finally:
+            sys.stdin, sys.stdout = saved
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rs = _lsp_session(lsp_main, None, [
+        reg, {"jsonrpc": "2.0", "id": 2, "method": "guided",
+              "params": {"file": str(wav)}}])
+    torch.cuda.synchronize()
+    mains["lsp main"] = (time.perf_counter() - t0, read_counts())
+    for label, (wall, counts) in mains.items():
+        elog(f"[{card_line}] apps {label} (small q5_1, load included): wall "
+             f"{wall:.3f} s; launches {counts}")
+        if counts["K1"] <= 0 or counts["K3"] <= 0:
+            raise AssertionError(f"apps {label}: ran off the card ({counts})")
+        total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+    elog(f"[{card_line}] apps: the phase in "
+         f"{time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
 def front_end(card_line: str, params, cfg):
     """Path D: MEL_S s of PCM through log_mel_pallas (K7); large-v3 encode
     of the first window at B = 1 in each attn_impl, held against "pallas"
@@ -2238,6 +2496,10 @@ def main() -> int:
         # whisper-cli: DTW, grammars, -p 2 (serial and batched), and the
         # batched DTW pass (K3 at M = B x T_pad)
         "cli": lambda: check_cli(card_line, big_file, small),
+        # whisper-stream, whisper-command and whisper-lsp on the native
+        # host mel: K1 at T = 750 and K5 at Ta = 750 (stream's -ac), K3 at
+        # M = the lsp commandset prompt (with mins)
+        "apps": lambda: check_apps(card_line, big_file),
     }
     paths = {}
     for name, run in phases.items():

@@ -193,6 +193,28 @@ def test_cli_runs_on_the_card_by_default(files):
         _run(tcli, ["-m", model, "-f", wav, "-bs", "1", "-nf"])
 
 
+def test_cli_no_gpu_runs_on_the_cpu(files, monkeypatch):
+    """-ng (whisper.cpp's "no GPU") alone selects the CPU; an explicit
+    --device wins over it.  The output is the CLI case's as without -ng."""
+    model, wav = files
+    devices = []
+    cls = tcli.WhisperContext
+    orig = cls.__dict__["from_file"]
+    monkeypatch.setattr(cls, "from_file", classmethod(
+        lambda c, path, _f=orig.__func__, **kw:
+        devices.append(kw["device"]) or _f(c, path, **kw)))
+    argv = ["-m", model, "-f", wav, *CASES["greedy_all_outputs"][:3]]
+    want = _run(jcli, argv)
+    assert _run(tcli, argv + ["-ng"]) == want
+    assert _run(tcli, argv + ["--device", "cpu"]) == want
+    assert devices == ["cpu", "cpu"]
+    assert tcli.build_parser().parse_args(["-ng"]).no_gpu
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _run(tcli, argv + ["-ng", "--device", "cuda"])
+        assert devices[-1] == "cuda"
+
+
 def test_cli_module_entry_point(files):
     """python -m whisper_tpu_torch.cli, as a user runs it (bf16 on the
     CPU: only the form of its output is checked)."""

@@ -1091,3 +1091,39 @@ def test_native_grammar_matches_python_on_card_host(gen):
         tok = int(rng.choice(allowed))
         for g in engines:
             g.accept_token(vocab, tok)
+
+
+def test_stream_vad_step_on_card(gen, tmp_path):
+    """One VAD step of whisper-stream at audio_ctx = 750 over a q5_0 file
+    (pallas_q8: K1 at T = 750, K3, K5 at Ta = 750) equals the same `full`
+    called directly; the card's host builds the native mel for it."""
+    from whisper_tpu_torch.audio import native
+    from whisper_tpu_torch.stream import StreamTranscriber
+    assert native.available(), "the native audio front end did not build"
+    dims = (51865, 1500, 128, 2, 2, 48, 128, 2, 3, 80)
+    hp = dict(zip(ggml_writer.HPARAM_KEYS, dims))
+    path = str(tmp_path / "q5_0.bin")
+    ggml_writer.write_random_model(
+        path, hp, mel_filterbank(80), synthetic_vocab(dims[0]).id_to_token[
+            :50257], "q5_0", seed=1)
+    ctx = WhisperContext.from_file(path, device="cuda",
+                                   cross_mode="pallas_q8")
+    t = np.arange(2 * 16000) / 16000
+    pcm = np.concatenate([
+        (0.3 * np.sin(2 * np.pi * 440 * t)
+         + np.random.RandomState(4).randn(len(t)) * 0.05),
+        np.zeros(16000)]).astype(np.float32)
+    st = StreamTranscriber(ctx, step_ms=0, audio_ctx=750, max_tokens=16)
+    for fn in (ea.self_attention, xa.cross_attention_decode_q8):
+        fn.launches = 0
+    segs = st.feed_vad(pcm[-2 * 16000:], pcm)
+    torch.cuda.synchronize()
+    assert segs and ctx.exp_n_audio_ctx == 750
+    assert ea.self_attention.launches > 0
+    assert xa.cross_attention_decode_q8.launches > 0
+    want = [(s.t0, s.t1, s.text, [t.id for t in s.tokens])
+            for s in ctx.result_all]
+    assert ctx.full(st.params, pcm) == 0
+    assert [(s.t0, s.t1, s.text, [t.id for t in s.tokens])
+            for s in ctx.result_all] == want
+    assert segs == [(t0, t1, text) for t0, t1, text, _ in want]

@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 48, proc.stdout
+    assert n_modules >= 57, proc.stdout
 
 
 def test_port_has_the_whisper_full_modules():
@@ -74,6 +74,23 @@ def test_port_has_the_cli_modules():
     from whisper_tpu_torch.parallel.batch import BatchTranscriber
     assert callable(WhisperContext.full_parallel)
     assert BatchTranscriber.DTW_QK_ROWS == 8
+
+
+def test_port_has_the_app_modules():
+    """whisper-stream, whisper-command, whisper-lsp, the native audio
+    front end, VAD, the chessboard, quantize and the HF rename table: the
+    port's own copies (importable without JAX, checked above); the three
+    applications' parsers default --device to cuda."""
+    import importlib
+    for name in ("audio.native", "audio.vad", "stream", "command", "lsp",
+                 "chessboard", "quantize", "weights.hf",
+                 "utils.native_build"):
+        mod = importlib.import_module(f"whisper_tpu_torch.{name}")
+        assert mod.__name__ == f"whisper_tpu_torch.{name}"
+    from whisper_tpu_torch import command, lsp, stream
+    for mod in (stream, command, lsp):
+        assert mod.build_parser().parse_args(["-m", "x.bin"]).device == \
+            "cuda", mod.__name__
 
 
 def test_entry_points_default_to_the_card():

@@ -3,12 +3,13 @@
 The package mirrors whisper_tpu's module names.  It imports torch and
 numpy only (never jax, never whisper_tpu), so it runs on a machine that
 has no JAX.  Its entry points run on the card (device="cuda") unless the
-caller asks for the CPU.  Four paths are ported:
+caller asks for the CPU.  These paths are ported:
 
     WhisperContext.from_file + full (api.py): whisper_full
       -> ggml reader, block codecs, packed decoder weights
          (weights/ggml_reader.py, quant.py, convert.py)
-      -> host log-mel (audio/mel.py)
+      -> host log-mel (audio/mel.py: the native C++ front end of
+         audio/native.py when it builds, else numpy)
       -> conv stem + encoder, self-attention through kernel K1, or K6 for
          attn_impl "pallas_btd" (ops/encoder_attention.py,
          csrc/encoder_attention.cu)
@@ -50,6 +51,16 @@ caller asks for the CPU.  Four paths are ported:
          loops of decode/grammar_loop.py (speculative device chunks at
          t = 0) and decode/host_beam.py
       -> the writers of outputs.py
+
+    python -m whisper_tpu_torch.stream / .command / .lsp (stream.py,
+    command.py, lsp.py): whisper-stream, whisper-command, whisper-lsp
+      -> PCM from a file, stdin or a microphone, cut by the energy VAD
+         (audio/vad.py) or in fixed steps, then `full`; lsp's guided mode
+         a prompt pass (models/whisper.py decode_prompt, K3) over a
+         commandset prompt
+
+    python -m whisper_tpu_torch.quantize (quantize.py), chessboard.py and
+    weights/hf.py are copies of whisper_tpu's JAX-free tools.
 
 The fused log-mel kernel K7 (ops/mel_pallas.py, csrc/log_mel.cu) runs in
 `log_mel_pallas`, as whisper_tpu's Pallas mel kernel does.  On CPU tensors

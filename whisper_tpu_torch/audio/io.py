@@ -3,10 +3,9 @@
 The reference decodes wav/mp3/flac/ogg via vendored miniaudio
 (reference: examples/common-whisper.cpp:46).  Here WAV is read with the
 stdlib, and FLAC, MPEG audio (mp3/mp2/mp1) and Ogg Vorbis through the
-framework's own from-scratch Python decoders (audio/flac.py, audio/mp3.py,
-audio/vorbis.py, copies of whisper_tpu's).  whisper_tpu prefers its native
-C++ twins of these decoders when they are built; its tests pin both to the
-same output, so the samples here are the same.  Anything else (e.g.
+native C++ decoders (audio/native.py) when they are built, else the
+from-scratch Python decoders (audio/flac.py, audio/mp3.py, audio/vorbis.py):
+both give the same samples, bit for bit.  Anything else (e.g.
 ogg/opus) shells out to ffmpeg when available (same fallback the
 reference server uses, reference: examples/server/server.cpp:248).
 """
@@ -101,33 +100,51 @@ def _finish_decoded(data: np.ndarray, sr: int, stereo: bool
 
 def load_flac(path: str, stereo: bool = False) -> tuple[np.ndarray, np.ndarray | None]:
     """Read a FLAC file -> (mono f32 @16 kHz, optional (n, 2) stereo f32),
-    same contract as load_wav; sample conversion matches dr_flac exactly
+    same contract as load_wav.  Uses the native decoder when built, the
+    pure-Python one otherwise; sample conversion matches dr_flac exactly
     (see audio.flac.pcm_to_f32)."""
     from .flac import decode_flac, pcm_to_f32
+    from .native import decode_flac_native
 
     with open(path, "rb") as f:
         raw = f.read()
-    pcm, sr, bits = decode_flac(raw)
+    decoded = decode_flac_native(raw)
+    if decoded is None:
+        decoded = decode_flac(raw)
+    pcm, sr, bits = decoded
     return _finish_decoded(pcm_to_f32(pcm, bits), sr, stereo)
 
 
 def load_mpeg(path: str, stereo: bool = False) -> tuple[np.ndarray, np.ndarray | None]:
-    """Read an MPEG audio (mp3/mp2/mp1) file, same contract as load_wav."""
+    """Read an MPEG audio (mp3/mp2/mp1) file, same contract as load_wav.
+    Uses the native decoder when built, the pure-Python one otherwise."""
     from .mp3 import decode_mp3
+    from .native import decode_mp3_native
 
     with open(path, "rb") as f:
         raw = f.read()
-    data, sr = decode_mp3(raw)
+    try:
+        decoded = decode_mp3_native(raw)
+    except ValueError:
+        decoded = None   # let the Python path raise the precise Mp3Error
+    if decoded is None:
+        decoded = decode_mp3(raw)
+    data, sr = decoded
     return _finish_decoded(data, sr, stereo)
 
 
 def load_vorbis(path: str, stereo: bool = False) -> tuple[np.ndarray, np.ndarray | None]:
-    """Read an Ogg Vorbis file, same contract as load_wav."""
+    """Read an Ogg Vorbis file, same contract as load_wav.  Uses the native
+    decoder when built, the pure-Python one otherwise."""
+    from .native import decode_ogg_vorbis_native
     from .vorbis import decode_ogg_vorbis
 
     with open(path, "rb") as f:
         raw = f.read()
-    data, sr = decode_ogg_vorbis(raw)
+    decoded = decode_ogg_vorbis_native(raw)
+    if decoded is None:
+        decoded = decode_ogg_vorbis(raw)
+    data, sr = decoded
     return _finish_decoded(data, sr, stereo)
 
 
@@ -161,7 +178,7 @@ def load_audio(path: str, stereo: bool = False) -> tuple[np.ndarray, np.ndarray 
             if ext in (".mp3", ".mp2", ".mp1") or is_mpeg_audio(head):
                 return load_mpeg(path, stereo=stereo)
     except Exception as e:
-        # the decoder rejected the file (corrupt/unsupported stream):
+        # the native decoder rejected the file (corrupt/unsupported stream):
         # prefer the ffmpeg fallback when present, else surface the precise
         # decoder error rather than a generic "install ffmpeg"
         decode_err = e

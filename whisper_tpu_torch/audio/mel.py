@@ -1,8 +1,9 @@
 """Log-mel spectrogram frontend (port of whisper_tpu.audio.mel).
 
-`pad_audio` and the host `log_mel_spectrogram` (the serial `full` path)
-are numpy copies of the original's numpy path; the native C++ frontend is
-not ported.  `log_mel_spectrogram_torch`
+`pad_audio` and the host `log_mel_spectrogram` (the serial `full` path
+and the host-mel BatchTranscriber) copy the original's: the native C++
+front end (audio/native.py) when it is built and WTPU_NO_NATIVE is not 1,
+else numpy.  `log_mel_spectrogram_torch`
 is the port of `log_mel_spectrogram_jax`: framing as a strided view, the
 real DFT as two (400, 201) matmuls, the filterbank as one more, all in
 full float32 — the result feeds log10 and a global-max clamp, so TF32
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..constants import CHUNK_SIZE, HOP_LENGTH, N_FFT, SAMPLE_RATE
+from .native import log_mel_spectrogram_native
 
 
 def full_f32_matmuls() -> None:
@@ -79,7 +81,8 @@ def _mel_from_padded_np(padded: np.ndarray, n_len: int,
 def log_mel_spectrogram(samples: np.ndarray,
                         filters: np.ndarray) -> tuple[np.ndarray, int]:
     """PCM f32 (or s16) mono @16 kHz -> ((n_len, n_mel) f32 mel, n_len_org),
-    on the host (whisper_tpu.audio.mel.log_mel_spectrogram's numpy path).
+    on the host: the native front end when built (whisper_tpu's default;
+    within 5e-5 of numpy), else numpy.
 
     The returned mel includes the trailing 30 s zero-pad region so a full
     window starting at any seek offset < n_len_org is always available.
@@ -91,6 +94,9 @@ def log_mel_spectrogram(samples: np.ndarray,
     if len(samples) < 1 + N_FFT // 2:
         # too short for the reflect pad; zero-extend like a silent signal
         samples = np.pad(samples, (0, 1 + N_FFT // 2 - len(samples)))
+    res = log_mel_spectrogram_native(samples, filters)   # None: numpy
+    if res is not None:
+        return res
     padded, n_len, n_len_org = pad_audio(samples)
     return _mel_from_padded_np(padded, n_len, filters), n_len_org
 

@@ -4,8 +4,9 @@ examples/cli/cli.cpp).
 Same flags, same default behavior: transcribe input files, print segments
 with timestamps, write any of txt/vtt/srt/csv/json/lrc/wts/score outputs.
 One flag more than whisper_tpu's: --device (default "cuda"; "cpu" runs on
-the CPU, and a CUDA device without a card raises).  -ng, -fa and -oved are
-accepted and unused.
+the CPU, and a CUDA device without a card raises).  -ng / --no-gpu means
+--device cpu, as whisper.cpp's "no GPU", unless --device is given; -fa and
+-oved are accepted and unused.
 
 Usage:  python -m whisper_tpu_torch.cli -m model.bin -f audio.wav [options]
 """
@@ -83,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("-oved", "--ov-e-device", default="CPU")      # accepted, unused
     a("-dtw", "--dtw", default="")
     a("-ls", "--log-score", action="store_true", dest="log_score")
-    a("-ng", "--no-gpu", action="store_true")        # accepted, unused
+    a("-ng", "--no-gpu", action="store_true",
+      help="run on the CPU (--device cpu) unless --device is given")
     a("-fa", "--flash-attn", action="store_true")    # accepted, unused
     a("-sns", "--suppress-nst", action="store_true", dest="suppress_nst")
     a("-kvq", "--kv-q8", action="store_true", dest="kv_q8",
@@ -173,7 +175,11 @@ def _print_segment_text(ctx, i, args, pcm_stereo):
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    parser.set_defaults(device=None)    # tells an explicit --device from -ng
+    args = parser.parse_args(argv)
+    if args.device is None:
+        args.device = "cpu" if args.no_gpu else "cuda"
     args.fname_inp = args.fname_inp + args.files
     if not args.fname_inp:
         print("error: no input files specified", file=sys.stderr)

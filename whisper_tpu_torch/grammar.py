@@ -18,15 +18,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
+import shutil  # noqa: F401  (native_build's compiler lookup, shutil.which)
 from pathlib import Path
 
 import numpy as np
 
+from .utils import native_build
 from .utils.logging import log_warn
 
 PKG_DIR = Path(__file__).resolve().parent
@@ -35,7 +32,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "whisper_tpu_torch"
 # native/Makefile's flags for libwtpu_grammar.so but -march=native: the
 # build directory travels with a copy of the checkout to other hosts, and
 # the library's name keys on the source and these flags, not the host CPU
-CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread"]
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread"]
 
 # whisper_gretype (reference: include/whisper.h:117-134)
 END = 0
@@ -597,41 +594,21 @@ class NativeGrammar:
             pass
 
 
-_NATIVE_LOCK = threading.Lock()
-
-
 @functools.lru_cache(maxsize=None)
 def _load_native():
-    """Build (once per source hash) and load the native grammar library;
-    None when the host has no C++ compiler or the build or load fails.
-    One thread builds while the others wait; a build by another process
-    lands through an atomic rename."""
-    with _NATIVE_LOCK:
-        try:
-            return _build_and_load_native()
-        except (OSError, subprocess.SubprocessError) as e:
-            log_warn(f"native grammar engine unavailable: {e}")
-            return None
+    """Build (once per source hash) and load the native grammar library
+    (utils/native_build); None, with a warning, when the host has no C++
+    compiler or the build or load fails.  BUILD_DIR is read at call
+    time."""
+    lib = native_build.load("native grammar engine", "wtt_grammar",
+                            BUILD_DIR, [(NATIVE_SRC, CXX_FLAGS)],
+                            CXX_FLAGS + ["-shared"])
+    if lib is not None:
+        _declare(lib)
+    return lib
 
 
-def _build_and_load_native():
-    src = NATIVE_SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()
-    path = BUILD_DIR / f"libwtt_grammar_{digest[:16]}.so"
-    if not path.is_file():
-        cxx = shutil.which("c++")
-        if cxx is None:
-            raise OSError("no C++ compiler (c++) on PATH")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        proc = subprocess.run([cxx, *CXX_FLAGS, str(NATIVE_SRC), "-o",
-                               str(tmp)], capture_output=True, text=True,
-                              timeout=300)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise OSError(f"{cxx} failed on {NATIVE_SRC}:\n{proc.stderr}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+def _declare(lib) -> None:
     lib.wtpu_grammar_init.restype = ctypes.c_void_p
     lib.wtpu_grammar_init.argtypes = [
         ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
@@ -653,7 +630,6 @@ def _build_and_load_native():
     lib.wtpu_grammar_clone.restype = ctypes.c_void_p
     lib.wtpu_grammar_free.argtypes = [ctypes.c_void_p]
     lib.wtpu_grammar_free.restype = None
-    return lib
 
 
 def grammar_from_gbnf(src: str, start_rule_name: str = "root",
