@@ -107,6 +107,21 @@ Phases, each of which must pass (the script exits nonzero otherwise):
  17. the port's draws (decode/rng.py) on the card against the CPU for the
      same keys and logits, and one step's draw cost at the bo5 and beam5
      shapes from a torch.profiler trace
+ 18. "capi": whisper.h (check_capi): the port's C ABI library
+     (whisper_tpu_torch.capi.library_path, from
+     whisper_tpu_torch/native/wtpu_capi.cpp) builds and exports every
+     whisper.h function; examples/c_demo.c and tests/c_abi_ext.c compiled
+     against it run on the card over the small q5_1 file with the colors
+     words (c_demo's segments equal to whisper_full in this process,
+     c_abi_ext's callbacks, states, logits and in-struct grammar checked as
+     tests/test_cabi.py does; their launches are their processes' own);
+     whisper_tpu_torch.capi in this process on path A's file: mel, encode,
+     a 4-token prompt and 8 steps of whisper_decode (finite logits, the
+     same rows teacher-forced within MODEL_TOL), whisper_full and its
+     accessors (K1, K3); then whisper-bench (bench_tool.main) -m path A's
+     file (K1; K3 at M = 1, 5 and 256), -w 1, -w 2 and -w 3 --size
+     large-v3 (K1 at T = 512), each table on stderr; the shapes this phase
+     launches first are timed against their plain versions
 In 5-8, 10, 11 and 13 every segment list must be non-empty and every
 probability finite.
 The second-to-last line is a JSON object describing each kernel; the last
@@ -219,6 +234,11 @@ APPS_STREAM_S, APPS_MAIN_S = 12, 3
 APPS_STEP_MS, APPS_LENGTH_MS = 3000, 10000
 APPS_AUDIO_CTX = 750
 APPS_WORDS = ["red", "green", "blue", "yellow"]
+# the phase "capi": seconds of PCM for c_demo and the in-process calls;
+# the C programs' time limit (each starts an interpreter that imports
+# torch and loads the small file on the card)
+CAPI_S = 10
+CAPI_C_TIMEOUT = 300
 
 
 def log(msg: str) -> None:
@@ -690,13 +710,16 @@ def check_launched(gen, res) -> dict:
     check, against its plain version within the kernel's KERNEL_TOL
     (compared once, not timed); adds them and every launched shape to
     `res`.  -> {key: shapes checked here}."""
-    cases, _ = kernel_cases(gen)
+    cases, dense_of = kernel_cases(gen)
     checked = {k: {tuple(x) for x in v["shapes"]} for k, v in res.items()}
     checked["K7"] = {("frames", mel_frames(s), n)
                      for s, n in checked["K7"]}
-    # the phase "apps" launches shapes no earlier phase does (stream's -ac,
-    # lsp's commandset prompt): those are timed too, kernel and plain
-    apps = LAUNCHED["by_phase"].get("apps", {})
+    # the phases "apps" and "capi" launch shapes no earlier phase does
+    # (stream's -ac, lsp's commandset prompt; whisper-bench's PP at M =
+    # 256 and -w 3's T = 512): those are timed too, kernel, plain and
+    # K3's dense yardstick
+    timed = {phase: LAUNCHED["by_phase"].get(phase, {})
+             for phase in ("apps", "capi")}
     extra = {}
     for key, shapes in sorted(LAUNCHED["shapes"].items()):
         res[key]["launched_shapes"] = sorted(list(x) for x in shapes)
@@ -720,15 +743,21 @@ def check_launched(gen, res) -> dict:
                 raise AssertionError(f"{key} {shape}: rel err {rel:.3e} > "
                                      f"{KERNEL_TOL[key]}")
             r = res[key]
-            if shape in apps.get(key, ()):
+            phase = next((ph for ph, by in timed.items()
+                          if shape in by.get(key, ())), None)
+            if phase is not None:
                 ms = time_ms(lambda: kernel(*args))
                 plain_ms = time_ms(lambda: plain(*args))
+                to_dense = dense_of.get(key)
+                dense_ms = time_ms(to_dense(*args)) if to_dense else None
                 b_ms, b_by = bound(key, shape)
-                log(f"{key} {shape} (phase apps): kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                    f"{b_ms / ms:.3f} of it")
-                r.setdefault("apps_ms_by_shape", []).append(
-                    [list(shape), ms, plain_ms, b_ms])
+                log(f"{key} {shape} (phase {phase}): kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms"
+                    + (f", dense {dense_ms:.4f} ms" if dense_ms else "")
+                    + f", bound {b_ms:.5f} ms ({b_by}), {b_ms / ms:.3f} of "
+                    "it")
+                r.setdefault(f"{phase}_ms_by_shape", []).append(
+                    [list(shape), ms, plain_ms, b_ms, dense_ms])
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["max_rel_err"] = max(r["max_rel_err"], rel)
             r["shapes"].append(list(shape))
@@ -2320,6 +2349,285 @@ def check_apps(card_line: str, big_file: Path) -> dict:
     return total
 
 
+def _lcg_noise(n: int) -> np.ndarray:
+    """fill_noise() of tests/c_abi_ext.c (LCG, seed 12345)."""
+    out = np.empty(n, np.float32)
+    s = 12345
+    for i in range(n):
+        s = (s * 1664525 + 1013904223) & 0xFFFFFFFF
+        out[i] = ((s >> 8) / float(1 << 24) - 0.5) * 0.2
+    return out
+
+
+def _run_c(label: str, argv, env, out_dir: Path) -> subprocess.Popen:
+    """Start a C program with its output in files (stdout, stderr)."""
+    out = open(out_dir / f"{label}.out", "w")
+    err = open(out_dir / f"{label}.err", "w")
+    proc = subprocess.Popen([str(a) for a in argv], env=env, stdout=out,
+                            stderr=err, cwd=out_dir)
+    out.close()
+    err.close()
+    return proc
+
+
+def _wait_c(label: str, proc: subprocess.Popen, out_dir: Path) -> str:
+    try:
+        proc.wait(timeout=CAPI_C_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"capi {label}: no exit in {CAPI_C_TIMEOUT} s")
+    out = (out_dir / f"{label}.out").read_text()
+    if proc.returncode != 0:
+        err = (out_dir / f"{label}.err").read_text()
+        raise AssertionError(f"capi {label}: exit {proc.returncode}\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+    return out
+
+
+def check_capi(card_line: str, big_file: Path) -> dict:
+    """The phase "capi": whisper.h's surface on the card.
+      1. the port's C ABI library (capi.library_path: build/whisper_tpu_torch/
+         capi/libwhisper_tpu.so from whisper_tpu_torch/native/wtpu_capi.cpp)
+         builds and exports every function of tests/golden/
+         whisper_h_functions.txt
+      2. examples/c_demo.c and tests/c_abi_ext.c, compiled with gcc against
+         it, run at once (beside step 3) on the small q5_1 file with the
+         colors words (on the card: their params say use_gpu): c_demo on
+         CAPI_S s of raw f32 PCM, its SEG| lines equal to whisper_full in
+         this process on the same file, PCM and params; c_abi_ext's lines
+         checked as
+         tests/test_cabi.py checks them, its in-struct grammar's segments
+         equal to the Python GBNF path's here.  Their launches are made in
+         their own processes and are not counted
+      3. whisper_tpu_torch.capi in this process on path A's q5_0 file:
+         whisper_pcm_to_mel, whisper_encode (K1), whisper_decode of a
+         4-token prompt and then 8 single-token steps (K3 at M = 4 and 1),
+         every logits row finite; the 12 tokens decoded at once as one
+         prompt (K3 at M = 12) give the stepped rows within MODEL_TOL;
+         then whisper_full and its accessors: K1 and K3 must launch
+      4. whisper_tpu_torch.bench_tool.main as a user runs it: -m path A's
+         file (Enc / Dec / Bch5 / PP: K1, K3 at M = 1, 5 and 256), -w 1,
+         -w 2, and -w 3 --size large-v3 (random weights: K1); each table
+         on stderr with the card's name and power limit.
+    -> the phase's launch counts (in this process)."""
+    import contextlib
+    import io
+    import os
+
+    from whisper_tpu_torch import bench_tool, capi
+    from whisper_tpu_torch.grammar import grammar_from_gbnf
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    lib = capi.library_path()
+    log(f"capi: C ABI library in {time.perf_counter() - t0:.2f} s: {lib} "
+        f"-> {os.readlink(lib)}")
+    want = set((root / "tests" / "golden" / "whisper_h_functions.txt")
+               .read_text().split())
+    nm = subprocess.run(["nm", "-D", "--defined-only", str(lib)],
+                        capture_output=True, text=True, check=True,
+                        timeout=60).stdout
+    missing = sorted(want - {line.split()[-1] for line in nm.splitlines()
+                             if line.strip()})
+    if missing:
+        raise AssertionError(f"capi: the library lacks {missing}")
+    log(f"capi: the library exports all {len(want)} whisper.h functions")
+
+    # 2. the C programs, both at once, on the card
+    out_dir = BUILD / "capi"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    exes = {}
+    for name, src in (("c_demo", root / "examples" / "c_demo.c"),
+                      ("c_abi_ext", root / "tests" / "c_abi_ext.c")):
+        exes[name] = out_dir / name
+        subprocess.run(["gcc", str(src), f"-I{root / 'native'}",
+                        f"-L{lib.parent}", "-lwhisper_tpu", "-o",
+                        str(exes[name])], check=True, timeout=120)
+    small_g = model_file("small", "q5_1", pieces=True)
+    pcm = full_pcm(CAPI_S)
+    raw = out_dir / "pcm.f32"
+    pcm.tofile(raw)
+    env = dict(os.environ, LD_LIBRARY_PATH=str(lib.parent),
+               WHISPER_TPU_ROOT=str(root),
+               PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    env.pop(capi.DEVICE_ENV, None)
+    log("capi: c_demo and c_abi_ext launch the kernels in their own "
+        "processes: those launches are not counted here")
+    total: dict = {}
+
+    def add(counts):
+        total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+
+    def greedy():
+        p = capi.whisper_full_default_params(capi.WHISPER_SAMPLING_GREEDY)
+        p.print_progress = False
+        p.temperature_inc = 0.0
+        return p
+
+    t_c = time.perf_counter()
+    procs = {"c_demo": _run_c("c_demo", [exes["c_demo"], small_g, raw], env,
+                              out_dir),
+             "c_abi_ext": _run_c("c_abi_ext", [exes["c_abi_ext"], small_g],
+                                 env, out_dir)}
+    try:
+        # 3. the module in process on path A's file, while the C
+        # programs run
+        reset_counts()
+        t0 = time.perf_counter()
+        ctx = capi.whisper_init_from_file_with_params(
+            str(big_file), capi.whisper_context_default_params())
+        torch.cuda.synchronize()
+        elog(f"[{card_line}] capi large-v3 load: "
+             f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        if (capi.whisper_pcm_to_mel(ctx, pcm, len(pcm)) != 0
+                or capi.whisper_encode(ctx, 0) != 0):
+            raise AssertionError("capi: whisper_pcm_to_mel, whisper_encode")
+        toks = [ctx.token_sot(), ctx.token_lang(0), ctx.token_transcribe(),
+                ctx.token_beg()]
+        if capi.whisper_decode(ctx, toks, len(toks), 0) != 0:
+            raise AssertionError("capi: whisper_decode of the prompt")
+        rows = [capi.whisper_get_logits(ctx)]
+        for _ in range(8):
+            nxt = int(np.argmax(rows[-1][-1][:ctx.token_eot()]))
+            if capi.whisper_decode(ctx, [nxt], 1, len(toks)) != 0:
+                raise AssertionError("capi: whisper_decode of a step")
+            toks.append(nxt)
+            rows.append(capi.whisper_get_logits(ctx))
+        stepped = np.concatenate(rows)
+        torch.cuda.synchronize()
+        t_raw = time.perf_counter() - t0
+        if stepped.shape != (len(toks), ctx.n_vocab()) \
+                or not np.isfinite(stepped).all():
+            raise AssertionError(f"capi: logits {stepped.shape}, finite "
+                                 f"{np.isfinite(stepped).all()}")
+        if capi.whisper_decode(ctx, toks, len(toks), 0) != 0:
+            raise AssertionError("capi: whisper_decode of the sequence")
+        forced = capi.whisper_get_logits(ctx)
+        rel = float(np.abs(forced - stepped).max() / np.abs(stepped).max())
+        log(f"capi whisper_decode: {len(toks)} rows, teacher-forced against "
+            f"stepped rel err {rel:.3e} (tol {MODEL_TOL}); tokens {toks}")
+        if rel > MODEL_TOL:
+            raise AssertionError(f"capi teacher forcing: {rel:.3e} > "
+                                 f"{MODEL_TOL}")
+        t0 = time.perf_counter()
+        if capi.whisper_full(ctx, greedy(), pcm, len(pcm)) != 0:
+            raise AssertionError("capi: whisper_full on path A's file")
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        n = capi.whisper_full_n_segments(ctx)
+        segs = [(capi.whisper_full_get_segment_t0(ctx, i),
+                 capi.whisper_full_get_segment_t1(ctx, i),
+                 capi.whisper_full_get_segment_text(ctx, i),
+                 [capi.whisper_full_get_token_p(ctx, i, j)
+                  for j in range(capi.whisper_full_n_tokens(ctx, i))])
+                for i in range(n)]
+        check_segments("capi whisper_full", [ctx.result_all])
+        if not all(t0_ <= t1_ for t0_, t1_, _, _ in segs):
+            raise AssertionError(f"capi: segment times {segs}")
+        counts = read_counts()
+        elog(f"[{card_line}] capi in process (large-v3 q5_0): mel + "
+             f"encode + prompt + 8 steps {t_raw:.3f} s; whisper_full of "
+             f"{CAPI_S} s {t_full:.3f} s, {n} segments; launches {counts}")
+        require_launches("capi in process", counts, ("K1", "K3"))
+        add(counts)
+        del ctx
+        torch.cuda.empty_cache()
+    except BaseException:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+        raise
+    outs = {name: _wait_c(name, proc, out_dir)
+            for name, proc in procs.items()}
+    elog(f"[{card_line}] capi: c_demo and c_abi_ext (small q5_1, run at "
+         f"once, beside the in-process run) in "
+         f"{time.perf_counter() - t_c:.1f} s")
+
+    # 2 (continued). the C programs' output against this process
+    reset_counts()
+    ctx = capi.whisper_init_from_file_with_params(
+        str(small_g), capi.whisper_context_default_params())
+    if ctx.device.type != "cuda":
+        raise AssertionError(f"capi: a default context on {ctx.device}")
+    out = outs["c_demo"]
+    c_segs = [line.split("|")[1:4] for line in out.splitlines()
+              if line.startswith("SEG|")]
+    if capi.whisper_full(ctx, greedy(), pcm, len(pcm)) != 0:
+        raise AssertionError("capi: whisper_full failed")
+    py_segs = [[str(s.t0), str(s.t1), s.text] for s in ctx.result_all]
+    if not c_segs or c_segs != py_segs or "callback_segments=" not in out:
+        raise AssertionError(f"capi c_demo: {c_segs} != in process "
+                             f"{py_segs}\n{out[-2000:]}")
+    log(f"capi c_demo: {len(c_segs)} segments equal to whisper_full in "
+        f"process; {out.splitlines()[0]}")
+
+    out = outs["c_abi_ext"]
+    lines = dict(line.split("|", 1) for line in out.splitlines()
+                 if "|" in line and not line.startswith("GSEG|"))
+    hp = ctx.hparams
+    want_lines = {"MODEL": f"{hp.n_vocab}|{hp.n_audio_layer}|"
+                           f"{hp.n_text_layer}|{hp.n_mels}|{hp.model_type}",
+                  "LANG": "99|en|english", "NLEN": "99", "NLEN_ST": "99",
+                  "LOGITS": f"{hp.n_vocab}|ok", "LOGITS_ST": "ok",
+                  "TIMINGS": "ok", "LOGS": "captured", "ABORT": "1|0"}
+    bad = {k: lines.get(k) for k, v in want_lines.items()
+           if lines.get(k) != v}
+    encb = [int(x) for x in lines.get("ENCB", "0|1|-1").split("|")]
+    lfilt = lines.get("LFILT", "0|bad").split("|")
+    gram = lines.get("GRAMMAR", "bad|0").split("|")
+    if (bad or "DONE" not in out or int(lines.get("BASE_SEGS", 0)) <= 0
+            or encb[0] != 1 or encb[1] != 0 or encb[2] < 0
+            or int(lfilt[0]) <= 0 or lfilt[1] != "ok" or gram[0] != "ok"
+            or int(gram[1]) <= 0):
+        raise AssertionError(f"capi c_abi_ext: {bad}\n{out[-3000:]}")
+    p = greedy()
+    p.greedy.best_of = 1
+    p.grammar_rules = grammar_from_gbnf("root ::= [a-z ]*")
+    p.grammar_penalty = 100.0
+    noise = _lcg_noise(16000 * 8)
+    if capi.whisper_full(ctx, p, noise, len(noise)) != 0:
+        raise AssertionError("capi: whisper_full with the grammar failed")
+    c_gsegs = [line[len("GSEG|"):] for line in out.splitlines()
+               if line.startswith("GSEG|")]
+    py_gsegs = [s.text for s in ctx.result_all]
+    if c_gsegs != py_gsegs:
+        raise AssertionError(f"capi c_abi_ext grammar: {c_gsegs} != in "
+                             f"process {py_gsegs}")
+    log(f"capi c_abi_ext: every check passed; {len(c_gsegs)} grammar "
+        f"segments, equal to the GBNF path in process: "
+        f"{[t[:40] for t in c_gsegs[:3]]}")
+    del ctx
+    add(read_counts())
+
+    # 4. whisper-bench
+    for argv, need in ((["-m", str(big_file)], ("K1", "K3")),
+                       (["-w", "1"], ()), (["-w", "2"], ()),
+                       (["-w", "3", "--size", "large-v3"], ("K1",))):
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = bench_tool.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if rc != 0 or not out.getvalue().strip():
+            raise AssertionError(f"whisper-bench {argv}: exit {rc}, printed "
+                                 f"{out.getvalue()!r}")
+        label = " ".join(Path(a).name for a in argv)
+        elog(f"[{card_line}] whisper-bench {label} ({wall:.1f} s, load "
+             f"included; launches {counts}):\n" + out.getvalue().rstrip())
+        require_launches(f"whisper-bench {label}", counts, need)
+        add(counts)
+        torch.cuda.empty_cache()
+    elog(f"[{card_line}] capi: the phase in "
+         f"{time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
 def front_end(card_line: str, params, cfg):
     """Path D: MEL_S s of PCM through log_mel_pallas (K7); large-v3 encode
     of the first window at B = 1 in each attn_impl, held against "pallas"
@@ -2500,6 +2808,10 @@ def main() -> int:
         # host mel: K1 at T = 750 and K5 at Ta = 750 (stream's -ac), K3 at
         # M = the lsp commandset prompt (with mins)
         "apps": lambda: check_apps(card_line, big_file),
+        # whisper.h: the C ABI library under C programs, capi in process
+        # (K1; K3 at M = 4, 1 and 12) and whisper-bench (K3 at M = 5 and
+        # 256, K1 at T = 512)
+        "capi": lambda: check_capi(card_line, big_file),
     }
     paths = {}
     for name, run in phases.items():

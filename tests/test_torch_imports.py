@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 57, proc.stdout
+    assert n_modules >= 59, proc.stdout
 
 
 def test_port_has_the_whisper_full_modules():
@@ -93,6 +93,30 @@ def test_port_has_the_app_modules():
             "cuda", mod.__name__
 
 
+def test_port_has_the_whisper_h_modules():
+    """whisper.h's surface and whisper-bench: the port's own capi (with its
+    C ABI source beside it) and bench_tool, importable with neither JAX
+    nor whisper_tpu loaded; the C source imports the port's module."""
+    code = textwrap.dedent("""
+        import sys
+        from whisper_tpu_torch import bench_tool, capi
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith(("jax.", "jaxlib"))
+                     or k == "whisper_tpu" or k.startswith("whisper_tpu."))
+        assert not bad, bad
+        src = capi.SOURCE.read_text()
+        assert 'PyImport_ImportModule("whisper_tpu_torch.capi")' in src
+        assert '"whisper_tpu.capi"' not in src
+        assert capi.HEADER.name == "whisper_tpu.h"
+        print(capi.__name__, bench_tool.__name__)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["whisper_tpu_torch.capi",
+                                   "whisper_tpu_torch.bench_tool"]
+
+
 def test_entry_points_default_to_the_card():
     """Every entry point takes device="cuda" by default.  Without a card
     such a call raises instead of running on the CPU, so each CPU test
@@ -103,12 +127,14 @@ def test_entry_points_default_to_the_card():
     from whisper_tpu_torch.decode import filters, loop
     from whisper_tpu_torch.models.whisper import WhisperConfig
     from whisper_tpu_torch.weights import convert
+    from whisper_tpu_torch.bench_tool import bench_latency
     from whisper_tpu_torch.server import _arg_parser
     assert _arg_parser().parse_args(["-m", "x.bin"]).device == "cuda"
     fns = (WhisperContext.__init__, WhisperContext.from_random,
            WhisperContext.from_jax, convert.params_from_ggml,
            convert.zero_params, convert.random_params, convert.from_jax,
-           loop.make_decode_window, filters.make_process_logits)
+           loop.make_decode_window, filters.make_process_logits,
+           bench_latency)
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__

@@ -62,6 +62,18 @@ caller asks for the CPU.  These paths are ported:
     python -m whisper_tpu_torch.quantize (quantize.py), chessboard.py and
     weights/hf.py are copies of whisper_tpu's JAX-free tools.
 
+    whisper_tpu_torch.capi (capi.py): whisper.h's functions by name, over
+    `WhisperContext` (use_gpu / gpu_device choose the device); its
+    `library_path()` builds libwhisper_tpu.so, the whisper.h C ABI over
+    this module (native/wtpu_capi.cpp), for C programs and the bindings
+      -> whisper_encode (K1) and whisper_decode (the prompt pass and
+         decode steps, the packed linears through K3)
+
+    python -m whisper_tpu_torch.bench_tool (bench_tool.py): whisper-bench
+      -> Enc / Dec / Bch5 / PP on the model's encode, decode_step and
+         decode_prompt (K1; K3 at M = 1, 5 and 256 over a packed file),
+         memcpy and mul_mat, and the stream step's latency (-w 3)
+
 The fused log-mel kernel K7 (ops/mel_pallas.py, csrc/log_mel.cu) runs in
 `log_mel_pallas`, as whisper_tpu's Pallas mel kernel does.  On CPU tensors
 every kernel wrapper runs its plain PyTorch version; on CUDA tensors it

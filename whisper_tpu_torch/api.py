@@ -194,6 +194,12 @@ class WhisperState:
         self.tid_last = 0
         self.exp_n_audio_ctx = 0
         self.timings = Timings()
+        # capi's raw encode/decode session (capi.py): whisper_encode/
+        # decode_with_state keep the cross-KV, self-KV and logits on their
+        # own state, not on the context's default one
+        self._capi_logits = None
+        self._capi_kv = None
+        self._encoded = None
 
     def full_n_segments(self): return len(self.result_all)
     def full_lang_id(self): return self.lang_id_state
@@ -1098,7 +1104,8 @@ class WhisperContext:
 # state selected by use_state() in the calling thread
 for _f in ("mel", "mel_n_len_org", "lang_id_state", "no_speech_prob",
            "result_all", "prompt_past", "energy", "t_beg", "t_last",
-           "tid_last", "exp_n_audio_ctx", "timings"):
+           "tid_last", "exp_n_audio_ctx", "timings",
+           "_capi_logits", "_capi_kv", "_encoded"):
     setattr(WhisperContext, _f, _session_property(_f))
 del _f
 

@@ -32,9 +32,9 @@ _LOCK = threading.Lock()
 
 
 def library_path(stem: str, build_dir: Path, units, link_flags,
-                 headers=()) -> Path:
+                 headers=(), libs=()) -> Path:
     """Where the library of these (source, compile flags) units, link
-    flags and headers lives once built."""
+    flags, headers and libraries lives once built."""
     h = hashlib.sha256()
     for src, flags in units:
         h.update(Path(src).name.encode() + b"\0" + Path(src).read_bytes())
@@ -42,6 +42,8 @@ def library_path(stem: str, build_dir: Path, units, link_flags,
     for hdr in headers:
         h.update(Path(hdr).name.encode() + b"\0" + Path(hdr).read_bytes())
     h.update(" ".join(link_flags).encode())
+    if libs:
+        h.update(b"\0" + " ".join(libs).encode())
     return Path(build_dir) / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -52,11 +54,11 @@ def _run(cmd: list[str]) -> None:
 
 
 def build(stem: str, build_dir: Path, units, link_flags,
-          headers=()) -> Path:
+          headers=(), libs=()) -> Path:
     """Build (unless built) and return the library: each (source, flags)
     unit compiled with -c, all in parallel, then the objects linked with
-    `link_flags`."""
-    path = library_path(stem, build_dir, units, link_flags, headers)
+    `link_flags`, and `libs` (-L/-l flags) after the objects."""
+    path = library_path(stem, build_dir, units, link_flags, headers, libs)
     if path.is_file():
         return path
     cxx = shutil.which("c++")
@@ -84,8 +86,8 @@ def build(stem: str, build_dir: Path, units, link_flags,
             if failed:
                 raise OSError("\n".join(failed))
             tmp = tmp_dir / path.name
-            _run([cxx, *link_flags, *(str(obj) for _, obj, _ in jobs), "-o",
-                  str(tmp)])
+            _run([cxx, *link_flags, *(str(obj) for _, obj, _ in jobs),
+                  *libs, "-o", str(tmp)])
             os.replace(tmp, path)
         finally:
             shutil.rmtree(tmp_dir, ignore_errors=True)
