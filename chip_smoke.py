@@ -122,7 +122,17 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      file (K1; K3 at M = 1, 5 and 256), -w 1, -w 2 and -w 3 --size
      large-v3 (K1 at T = 512), each table on stderr; the shapes this phase
      launches first are timed against their plain versions
-In 5-8, 10, 11 and 13 every segment list must be non-empty and every
+ 19. "mesh": parallel/mesh.py on the one card (check_mesh): two spawned
+     ranks over gloo, each with large-v3's random weights (dense bf16,
+     einsum_q8), run BatchTranscriber on 4 int16 streams of 15 s (greedy,
+     the serving settings) with mesh=None, then over a 1 x 2 mesh (tensor
+     parallel: K1 and K2 at 10 heads) and a 2 x 1 mesh (data parallel),
+     each held against mesh=None (teacher-forced logits within MESH_TOL,
+     tokens equal where the mesh=None margin exceeds it); then the script
+     itself, one rank over NCCL, runs parallel/mesh.dryrun_multichip at
+     float32; the shapes
+     this phase launches first are timed against their plain versions
+In 5-8, 10, 11, 13 and 19 every segment list must be non-empty and every
 probability finite.
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -139,6 +149,7 @@ tools/profile_encoder_torch.py step times the step alone).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -239,6 +250,15 @@ APPS_WORDS = ["red", "green", "blue", "yellow"]
 # torch and loads the small file on the card)
 CAPI_S = 10
 CAPI_C_TIMEOUT = 300
+# the phase "mesh": seconds of each int16 stream; the meshes (n_data,
+# n_model) its two gloo ranks run, tensor then data parallel; the bound on
+# |teacher-forced logits - mesh=None's| (bf16 at 32 + 32 layers: the
+# tensor-parallel sums are f32 partials reduced, not bf16 products); the
+# spawned processes' time limit
+MESH_S = 15
+MESH_SHAPES = ((1, 2), (2, 1))
+MESH_TOL = 5e-2
+MESH_TIMEOUT = 300
 
 
 def log(msg: str) -> None:
@@ -347,9 +367,10 @@ def path_shapes() -> dict:
     C (batch 1) and of bench.py's batch of 64; K3 (M, K, N) of the decoder
     linears, and of large-v3's at the prompt passes of serving batches of
     4 and 64 streams and at the CLI defaults' five decoders; K4/K5
-    (B, H, Ta, Dh); K7 (seconds of PCM, n_mels).  A shape that a main
-    path launches and this list lacks is checked after the paths
-    (check_launched)."""
+    (B, H, Ta, Dh); K7 (seconds of PCM, n_mels); K1, K2, K4, K5 and K6
+    also at the serving batch with large-v3's heads split over two "model"
+    ranks (the phase "mesh").  A shape that a main path launches and this
+    list lacks is checked after the paths (check_launched)."""
     from whisper_tpu_torch.models.whisper import MODEL_DIMS, WhisperConfig
     from whisper_tpu_torch.ops.encoder_attention import BLOCK_Q
     big, small = (WhisperConfig(*MODEL_DIMS[s]) for s in ("large-v3",
@@ -378,12 +399,18 @@ def path_shapes() -> dict:
     def q8dt_grouped(S):
         return q8dt(S) + (BEAM,)
 
+    # the phase "mesh": large-v3's heads split over n_model = 2, 10 a rank
+    half = dataclasses.replace(
+        big, n_audio_state=big.n_audio_state // 2,
+        n_audio_head=big.n_audio_head // 2,
+        n_text_state=big.n_text_state // 2, n_text_head=big.n_text_head // 2)
+    hB, hH, hTa, hDh = xattn(half, N_STREAMS)
     b, tp, d, h, tv = padded(big, 1)
     return {"K1": [enc(big, 1), enc(small, 1), enc(big, N_STREAMS),
-                   enc(big, QUALITY_BATCH)],
+                   enc(big, QUALITY_BATCH), enc(half, N_STREAMS)],
             "K1dt": [(b, h, d // h, tp, tv)],
             "K2": [q8dt(N_STREAMS), q8dt(1), q8dt(BENCH_BATCH),
-                   q8dt(QUALITY_BATCH)],
+                   q8dt(QUALITY_BATCH), (hB, hH, hDh, hTa)],
             # the batched beam: S streams x BEAM beams as BEAM queries on
             # each stream's cross-KV row
             "K2G": [q8dt_grouped(N_STREAMS), q8dt_grouped(1)],
@@ -394,9 +421,12 @@ def path_shapes() -> dict:
             # path B: small q5_1
             "K3+mins": linears(small, big) + linears(big, ms=K3_SERVE_M
                                                      + K3_CLI_M),
-            "K4": [xattn(small, 1), xattn(big, 1), xattn(big, N_STREAMS)],
-            "K5": [xattn(big, 1), xattn(small, 1), xattn(big, N_STREAMS)],
-            "K6": [padded(big, 1), padded(small, 1), padded(big, N_STREAMS)],
+            "K4": [xattn(small, 1), xattn(big, 1), xattn(big, N_STREAMS),
+                   xattn(half, N_STREAMS)],
+            "K5": [xattn(big, 1), xattn(small, 1), xattn(big, N_STREAMS),
+                   xattn(half, N_STREAMS)],
+            "K6": [padded(big, 1), padded(small, 1), padded(big, N_STREAMS),
+                   padded(half, N_STREAMS)],
             "K7": [(MEL_S, big.n_mels), (MEL_S, small.n_mels)]}
 
 
@@ -714,12 +744,12 @@ def check_launched(gen, res) -> dict:
     checked = {k: {tuple(x) for x in v["shapes"]} for k, v in res.items()}
     checked["K7"] = {("frames", mel_frames(s), n)
                      for s, n in checked["K7"]}
-    # the phases "apps" and "capi" launch shapes no earlier phase does
-    # (stream's -ac, lsp's commandset prompt; whisper-bench's PP at M =
-    # 256 and -w 3's T = 512): those are timed too, kernel, plain and
-    # K3's dense yardstick
+    # the phases "apps", "capi" and "mesh" launch shapes no earlier phase
+    # does (stream's -ac, lsp's commandset prompt; whisper-bench's PP at
+    # M = 256 and -w 3's T = 512; the data-parallel rank's 2 rows): those
+    # are timed too, kernel, plain and K3's dense yardstick
     timed = {phase: LAUNCHED["by_phase"].get(phase, {})
-             for phase in ("apps", "capi")}
+             for phase in ("apps", "capi", "mesh")}
     extra = {}
     for key, shapes in sorted(LAUNCHED["shapes"].items()):
         res[key]["launched_shapes"] = sorted(list(x) for x in shapes)
@@ -2628,6 +2658,263 @@ def check_capi(card_line: str, big_file: Path) -> dict:
     return total
 
 
+def _mesh_forced(ctx, bt, seqs, n_prompt: int):
+    """Each stream's first window teacher-forced over its prompt and
+    emitted tokens (`seqs`, padded with EOT), for this rank's rows: ->
+    (rows, logits (R, T, V) f32, the filter chain's log-probs at each
+    emitted step (R, n_steps, V) f32), on the host.  The streams' mel
+    comes from bt.last_states at seek 0, encoded as the batch encodes
+    (this rank's rows on a data-parallel mesh)."""
+    from whisper_tpu_torch.decode.filters import (FilterConsts,
+                                                  make_process_logits)
+    from whisper_tpu_torch.models import whisper as wm
+    from whisper_tpu_torch.parallel.mesh import row_slice
+    n = len(seqs)
+    sl = row_slice(bt.mesh, n) or slice(0, n)
+    dev = ctx.device
+    (kq, ks), (vq, vs) = bt._encode_slots(bt.last_states, list(range(n)),
+                                          None, seeks=np.zeros((n,), np.int64))
+    T = max(len(s) for s in seqs)
+    toks = np.full((n, T), ctx.vocab.token_eot, np.int64)
+    for r, s in enumerate(seqs):
+        toks[r, :len(s)] = s
+    toks = torch.from_numpy(toks[sl]).to(dev)
+    R = toks.shape[0]
+    process = make_process_logits(
+        FilterConsts.from_vocab(ctx.vocab, ctx.config.n_audio_ctx), bt.opts,
+        device=dev)
+    f = torch.zeros((R,), dtype=torch.bool, device=dev)
+    lps = []
+    with torch.no_grad():
+        logits, _, _ = wm.decode_prompt(
+            ctx.params, toks, torch.arange(T, device=dev), ("q8", kq, ks),
+            ("q8", vq, vs), ctx.config.n_text_head,
+            self_mask=wm.make_causal_mask(T, device=dev),
+            compute_dtype=ctx.compute_dtype)
+        for j in range(T - n_prompt + 1):
+            _, lp, _ = process(
+                logits[:, n_prompt - 1 + j].float(), 0.0,
+                is_initial=torch.full((R,), j == 0, device=dev),
+                last_was_ts=f, penult_was_ts=~f, has_ts=f,
+                seek_delta=torch.zeros((R,), dtype=torch.int32, device=dev))
+            lps.append(lp.cpu())
+    return (list(range(n))[sl], logits.float().cpu(),
+            torch.stack(lps, dim=1))
+
+
+def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One of the phase "mesh"'s two ranks on the one card (gloo): the
+    large-v3 context's mesh=None run, then BatchTranscriber over each of
+    MESH_SHAPES, each held against it; pickles its results (or the
+    traceback) to out_dir."""
+    import pickle
+    import traceback
+    try:
+        out = _mesh_rank_body(rank, world, rdv)
+    except Exception:  # noqa: BLE001 - reported by the parent
+        out = {"error": traceback.format_exc()}
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def _mesh_rank_body(rank: int, world: int, rdv: str) -> dict:
+    import torch.distributed as dist
+    from whisper_tpu_torch import WhisperContext
+    from whisper_tpu_torch.audio.mel import full_f32_matmuls
+    from whisper_tpu_torch.ops import _build
+    from whisper_tpu_torch.parallel.batch import BatchTranscriber
+    from whisper_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    full_f32_matmuls()
+    record_launches(_build.library())
+    streams = [int16_noise(MESH_S, 300 + i) for i in range(N_STREAMS)]
+    p = serving_params()
+    base = WhisperContext.from_random("large-v3", seed=0,
+                                      cross_mode="einsum_q8")
+    whole = base.params
+    t0 = time.perf_counter()
+    bt = BatchTranscriber(base, batch_size=N_STREAMS, params=p)
+    ref_segs = bt.transcribe(streams)
+    torch.cuda.synchronize()
+    out = {"walls": {"mesh=None": time.perf_counter() - t0}, "counts": {},
+           "checks": {}, "tokens": {}}
+    check_segments("mesh=None", ref_segs)
+    ref_tok = [[t.id for s in segs for t in s.tokens] for segs in ref_segs]
+    n_prompt = len(bt.prompt_init)
+    seqs = [list(bt.prompt_init) + toks[:-1] for toks in ref_tok]
+    _, ref_logits, ref_lp = _mesh_forced(base, bt, seqs, n_prompt)
+    out["tokens"]["mesh=None"] = ref_tok
+    scale = float(ref_logits.abs().max())
+
+    for n_data, n_model in MESH_SHAPES:
+        name = f"{n_data}x{n_model}"
+        mesh = make_mesh(n_data, n_model, device="cuda:0", backend="gloo",
+                         init_method=f"file://{rdv}", world_size=world,
+                         rank=rank)
+        ctx = WhisperContext(config=base.config, vocab=base.vocab,
+                             filters=base.filters, params=whole,
+                             cross_mode="einsum_q8")
+        dist.barrier()
+        reset_counts()
+        LAUNCHED["on"] = True
+        t0 = time.perf_counter()
+        bt = BatchTranscriber(ctx, batch_size=N_STREAMS, params=p, mesh=mesh)
+        segs = bt.transcribe(streams)
+        torch.cuda.synchronize()
+        out["walls"][name] = time.perf_counter() - t0
+        LAUNCHED["on"] = False
+        out["counts"][name] = read_counts()
+        check_segments(f"mesh {name}", segs)
+        toks = [[t.id for s in ss for t in s.tokens] for ss in segs]
+        out["tokens"][name] = toks
+        rows, logits, lp = _mesh_forced(ctx, bt, seqs, n_prompt)
+        # logits: within MESH_TOL of the unsharded ones
+        err = float((logits - ref_logits[rows]).abs().max())
+        if not torch.isfinite(logits).all() or err > MESH_TOL:
+            raise AssertionError(f"mesh {name}: teacher-forced logits "
+                                 f"{err:.4g} from mesh=None (tol {MESH_TOL})")
+        decided, held = [], []
+        for i, r in enumerate(rows):
+            tok = ref_tok[r]
+            n_dec, n_held, free = 0, None, True
+            for j, t in enumerate(tok):
+                lr, lm = ref_lp[r, j].clone(), lp[i, j].clone()
+                gap_ref = float(lr[t] - lr.index_fill(0, torch.tensor(t),
+                                                      -float("inf")).max())
+                gap = float(lm[t] - lm.index_fill(0, torch.tensor(t),
+                                                  -float("inf")).max())
+                if gap_ref > 2 * MESH_TOL:
+                    n_dec += 1
+                    if not gap > 0:
+                        raise AssertionError(
+                            f"mesh {name} stream {r} step {j}: another token"
+                            f" teacher-forced (gap {gap:.4g}, mesh=None "
+                            f"{gap_ref:.4g})")
+                    if free and (j >= len(toks[r]) or toks[r][j] != t):
+                        raise AssertionError(
+                            f"mesh {name} stream {r} step {j}: free-running"
+                            " token differs at a decided step")
+                elif free:
+                    free, n_held = False, j
+            decided.append(n_dec)
+            held.append(len(tok) if n_held is None else n_held)
+        out["checks"][name] = {"logits_max_abs_err": err,
+                               "logits_scale": scale, "rows": rows,
+                               "decided": decided, "held": held,
+                               "of": [len(ref_tok[r]) for r in rows]}
+        del ctx, bt
+        torch.cuda.empty_cache()
+    out["shapes"] = {k: sorted(v) for k, v in LAUNCHED["shapes"].items()}
+    dist.destroy_process_group()
+    return out
+
+
+def _mesh_dryrun(rdv: str) -> dict:
+    """The one-rank NCCL mesh, in this process: dryrun_multichip on
+    cuda:0.  -> its backend, step counts and wall."""
+    import torch.distributed as dist
+    from whisper_tpu_torch.parallel.mesh import dryrun_multichip, make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh(device="cuda:0", init_method=f"file://{rdv}",
+                     world_size=1, rank=0)
+    try:
+        out = {"backend": mesh.backend, "steps": dryrun_multichip(mesh)}
+    finally:
+        dist.destroy_process_group()
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def _spawn_wait(label: str, procs, out_dir: Path, names) -> list:
+    """Start `procs`, wait for them (MESH_TIMEOUT in all, then terminate)
+    and load each one's pickle (out_dir/{name}.pkl)."""
+    import pickle
+    for proc in procs:
+        proc.start()
+    end = time.monotonic() + MESH_TIMEOUT
+    try:
+        for proc in procs:
+            proc.join(max(0.0, end - time.monotonic()))
+        if any(proc.is_alive() for proc in procs):
+            raise AssertionError(f"{label}: ranks still running after "
+                                 f"{MESH_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    results = []
+    for proc, name in zip(procs, names):
+        path = out_dir / f"{name}.pkl"
+        if not path.is_file():
+            raise AssertionError(f"{label} {name}: exit {proc.exitcode}, "
+                                 "no result")
+        res = pickle.loads(path.read_bytes())
+        if "error" in res:
+            raise AssertionError(f"{label} {name}:\n{res['error']}")
+        results.append(res)
+    return results
+
+
+def check_mesh(card_line: str) -> dict:
+    """The phase "mesh": parallel/mesh.py on the one card.  Two spawned
+    ranks over gloo (NCCL refuses two ranks on one device) build
+    large-v3's random-weight context (seed 0, dense bf16, einsum_q8) and
+    run BatchTranscriber on N_STREAMS int16 streams of MESH_S s at
+    batch_size N_STREAMS, greedy with the serving settings: mesh=None,
+    then over 1 x 2 (tensor parallel: K1 at 10 heads, K2 at 10 heads)
+    and 2 x 1 (data parallel: 2 rows a rank).  Each mesh run is held
+    against mesh=None: the teacher-forced logits of each stream's first
+    window within MESH_TOL, the same winner teacher-forced, and the same
+    free-running tokens, at every step whose mesh=None top-two margin of
+    the filtered log-probs exceeds 2 x MESH_TOL (each logit may move by
+    MESH_TOL).  Then this process, one rank over NCCL, runs
+    dryrun_multichip at float32.
+    Walls and checks go to stderr.  -> the launch counts of the mesh runs
+    (both ranks, both meshes); their launch shapes join LAUNCHED."""
+    import multiprocessing
+    import shutil
+    spawn = multiprocessing.get_context("spawn")
+    out_dir = BUILD / "mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ranks = _spawn_wait(
+        "mesh", [spawn.Process(target=_mesh_rank,
+                               args=(r, 2, str(out_dir / "rdv"),
+                                     str(out_dir)))
+                 for r in range(2)], out_dir, ["rank0", "rank1"])
+    wall_gloo = time.perf_counter() - t0
+    counts = {}
+    for r, res in enumerate(ranks):
+        for name, c in res["counts"].items():
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        for key, shapes in res["shapes"].items():
+            for shape in shapes:
+                LAUNCHED["shapes"].setdefault(key, set()).add(tuple(shape))
+                LAUNCHED["by_phase"].setdefault("mesh", {}).setdefault(
+                    key, set()).add(tuple(shape))
+        elog(f"[{card_line}] mesh rank {r}: walls (s) "
+             + json.dumps({k: round(v, 3) for k, v in res["walls"].items()})
+             + "; checks " + json.dumps(res["checks"])
+             + "; launches " + json.dumps(res["counts"]))
+    for name in ("1x2", "2x1"):
+        if ranks[0]["tokens"][name] != ranks[1]["tokens"][name]:
+            raise AssertionError(f"mesh {name}: the ranks' segments differ")
+    dry = _mesh_dryrun(str(out_dir / "rdv_nccl"))
+    if dry["backend"] != "nccl" or min(dry["steps"].values()) <= 0:
+        raise AssertionError(f"mesh dryrun: {dry}")
+    elog(f"[{card_line}] mesh: gloo ranks {wall_gloo:.2f} s, nccl dryrun "
+         f"{dry['wall']:.2f} s (steps {dry['steps']}); launches {counts}; "
+         "shapes "
+         + json.dumps({k: sorted(list(s) for s in v) for k, v in
+                       LAUNCHED["by_phase"].get("mesh", {}).items()}))
+    require_launches("mesh", counts, ("K1", "K2"))
+    return counts
+
+
 def front_end(card_line: str, params, cfg):
     """Path D: MEL_S s of PCM through log_mel_pallas (K7); large-v3 encode
     of the first window at B = 1 in each attn_impl, held against "pallas"
@@ -2812,6 +3099,10 @@ def main() -> int:
         # (K1; K3 at M = 4, 1 and 12) and whisper-bench (K3 at M = 5 and
         # 256, K1 at T = 512)
         "capi": lambda: check_capi(card_line, big_file),
+        # parallel/mesh.py: two gloo ranks on the card, tensor (1 x 2: K1
+        # and K2 at 10 heads) and data (2 x 1) parallel, and a one-rank
+        # NCCL dry run
+        "mesh": lambda: check_mesh(card_line),
     }
     paths = {}
     for name, run in phases.items():

@@ -126,14 +126,29 @@ def test_refused_options(contexts, field, value):
         BatchTranscriber(tctx, batch_size=2, params=p, device_mel=True)
 
 
-def test_refused_paths(contexts):
+def test_refused_paths(contexts, tmp_path):
     jctx, tctx = contexts
     p = _params(full_default_params, {})
     # the host-mel path runs (tests/test_torch_continuous.py)
     assert not BatchTranscriber(tctx, batch_size=2, params=p).device_mel
-    with pytest.raises(NotImplementedError):
+    # a mesh is ported (tests/test_torch_mesh.py); a mesh must be one
+    with pytest.raises(TypeError, match="mesh"):
         BatchTranscriber(tctx, batch_size=2, params=p, mesh=object(),
                          device_mel=True)
+    # the continuous engine over a mesh-attached context is not ported yet
+    import torch.distributed as dist
+    from whisper_tpu_torch.parallel.batch import ContinuousBatcher
+    from whisper_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(device="cpu", init_method=f"file://{tmp_path}/rdv",
+                     world_size=1, rank=0)
+    try:
+        mctx = WhisperContext.from_random(dims=MICRO, device="cpu")
+        BatchTranscriber(mctx, batch_size=2, params=p, mesh=mesh)
+        assert mctx.mesh is mesh
+        with pytest.raises(NotImplementedError, match="mesh"):
+            ContinuousBatcher(mctx, batch_size=2, params=p)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="cross_mode"):
         WhisperContext.from_random(dims=MICRO, cross_mode="einsum_q2",
                                    device="cpu")

@@ -19,7 +19,12 @@ logits-filter callbacks decode on the host loop of decode/grammar_loop.py
 search).  `full_parallel` splits the audio into chunks, batched through
 parallel/batch.BatchTranscriber where it can, else serially on fresh
 states.  Its entry points run on the card (device="cuda") unless the
-caller asks for the CPU.  A device mesh is not ported.
+caller asks for the CPU.  On a context that parallel/batch.BatchTranscriber
+attached to a device mesh (parallel/mesh.py: one process per card, every
+rank calling with the same inputs), `full` runs over the sharded params:
+a window decode whose rows divide over the data axes splits them
+(greedy and the batched beam; the serial beam's coupled rows run on every
+data group) and all-gathers its results.
 """
 
 from __future__ import annotations
@@ -293,6 +298,9 @@ class WhisperContext:
         # server's engine threads and its serial fallback share one context
         self._tls = threading.local()
         self._fn_cache: dict = {}
+        # set by BatchTranscriber(mesh=...): params then hold this rank's
+        # shard (parallel/mesh.py)
+        self.mesh = None
 
     # ---- constructors (whisper_init_*; reference: whisper.h:195-228) -----
 
@@ -445,7 +453,9 @@ class WhisperContext:
                           extra_suppress: tuple = ()):
         """The window decode of B rows: "greedy" (decode/loop.py, keys
         (B, 2) or (2,)) or "beam" (decode/beam.py's serial beam, B =
-        beam_size, one (2,) key)."""
+        beam_size, one (2,) key).  On a mesh, greedy rows split over the
+        data axes when B divides over them (parallel/mesh.split_window_fn);
+        the serial beam's rows are coupled and run replicated."""
         key = ("dec", B, P, opts, single_segment, no_timestamps, max_tokens,
                strategy, extra_suppress)
         if key not in self._fn_cache:
@@ -459,6 +469,9 @@ class WhisperContext:
                 fn = make_beam_decode_window(beam_size=B, **kw)
             elif strategy == "greedy":
                 fn = make_decode_window(**kw)
+                if self.mesh is not None:
+                    from .parallel.mesh import split_window_fn
+                    fn = split_window_fn(fn, self.mesh, B)
             else:
                 raise ValueError(f"unknown decode strategy {strategy!r}")
             self._fn_cache[key] = fn
@@ -470,18 +483,25 @@ class WhisperContext:
                               extra_suppress: tuple = ()):
         """Batched beam search: S streams x K beams in one batch
         (decode/beam.make_batched_beam_decode_window); per-stream inputs
-        and (S, 2) keys, per-beam outputs (S*K rows)."""
+        and (S, 2) keys, per-beam outputs (S*K rows).  On a mesh the
+        streams split over the data axes when S divides over them, a
+        stream's K beams staying on one rank."""
         key = ("decbb", S, K, P, opts, single_segment, no_timestamps,
                max_tokens, extra_suppress)
         if key not in self._fn_cache:
-            self._fn_cache[key] = make_batched_beam_decode_window(
+            from .parallel.mesh import row_slice, split_window_fn
+            sl = row_slice(self.mesh, S)
+            fn = make_batched_beam_decode_window(
                 consts=FilterConsts.from_vocab(self.vocab,
                                                self.config.n_audio_ctx),
                 options=opts,
                 cfg=self._loop_config(P, single_segment, no_timestamps,
                                       max_tokens),
-                n_streams=S, beam_size=K, extra_suppress=extra_suppress,
+                n_streams=S if sl is None else sl.stop - sl.start,
+                beam_size=K, extra_suppress=extra_suppress,
                 device=self.device)
+            self._fn_cache[key] = (fn if sl is None
+                                   else split_window_fn(fn, self.mesh, S))
         return self._fn_cache[key]
 
     @property

@@ -260,7 +260,9 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         kc_loop, vc_loop = loop_cross_kv(cfg.cross_mode, k_cross, v_cross,
                                          cd)
 
-        # self-KV cache (L, B, H, Dh, C); slots [0, P) hold the prompt
+        # self-KV cache (L, B, H, Dh, C); slots [0, P) hold the prompt.  On
+        # a mesh B and H are this rank's rows and heads (the prompt rows
+        # and the cross-KV it was given)
         kv_k = torch.zeros((L, B, H, Dh, C), dtype=cd, device=dev)
         kv_v = torch.zeros((L, B, H, Dh, C), dtype=cd, device=dev)
         kv_k[..., :P] = k_self.permute(0, 1, 3, 4, 2).to(cd)

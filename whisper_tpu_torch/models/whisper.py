@@ -15,6 +15,15 @@ and "q8dt", K4 on ("bhtd", K/V) and K5 on {"q", "s"}
 (ops/cross_attention.py).  The "q8i" and "q4e" steps and the dense einsum
 are plain torch, as whisper_tpu leaves them to XLA.  `*_interpret`
 attention impls select the kernels' plain versions on any device.
+
+Tensor parallelism: params from parallel/mesh.shard_params hold one
+"model" rank's shard and carry the mesh.  Each function then takes its
+head count from the local q/xq shard, all-reduces the f32 partial products
+of the row-parallel o, xo and mlp2 (the bias added once, after the
+reduce, then the one rounding), looks up tok_emb rows by a masked local
+lookup plus an all-reduce (exact: one rank holds each row, the others add
+zeros) and all-gathers the vocab-sharded logits in rank order.  Params
+without a mesh, or on a mesh of one "model" rank, run no collective.
 """
 
 from __future__ import annotations
@@ -97,13 +106,39 @@ def _layernorm(x, w, b, eps: float = 1e-5):
     return F.layer_norm(x, (x.shape[-1],), w.float(), b.float(), eps)
 
 
+def _model_axis(params):
+    """The mesh of params split over more than one "model" rank
+    (parallel/mesh.shard_params), else None: no collective runs."""
+    mesh = getattr(params, "mesh", None)
+    return mesh if mesh is not None and mesh.n_model > 1 else None
+
+
+def _local_heads(w, n_head: int) -> int:
+    """Heads this rank holds: the out-features of its q/xq shard (L, out,
+    in) over the head width; n_head for a whole or packed weight."""
+    if isinstance(w, dict):
+        return n_head
+    return n_head * w.shape[-2] // w.shape[-1]
+
+
+def _partial_f32(x, w, compute_dtype):
+    """A row-parallel shard's x @ w.T as float32 partial sums of the
+    compute-dtype operands' exact products, for the all-reduce (its
+    rounding comes after the reduce)."""
+    return F.linear(x.to(compute_dtype).float(), w.to(compute_dtype).float())
+
+
 def _linear(x, w, b=None, compute_dtype=torch.bfloat16,
-            out_dtype=torch.float32):
+            out_dtype=torch.float32, tp=None):
     """x @ w.T (+ b) -> out_dtype: the product in the compute dtype, plus
     the bias in float32, rounded once to out_dtype.  out_dtype = the
     compute dtype gives what a following `.float().to(compute_dtype)`
-    would, in one kernel (the bias add casts on its way out)."""
-    if isinstance(w, dict):
+    would, in one kernel (the bias add casts on its way out).  tp: the
+    mesh of a row-parallel w (this rank's in-features): the f32 partial
+    products are summed over "model" before the bias."""
+    if tp is not None:
+        y = tp.all_reduce(_partial_f32(x, w, compute_dtype))
+    elif isinstance(w, dict):
         # block-quantized weight {"q": (K, N) int8, "s": (K/32, N)[, "m"]}
         # -> K3, which rounds x to bf16 itself whatever the compute dtype
         # (so x goes in uncast: a cast to bf16 or f32 first changes no bit)
@@ -177,7 +212,8 @@ def _flash_self_attention(q, k, v, compute_dtype):
     return self_attention(q, k, v, compute_dtype)
 
 
-def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum"):
+def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum",
+                   tp=None):
     cd = compute_dtype
     # rounded to the compute dtype once for the three projections, whose
     # results come out in it: every attention impl casts q/k/v to it first
@@ -195,11 +231,11 @@ def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum"):
         attn = _attention(q, k, v, compute_dtype=compute_dtype)
     else:
         raise ValueError(f"unknown encoder attn_impl {attn_impl!r}")
-    x = x + _linear(attn, blk["o_w"], blk["o_b"], compute_dtype)
+    x = x + _linear(attn, blk["o_w"], blk["o_b"], compute_dtype, tp=tp)
 
     ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
     h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], compute_dtype))
-    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype)
+    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype, tp=tp)
 
 
 def _layernorm_dt(x, w, b, eps: float = 1e-5):
@@ -207,66 +243,71 @@ def _layernorm_dt(x, w, b, eps: float = 1e-5):
     return _layernorm(x.transpose(1, 2), w, b, eps).transpose(1, 2)
 
 
-def _linear_dt(x, w, b=None, compute_dtype=torch.bfloat16):
+def _linear_dt(x, w, b=None, compute_dtype=torch.bfloat16, tp=None):
     """Channels-first linear: x (B, I, T), w torch-(O, I) -> (B, O, T) f32,
-    the (out, in) weight used as it lies."""
-    y = torch.matmul(w.to(compute_dtype), x.to(compute_dtype)).float()
+    the (out, in) weight used as it lies.  tp: as _linear's."""
+    if tp is not None:
+        cd = compute_dtype
+        y = tp.all_reduce(torch.matmul(w.to(cd).float(), x.to(cd).float()))
+    else:
+        y = torch.matmul(w.to(compute_dtype), x.to(compute_dtype)).float()
     if b is not None:
         y = y + b[:, None]
     return y
 
 
 def _encoder_block_dt(x, blk, n_head, compute_dtype, t_valid: int,
-                      interpret: bool = False):
+                      interpret: bool = False, tp=None):
     """Encoder layer on (B, D, Tp) channels-first activations: the QKV
     projections emit (B, D, Tp), the head split to (B, H, Dh, Tp) is a
     reshape, and K1's Dh-major entry reads that layout as it lies.  Pad
     columns past t_valid carry garbage, are masked as keys and are sliced
     off by encode()."""
-    B, D, Tp = x.shape
+    B, _, Tp = x.shape
     attn_fn = encoder_attention_ref if interpret else encoder_attention
     ln = _layernorm_dt(x, blk["attn_ln_w"], blk["attn_ln_b"])
 
     def heads(w, b):
         y = _linear_dt(ln, w, b, compute_dtype)
-        return y.reshape(B, n_head, D // n_head, Tp).to(compute_dtype)
+        return y.reshape(B, n_head, -1, Tp).to(compute_dtype)
 
     attn = attn_fn(heads(blk["q_w"], blk["q_b"]), heads(blk["k_w"], None),
                    heads(blk["v_w"], blk["v_b"]), t_valid)
-    x = x + _linear_dt(attn.reshape(B, D, Tp), blk["o_w"], blk["o_b"],
-                       compute_dtype)
+    x = x + _linear_dt(attn.reshape(B, -1, Tp), blk["o_w"], blk["o_b"],
+                       compute_dtype, tp=tp)
 
     ln = _layernorm_dt(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
     h = _gelu(_linear_dt(ln, blk["mlp0_w"], blk["mlp0_b"], compute_dtype))
-    return x + _linear_dt(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype)
+    return x + _linear_dt(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype,
+                          tp=tp)
 
 
 def _encoder_block_pf(x, blk, n_head, compute_dtype, t_valid: int,
-                      interpret: bool = False):
+                      interpret: bool = False, tp=None):
     """Projection-fused encoder layer: the residual stays (B, Tp, D), the
     QKV projections emit K1's (B, H, Dh, Tp) directly, and the output
     projection contracts the (H, Dh) pair back to (B, Tp, D)."""
-    B, Tp, D = x.shape
+    B, Tp, _ = x.shape
     attn_fn = encoder_attention_ref if interpret else encoder_attention
     ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
     ln_t = ln.transpose(1, 2)                                # (B, D, Tp)
 
     def proj_ht(w, b):
         y = _linear_dt(ln_t, w, b, compute_dtype)            # (B, D, Tp)
-        return y.reshape(B, n_head, D // n_head, Tp).to(compute_dtype)
+        return y.reshape(B, n_head, -1, Tp).to(compute_dtype)
 
     attn = attn_fn(proj_ht(blk["q_w"], blk["q_b"]), proj_ht(blk["k_w"], None),
                    proj_ht(blk["v_w"], blk["v_b"]), t_valid)
-    x = x + _linear(attn.reshape(B, D, Tp).transpose(1, 2), blk["o_w"],
-                    blk["o_b"], compute_dtype)
+    x = x + _linear(attn.reshape(B, -1, Tp).transpose(1, 2), blk["o_w"],
+                    blk["o_b"], compute_dtype, tp=tp)
 
     ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
     h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], compute_dtype))
-    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype)
+    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype, tp=tp)
 
 
 def _encoder_block_btd(x, blk, n_head, compute_dtype, t_valid: int,
-                       interpret: bool = False):
+                       interpret: bool = False, tp=None):
     """Transpose-free encoder layer: K6 reads the projections' natural
     (B, Tp, D) output, each head the Dh-wide column slice of a row."""
     attn_fn = encoder_attention_btd_ref if interpret else \
@@ -277,11 +318,11 @@ def _encoder_block_btd(x, blk, n_head, compute_dtype, t_valid: int,
     k = _linear(ln, blk["k_w"], None, cd, cd)                # K has no bias
     v = _linear(ln, blk["v_w"], blk["v_b"], cd, cd)
     attn = attn_fn(q, k, v, n_head, t_valid)
-    x = x + _linear(attn, blk["o_w"], blk["o_b"], cd)
+    x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
 
     ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
     h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd)
+    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
 
 
 # padded whole-stack variants: impl -> (block fn, channels first)
@@ -331,6 +372,8 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
     if out_layout == "bdt" and base != "pallas_dt":
         raise ValueError("out_layout='bdt' requires attn_impl='pallas_dt'")
     layers = _layers(enc["blocks"])
+    tp = _model_axis(params)
+    n_head = _local_heads(enc["blocks"]["q_w"], n_head)
 
     if base in _PADDED_BLOCKS:
         block_fn, channels_first = _PADDED_BLOCKS[base]
@@ -341,7 +384,7 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
             x = x.transpose(1, 2)                           # (B, D, Tp)
         for blk in layers:
             x = block_fn(x, blk, n_head, compute_dtype, t_valid=n_ctx,
-                         interpret=interpret)
+                         interpret=interpret, tp=tp)
         if channels_first:
             x = x[..., :n_ctx]
             if out_layout == "bdt":
@@ -350,7 +393,7 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
         return _layernorm(x[:, :n_ctx], enc["ln_post_w"], enc["ln_post_b"])
 
     for blk in layers:
-        x = _encoder_block(x, blk, n_head, compute_dtype, attn_impl)
+        x = _encoder_block(x, blk, n_head, compute_dtype, attn_impl, tp)
     return _layernorm(x, enc["ln_post_w"], enc["ln_post_b"])
 
 
@@ -358,21 +401,24 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
 # cross-attention KV precompute (reference: src/whisper.cpp:2285-2359)
 # ---------------------------------------------------------------------------
 
-def _make_cross_proj(enc_out, n_head: int, compute_dtype, enc_layout: str):
+def _make_cross_proj(params, enc_out, n_head: int, compute_dtype,
+                     enc_layout: str):
     """Per-layer cross K/V projection from the encoder output in
     `enc_layout`: "btd" (B, Ta, D), projected then split to (B, H, Dh, Ta);
     or "bdt" (B, D, Ta) from encode(out_layout="bdt"), projected to
     (B, D, Ta), where the head split is a reshape.
-    Returns blk -> (k, v), each (B, H, Dh, Ta) in the compute dtype."""
+    Returns blk -> (k, v), each (B, H, Dh, Ta) in the compute dtype (H
+    this rank's heads under tensor parallelism)."""
     cd = compute_dtype
+    n_head = _local_heads(params["decoder"]["blocks"]["xk_w"], n_head)
     if enc_layout == "bdt":
-        B, D, Ta = enc_out.shape
+        B, _, Ta = enc_out.shape
 
         def proj(blk):
             k = _linear_dt(enc_out, blk["xk_w"], None, cd)
             v = _linear_dt(enc_out, blk["xv_w"], blk["xv_b"], cd)
-            return (k.reshape(B, n_head, D // n_head, Ta).to(cd),
-                    v.reshape(B, n_head, D // n_head, Ta).to(cd))
+            return (k.reshape(B, n_head, -1, Ta).to(cd),
+                    v.reshape(B, n_head, -1, Ta).to(cd))
         return proj
     if enc_layout != "btd":
         raise ValueError(f"unknown enc_layout {enc_layout!r}")
@@ -409,7 +455,8 @@ def cross_kv(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
     dtype (the dense cross-KV that cross modes "einsum", "pallas" and
     "pallas_q8" read, and that `full` quantizes per window for the
     quantized modes)."""
-    proj = _make_cross_proj(enc_out, n_head, compute_dtype, enc_layout)
+    proj = _make_cross_proj(params, enc_out, n_head, compute_dtype,
+                            enc_layout)
     kc, vc = _stack_layers(params, proj, lambda k, v: (k, v))
     return kc, vc
 
@@ -420,7 +467,8 @@ def cross_kv_q8(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
     for K and for V.  Each layer is projected and quantized before the
     next, so the bf16 (L, B, H, Dh, Ta) stack never exists in device
     memory."""
-    proj = _make_cross_proj(enc_out, n_head, compute_dtype, enc_layout)
+    proj = _make_cross_proj(params, enc_out, n_head, compute_dtype,
+                            enc_layout)
     kq, ks, vq, vs = _stack_layers(
         params, proj, lambda k, v: (*quantize_kv_bhdt(k),
                                     *quantize_kv_bhdt(v)))
@@ -432,7 +480,8 @@ def cross_kv_q4(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
     """enc_out -> ((L, B, H, Dh/2, Ta) uint8 nibble-packed codes,
     (L, B, H, Ta) f32 scales) for K and for V, quantized per layer as in
     cross_kv_q8.  4-bit K/V is not token-exact against bf16 in general."""
-    proj = _make_cross_proj(enc_out, n_head, compute_dtype, enc_layout)
+    proj = _make_cross_proj(params, enc_out, n_head, compute_dtype,
+                            enc_layout)
     kq, ks, vq, vs = _stack_layers(
         params, proj, lambda k, v: (*quantize_kv_bhdt_q4(k),
                                     *quantize_kv_bhdt_q4(v)))
@@ -468,6 +517,31 @@ def _dequant(tag, codes, scales, compute_dtype):
             * scales[:, :, None, :].to(compute_dtype))
 
 
+def _embed(dec, tokens, positions, tp):
+    """tok_emb[tokens] + pos[positions] in float32.  Under tensor
+    parallelism each rank looks up the rows of its vocab shard, zeros
+    elsewhere, and the all-reduce sums in the one nonzero row exactly."""
+    emb = dec["tok_emb"]
+    if tp is None:
+        rows = emb[tokens]
+    else:
+        v = emb.shape[0]
+        local = tokens - tp.model_rank * v
+        held = (local >= 0) & (local < v)
+        part = torch.where(held[..., None],
+                           emb[local.clamp(0, v - 1)].float(), 0.0)
+        rows = tp.all_reduce(part).to(emb.dtype)
+    return (rows + dec["pos"][positions]).float()
+
+
+def _logits(x, tok_emb, compute_dtype, tp):
+    """x @ tok_emb.T in float32; under tensor parallelism the vocab
+    shards' columns all-gathered in rank order."""
+    logits = torch.matmul(x.to(compute_dtype),
+                          tok_emb.to(compute_dtype).T).float()
+    return logits if tp is None else tp.all_gather(logits, dim=-1)
+
+
 def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
                   self_mask=None, compute_dtype=torch.bfloat16):
     """Parallel decode of a token block (prompt processing).
@@ -486,10 +560,11 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
                          f"{k_cross[0]!r}")
     dec = params["decoder"]
     blocks = dec["blocks"]
-    nh = n_head
+    nh = _local_heads(blocks["q_w"], n_head)
     cd = compute_dtype
+    tp = _model_axis(params)
 
-    x = (dec["tok_emb"][tokens] + dec["pos"][positions]).float()
+    x = _embed(dec, tokens, positions, tp)
     ks_out, vs_out = [], []
     for l, blk in enumerate(_layers(blocks)):
         if tagged:
@@ -503,21 +578,21 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
         k = _split_heads(_linear(ln, blk["k_w"], None, cd), nh)
         v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], cd), nh)
         attn = _attention(q, k, v, self_mask, cd)
-        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd)
+        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
 
         ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
         xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
         attn = _cross_attention(xq, kc, vc, cd)
-        x = x + _linear(attn, blk["xo_w"], blk["xo_b"], cd)
+        x = x + _linear(attn, blk["xo_w"], blk["xo_b"], cd, tp=tp)
 
         ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
         h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd)
+        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
         ks_out.append(k)
         vs_out.append(v)
 
     x = _layernorm(x, dec["ln_w"], dec["ln_b"])
-    logits = torch.matmul(x.to(cd), dec["tok_emb"].to(cd).T).float()
+    logits = _logits(x, dec["tok_emb"], cd, tp)
     return logits, torch.stack(ks_out), torch.stack(vs_out)
 
 
@@ -534,7 +609,10 @@ def decode_prompt_cross_qk(params, tokens, positions, k_cross, v_cross,
     ("q8" / "q4", codes, scales), dequantized a layer at a time as
     decode_prompt does.  The linears are decode_prompt's (K3 at M = B*T
     over packed weights); the cross-attention softmax is explicit, in f32
-    over the compute-dtype QK, as whisper_tpu's.
+    over the compute-dtype QK, as whisper_tpu's.  Under tensor
+    parallelism each rank selects from its own heads, and an all-reduce
+    over "model" brings every selected (global) head's weights to every
+    rank, exactly (one rank holds each head, the others add zeros).
     Returns (logits (B, T, V), qk_sel (L, B, S, T, Ta) float32).
     """
     tagged = isinstance(k_cross, tuple)
@@ -542,12 +620,16 @@ def decode_prompt_cross_qk(params, tokens, positions, k_cross, v_cross,
         raise ValueError(f"decode_prompt_cross_qk: unknown cross-KV tag "
                          f"{k_cross[0]!r}")
     dec = params["decoder"]
-    nh = n_head
+    nh = _local_heads(dec["blocks"]["q_w"], n_head)
     cd = compute_dtype
+    tp = _model_axis(params)
     head_select = torch.as_tensor(head_select, dtype=torch.float32,
                                   device=tokens.device)
+    if tp is not None:
+        head_select = head_select[..., tp.model_rank * nh:
+                                  (tp.model_rank + 1) * nh]
 
-    x = (dec["tok_emb"][tokens] + dec["pos"][positions]).float()
+    x = _embed(dec, tokens, positions, tp)
     qk_all = []
     for l, blk in enumerate(_layers(dec["blocks"])):
         if tagged:
@@ -561,7 +643,7 @@ def decode_prompt_cross_qk(params, tokens, positions, k_cross, v_cross,
         k = _split_heads(_linear(ln, blk["k_w"], None, cd), nh)
         v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], cd), nh)
         attn = _attention(q, k, v, self_mask, cd)
-        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd)
+        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
 
         ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
         xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
@@ -573,15 +655,16 @@ def decode_prompt_cross_qk(params, tokens, positions, k_cross, v_cross,
         qk_all.append(torch.einsum("bhta,sh->bsta", w, head_select[l]))
         out = torch.matmul(w.to(cd), vc.transpose(-1, -2)).float()
         x = x + _linear(_merge_heads(out.transpose(1, 2)), blk["xo_w"],
-                        blk["xo_b"], cd)
+                        blk["xo_b"], cd, tp=tp)
 
         ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
         h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd)
+        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
 
     x = _layernorm(x, dec["ln_w"], dec["ln_b"])
-    logits = torch.matmul(x.to(cd), dec["tok_emb"].to(cd).T).float()
-    return logits, torch.stack(qk_all)
+    logits = _logits(x, dec["tok_emb"], cd, tp)
+    qk_sel = torch.stack(qk_all)
+    return logits, qk_sel if tp is None else tp.all_reduce(qk_sel)
 
 
 def _q8e_attention(xq, kq, ks, vq, vs, compute_dtype):
@@ -724,13 +807,14 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
     """
     dec = params["decoder"]
     blocks = dec["blocks"]
-    nh = n_head
+    nh = _local_heads(blocks["q_w"], n_head)
     cd = compute_dtype
+    tp = _model_axis(params)
     kk, vv = kv_self["k"], kv_self["v"]
     C = kk.shape[-1]
     dev = kk.device
 
-    x = (dec["tok_emb"][tokens] + dec["pos"][pos_ids]).float()[:, None, :]
+    x = _embed(dec, tokens, pos_ids, tp)[:, None, :]
 
     # attention mask over cache positions: valid iff pad_len <= idx < kv_len
     idx = torch.arange(C, device=dev)
@@ -748,7 +832,7 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
         vv[l, :, :, :, cache_index] = v_new[:, 0].to(vv.dtype)
 
         attn = _cross_attention(q, kk[l], vv[l], cd, mask=attn_mask)
-        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd)
+        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
 
         ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
         xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
@@ -757,14 +841,14 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
             xq.reshape(xq.shape[0] // group, group, nh, xq.shape[-1]),
             _cross_layer(k_cross, l), _cross_layer(v_cross, l), cd)
         x = x + _linear(attn.reshape(x.shape[0], 1, -1), blk["xo_w"],
-                        blk["xo_b"], cd)
+                        blk["xo_b"], cd, tp=tp)
 
         ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
         h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd)
+        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
 
     x = _layernorm(x, dec["ln_w"], dec["ln_b"])
-    logits = torch.matmul(x[:, 0].to(cd), dec["tok_emb"].to(cd).T).float()
+    logits = _logits(x[:, 0], dec["tok_emb"], cd, tp)
     return logits, {"k": kk, "v": vv}
 
 

@@ -29,10 +29,18 @@ not depend on its slot or its batch.  Beam search decodes S streams x K
 beams as rows of one batch against S cross-KV rows (decode/beam.py).
 With the context's dtw_token_timestamps, an iteration's finished windows
 share one teacher-forced cross-QK re-decode per DTW_QK_ROWS rows, and the
-host stamps each row's tokens (dtw.py).  A device mesh is not ported
-(NotImplementedError); grammars and logits-filter callbacks decode on the
-serial `full`'s host loop, and are refused here with ValueError, as
-whisper_tpu refuses them.
+host stamps each row's tokens (dtw.py).  Grammars and logits-filter
+callbacks decode on the serial `full`'s host loop, and are refused here
+with ValueError, as whisper_tpu refuses them.
+
+With a device mesh (parallel/mesh.py; one process per card, every rank
+calling transcribe with the same streams) the context's params are
+sharded over "model", and each encode, language pre-pass, window decode
+and DTW pass whose slot count divides over the data axes runs this rank's
+rows and all-gathers the host results, so every rank's stream states
+advance alike.  The resident PCM stack is off under a mesh, as in
+whisper_tpu; ContinuousBatcher refuses a mesh-attached context
+(NotImplementedError).
 """
 
 from __future__ import annotations
@@ -95,8 +103,15 @@ def _check_supported(ctx: WhisperContext, p: FullParams, mesh,
                      batch_size: int) -> None:
     """Refuse what the batch cannot decode, with the reason."""
     if mesh is not None:
-        raise NotImplementedError(
-            "whisper_tpu_torch BatchTranscriber does not port: a device mesh")
+        # imported here: `python -m whisper_tpu_torch.parallel.mesh` runs
+        # that module as __main__, which the package import must not load
+        from .mesh import Mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh),"
+                            f" got {type(mesh).__name__}")
+        if batch_size % mesh.n_data:
+            raise ValueError(f"batch_size {batch_size} must divide over "
+                             f"data={mesh.n_data}")
     if p.grammar_rules is not None or p.logits_filter_callback:
         # grammar decoding is a host-coupled pushdown automaton between
         # device steps: the serial full() decodes it
@@ -150,7 +165,8 @@ class StreamState(WhisperState):
 
 
 class BatchTranscriber:
-    """Transcribe many audio streams concurrently on one device."""
+    """Transcribe many audio streams concurrently on one device, or over a
+    device mesh (one process a card)."""
 
     def __init__(self, ctx: WhisperContext, batch_size: int = 8,
                  params: FullParams | None = None, mesh=None,
@@ -158,13 +174,24 @@ class BatchTranscriber:
         """device_mel: compute the log-mel on the device, fused into the
         batched encode.  The log-mel max normalization is then per 30 s
         window rather than per stream, as in whisper_tpu; off by default,
-        so that batch == serial stays token-exact."""
+        so that batch == serial stays token-exact.
+
+        mesh: a parallel.mesh.Mesh; batch_size must divide over its data
+        axes.  The context's params are replaced by this rank's shard and
+        the context keeps the mesh (a later BatchTranscriber without one
+        runs on it too)."""
         self.ctx = ctx
         self.B = batch_size
         self.device_mel = device_mel
         self.params = params or full_default_params()
         p = self.params
         _check_supported(ctx, p, mesh, batch_size)
+        if mesh is not None and ctx.mesh is not mesh:
+            from .mesh import shard_params
+            ctx.params = shard_params(ctx.params, mesh)
+            ctx.mesh = mesh
+            ctx._fn_cache.clear()   # window fns built for the whole batch
+        self.mesh = ctx.mesh
         self.auto_lang = _auto_lang(p)
         self.no_timestamps = p.no_timestamps
         self.opts = FilterOptions(
@@ -287,7 +314,7 @@ class BatchTranscriber:
                         for i in range(self.B)]
         kc, vc = self._encode_slots(states, slot_streams, pcm_dev,
                                     seeks=np.zeros((self.B,), np.int64))
-        probs = self._detect_probs(kc, vc)
+        probs = self._gather(self.B, self._detect_probs(kc, vc))
         for i, si in enumerate(rows):
             st = states[si]
             lid = int(np.argmax(probs[i]))
@@ -383,7 +410,8 @@ class BatchTranscriber:
         self.window_times = []
         t0 = time.perf_counter()
         pcm_dev = None
-        if (self.device_mel and states and sum(
+        # no resident stack under a mesh: each rank cuts its own rows
+        if (self.device_mel and self.mesh is None and states and sum(
                 st.pcm_padded.nbytes for st in states) <= self.RESIDENT_BYTES):
             pcm_dev = self._upload_pcm(states)
         self.phase_times["upload"] = time.perf_counter() - t0
@@ -679,7 +707,11 @@ class BatchTranscriber:
             kc, vc = self._encode_slots(states, slot_streams, pcm_dev,
                                         seeks=seeks)
             t0 = time.perf_counter()
-            qk = dtw_cross_qk(ctx, toks_arr, kc, vc, sel)
+            sl = self._rows(nB)
+            qk = dtw_cross_qk(ctx, toks_arr if sl is None else toks_arr[sl],
+                              kc, vc, sel)
+            # (L, B, S, T, Ta): rows on axis 1
+            qk = self._gather(nB, qk.swapaxes(0, 1)).swapaxes(0, 1)
             kc = vc = None
             t1 = time.perf_counter()
             for r, ((_, _, _, seek, n_frames, _), (toks, sot_len, segs)) in \
@@ -700,7 +732,8 @@ class BatchTranscriber:
         Three sources: the resident PCM stack `pcm_dev` (indexed by the
         stream's pool row when it has one, else by its position), PCM
         windows uploaded this iteration (device_mel without a resident
-        stack), or host log-mel windows."""
+        stack), or host log-mel windows.  On a mesh the slots that divide
+        over the data axes are encoded this rank's rows only."""
         ctx = self.ctx
         n_ctx = ctx.config.n_audio_ctx
         nB = len(slot_streams)
@@ -740,7 +773,32 @@ class BatchTranscriber:
                 mel, sk = states[si].mel, seek_of(row, si)
                 avail = max(0, min(2 * n_ctx, mel.shape[0] - sk))
                 windows[row, :avail] = mel[sk:sk + avail]
-        return self._encode_batch(torch.from_numpy(windows).to(ctx.device))
+        return self._encode_local(windows)
+
+    def _encode_local(self, windows: np.ndarray):
+        """_encode_batch of this rank's rows of the host windows (all of
+        them off a mesh, or when they do not divide over its data axes)."""
+        sl = self._rows(len(windows))
+        if sl is not None:
+            windows = windows[sl]
+        return self._encode_batch(
+            torch.from_numpy(windows).to(self.ctx.device))
+
+    def _rows(self, n: int) -> slice | None:
+        """This rank's rows of n slots on a mesh (parallel/mesh.row_slice),
+        None when all n run here."""
+        if self.mesh is None:
+            return None
+        from .mesh import row_slice
+        return row_slice(self.mesh, n)
+
+    def _gather(self, n: int, rows: np.ndarray) -> np.ndarray:
+        """The whole n-row result from this rank's rows: all-gathered over
+        the data axes when the n rows were split over them."""
+        if self._rows(n) is None:
+            return rows
+        from .mesh import gather_rows
+        return gather_rows(self.mesh, rows)
 
     def _prompt_bucket(self, prompts) -> int:
         """Fixed prompt-buffer size: one small bucket for bare prompts, one
@@ -797,7 +855,7 @@ class BatchTranscriber:
         else:
             windows = np.zeros((self.B, 2 * n_ctx, ctx.hparams.n_mels),
                                np.float32)
-        kc, vc = self._encode_batch(torch.from_numpy(windows).to(ctx.device))
+        kc, vc = self._encode_local(windows)
         bare = list(self.prompt_init)
         cap = min(self.params.n_max_text_ctx, ctx.config.n_text_ctx // 2)
         carried = [ctx.vocab.token_prev] + [0] * cap + bare
@@ -902,6 +960,11 @@ class ContinuousBatcher:
     def __init__(self, ctx: WhisperContext, batch_size: int = 8,
                  params: FullParams | None = None, device_mel: bool = False,
                  max_active: int | None = None, warmup: bool = False):
+        if ctx.mesh is not None:
+            # admission is timing-driven: every rank would need rank 0's
+            # plan of each iteration
+            raise NotImplementedError(
+                "ContinuousBatcher over a device mesh is not ported yet")
         self.bt = BatchTranscriber(ctx, batch_size=batch_size, params=params,
                                    device_mel=device_mel)
         if warmup:
