@@ -128,9 +128,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      the serving settings) with mesh=None, then over a 1 x 2 mesh (tensor
      parallel: K1 and K2 at 10 heads) and a 2 x 1 mesh (data parallel),
      each held against mesh=None (teacher-forced logits within MESH_TOL,
-     tokens equal where the mesh=None margin exceeds it); then the script
-     itself, one rank over NCCL, runs parallel/mesh.dryrun_multichip at
-     float32; the shapes
+     tokens equal where the mesh=None margin exceeds it); after the 1 x 2
+     run, ContinuousBatcher(batch_size=4) over the same context on both
+     ranks (rank 0 schedules, rank 1 replays its plans): the same streams'
+     segments equal to the 1 x 2 transcribe's token for token, 2 late
+     streams, an idle gap, both ranks' iterations and plan digests equal;
+     then the script itself, one rank over NCCL, runs
+     parallel/mesh.dryrun_multichip at float32; the shapes
      this phase launches first are timed against their plain versions
 In 5-8, 10, 11, 13 and 19 every segment list must be non-empty and every
 probability finite.
@@ -259,6 +263,11 @@ MESH_S = 15
 MESH_SHAPES = ((1, 2), (2, 1))
 MESH_TOL = 5e-2
 MESH_TIMEOUT = 300
+# the engine run over 1 x 2: the seconds its rank 0 idles before the
+# streams come (empty plans at every 0.25 s wakeup), and the streams that
+# arrive while the first N_STREAMS decode
+MESH_IDLE_S = 1.5
+MESH_LATE = 2
 
 
 def log(msg: str) -> None:
@@ -2803,10 +2812,94 @@ def _mesh_rank_body(rank: int, world: int, rdv: str) -> dict:
                                "logits_scale": scale, "rows": rows,
                                "decided": decided, "held": held,
                                "of": [len(ref_tok[r]) for r in rows]}
+        if (n_data, n_model) == (1, 2):
+            dist.barrier()
+            reset_counts()
+            LAUNCHED["on"] = True
+            out["engine"] = _mesh_engine(ctx, p, streams, segs)
+            LAUNCHED["on"] = False
+            out["counts"]["1x2 engine"] = read_counts()
         del ctx, bt
         torch.cuda.empty_cache()
     out["shapes"] = {k: sorted(v) for k, v in LAUNCHED["shapes"].items()}
     dist.destroy_process_group()
+    return out
+
+
+def _mesh_engine(ctx, p, streams, want) -> dict:
+    """ContinuousBatcher(batch_size=N_STREAMS) over the 1 x 2 context, on
+    both ranks.  Rank 0 idles MESH_IDLE_S, then takes `streams` together
+    (the iteration hook holds the engine until they are queued), so its
+    first iteration holds BatchTranscriber's rows: their segments must
+    equal `want` (the 1 x 2 transcribe's) token for token.  MESH_LATE more
+    streams arrive while those decode and must finish with no error.  The
+    follower replays the plans and must refuse a request.  -> walls, the
+    iteration count, the plan digests at each iteration, the plan sync's
+    host seconds (sync_s, n_idle) and, on rank 0, the late streams'
+    iter_joined."""
+    import threading
+    from whisper_tpu_torch.parallel.batch import ContinuousBatcher
+    late = [int16_noise(MESH_S, 320 + i) for i in range(MESH_LATE)]
+    t0 = time.perf_counter()
+    eng = ContinuousBatcher(ctx, batch_size=N_STREAMS, params=p)
+    digests = []
+
+    def record(n):   # the digest of iterations 0..n-1
+        if n and (not digests or digests[-1][0] != n):
+            digests.append((n, eng.plan_digest))
+
+    out = {}
+    try:
+        if not eng.leader:
+            eng.iteration_hook = record
+            try:
+                eng.submit_async(streams[0])
+                raise AssertionError("mesh engine: a follower took a request")
+            except RuntimeError:
+                pass
+        else:
+            time.sleep(MESH_IDLE_S)   # the engine idles: empty plans
+            parked, go = threading.Event(), threading.Event()
+
+            def hook(n):
+                record(n)
+                parked.set()
+                go.wait(timeout=600)
+
+            eng.iteration_hook = hook
+            if not parked.wait(timeout=60):
+                raise AssertionError("mesh engine: the engine never reached "
+                                     "its iteration hook")
+            t1 = time.perf_counter()
+            jobs = [eng.submit_async(pcm) for pcm in streams]
+            go.set()
+            # the first N_STREAMS fill the first iteration's rows; the late
+            # ones come once that iteration has its rows
+            while jobs[-1].iter_joined is None and not jobs[-1].done.is_set():
+                time.sleep(0.005)
+            late_jobs = [eng.submit_async(pcm) for pcm in late]
+            _wait_jobs("mesh engine", jobs)
+            out["wall_first"] = time.perf_counter() - t1
+            _wait_jobs("mesh engine late", late_jobs)
+            got = [j.st.result_all for j in jobs]
+            check_segments("mesh engine", got)
+            check_segments("mesh engine late",
+                           [j.st.result_all for j in late_jobs])
+            if _token_ids(got) != _token_ids(want):
+                raise AssertionError("mesh engine: segments differ from the "
+                                     "1 x 2 BatchTranscriber's")
+            out["late_joined"] = [j.iter_joined for j in late_jobs]
+            if min(out["late_joined"]) < 1:
+                raise AssertionError("mesh engine: a late stream joined the "
+                                     "first iteration")
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    record(eng.n_iterations)
+    out.update(wall=time.perf_counter() - t0, iterations=eng.n_iterations,
+               digests=digests, sync_s=dict(eng.sync_s), n_idle=eng.n_idle)
+    if eng.thread.is_alive():
+        raise AssertionError("mesh engine: close() left the engine running")
     return out
 
 
@@ -2869,7 +2962,10 @@ def check_mesh(card_line: str) -> dict:
     window within MESH_TOL, the same winner teacher-forced, and the same
     free-running tokens, at every step whose mesh=None top-two margin of
     the filtered log-probs exceeds 2 x MESH_TOL (each logit may move by
-    MESH_TOL).  Then this process, one rank over NCCL, runs
+    MESH_TOL).  After the 1 x 2 run both ranks run ContinuousBatcher over
+    the same context (_mesh_engine): rank 0's segments equal to the 1 x 2
+    transcribe's, both ranks in lockstep (iterations, plan digests), each
+    through K1 and K2.  Then this process, one rank over NCCL, runs
     dryrun_multichip at float32.
     Walls and checks go to stderr.  -> the launch counts of the mesh runs
     (both ranks, both meshes); their launch shapes join LAUNCHED."""
@@ -2903,6 +2999,31 @@ def check_mesh(card_line: str) -> dict:
     for name in ("1x2", "2x1"):
         if ranks[0]["tokens"][name] != ranks[1]["tokens"][name]:
             raise AssertionError(f"mesh {name}: the ranks' segments differ")
+    # the engine over 1 x 2: the ranks in lockstep, each through K1 and K2
+    lead, follow = (res["engine"] for res in ranks)
+    if (lead["iterations"], lead["digests"]) != (follow["iterations"],
+                                                 follow["digests"]):
+        raise AssertionError(f"mesh engine: the ranks' iterations or plan "
+                             f"digests differ: {lead['digests']} vs "
+                             f"{follow['digests']}")
+    for r, res in enumerate(ranks):
+        require_launches(f"mesh engine rank {r}", res["counts"]["1x2 engine"],
+                         ("K1", "K2"))
+    sync = lead["sync_s"]
+    elog(f"[{card_line}] mesh engine (1 x 2, batch {N_STREAMS}): "
+        f"{N_STREAMS} x {MESH_S} s equal to the 1 x 2 transcribe token for "
+        f"token in {lead['wall_first']:.3f} s, {MESH_LATE} late streams "
+        f"joined at iterations {lead['late_joined']}; {lead['iterations']} "
+        f"iterations, digests equal on both ranks; on rank 0 an iteration's "
+        f"plan broadcast {1e3 * sync['plan'] / lead['iterations']:.3f} ms, "
+        f"its two failure flags (the follower's wait included) "
+        f"{1e3 * sync['flags'] / lead['iterations']:.3f} ms, an idle "
+        f"wakeup's empty plan "
+        f"{1e3 * sync['idle'] / max(1, lead['n_idle']):.3f} ms "
+        f"({lead['n_idle']} wakeups); the run {lead['wall']:.2f} s")
+    if lead["n_idle"] < 4:
+        raise AssertionError(f"mesh engine: {lead['n_idle']} idle plans in "
+                             f"{MESH_IDLE_S} s")
     dry = _mesh_dryrun(str(out_dir / "rdv_nccl"))
     if dry["backend"] != "nccl" or min(dry["steps"].values()) <= 0:
         raise AssertionError(f"mesh dryrun: {dry}")

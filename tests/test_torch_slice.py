@@ -135,18 +135,28 @@ def test_refused_paths(contexts, tmp_path):
     with pytest.raises(TypeError, match="mesh"):
         BatchTranscriber(tctx, batch_size=2, params=p, mesh=object(),
                          device_mel=True)
-    # the continuous engine over a mesh-attached context is not ported yet
+    # the continuous engine runs over a tensor-parallel mesh, here 1 x 1,
+    # with the unsharded segments (more ranks, and the data-parallel
+    # refusal: tests/test_torch_mesh_continuous.py)
     import torch.distributed as dist
     from whisper_tpu_torch.parallel.batch import ContinuousBatcher
     from whisper_tpu_torch.parallel.mesh import make_mesh
+    pcm = (np.random.RandomState(1).randn(16000 * 2) * 0.1).astype(np.float32)
+    want = _segments(BatchTranscriber(tctx, batch_size=2,
+                                      params=p).transcribe([pcm]))
+    assert want[0], want
     mesh = make_mesh(device="cpu", init_method=f"file://{tmp_path}/rdv",
                      world_size=1, rank=0)
     try:
-        mctx = WhisperContext.from_random(dims=MICRO, device="cpu")
+        mctx = WhisperContext.from_jax(jctx, "cpu")
         BatchTranscriber(mctx, batch_size=2, params=p, mesh=mesh)
         assert mctx.mesh is mesh
-        with pytest.raises(NotImplementedError, match="mesh"):
-            ContinuousBatcher(mctx, batch_size=2, params=p)
+        eng = ContinuousBatcher(mctx, batch_size=2, params=p)
+        try:
+            assert _segments([eng.submit(pcm)]) == want
+        finally:
+            eng.close()
+        assert not eng.thread.is_alive() and eng.n_iterations > 0
     finally:
         dist.destroy_process_group()
     with pytest.raises(ValueError, match="cross_mode"):

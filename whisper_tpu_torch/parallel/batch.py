@@ -38,13 +38,17 @@ calling transcribe with the same streams) the context's params are
 sharded over "model", and each encode, language pre-pass, window decode
 and DTW pass whose slot count divides over the data axes runs this rank's
 rows and all-gathers the host results, so every rank's stream states
-advance alike.  The resident PCM stack is off under a mesh, as in
-whisper_tpu; ContinuousBatcher refuses a mesh-attached context
-(NotImplementedError).
+advance alike.  The resident PCM stack of transcribe is off under a mesh,
+as in whisper_tpu.  ContinuousBatcher runs over a tensor-parallel mesh
+(n_data = n_slice = 1): rank 0 schedules and broadcasts each iteration's
+plan, and every other rank replays it (see the class).  It refuses a
+data-parallel mesh (NotImplementedError), where whisper_tpu's engine fails
+every job.
 """
 
 from __future__ import annotations
 
+import hashlib
 import queue
 import threading
 import time
@@ -951,6 +955,24 @@ class ContinuousBatcher:
     its row of a resident (max_active, plen) pool on the device, and the
     windows are cut there; a stream the pool declines (no free row, another
     dtype, over POOL_BYTES) takes the per-iteration upload.
+
+    Over a tensor-parallel mesh (the context's `mesh` with n_data =
+    n_slice = 1; parallel/mesh.py) every rank constructs the engine with
+    the same arguments.  Rank 0 takes the requests and schedules as
+    above; before each iteration it broadcasts the iteration's plan (the
+    PCM of the streams admitted this cycle, in order, and the batch's
+    indices into `active`) on the mesh's host group, and every other
+    rank's thread admits the same streams and runs the same iteration, so
+    the model's collectives pair up and the ranks' stream states move in
+    lockstep (`plan_digest` hashes each rank's view of every iteration).
+    An idle rank 0 sends an empty plan at every wakeup (0.25 s), so no
+    rank waits in a collective for longer.  Around each iteration every
+    rank all-reduces a flag: if any rank failed to admit the plan's
+    streams or raised in the iteration, every rank fails its active jobs
+    alike.  A rank that dies, or raises between two of the model's
+    collectives, leaves the others waiting in a collective: that is not
+    recovered.  A data-parallel mesh is refused: whisper_tpu's engine
+    fails every job there.
     """
 
     # the pool's rows x row length stay under this many bytes (it shares
@@ -960,11 +982,14 @@ class ContinuousBatcher:
     def __init__(self, ctx: WhisperContext, batch_size: int = 8,
                  params: FullParams | None = None, device_mel: bool = False,
                  max_active: int | None = None, warmup: bool = False):
-        if ctx.mesh is not None:
-            # admission is timing-driven: every rank would need rank 0's
-            # plan of each iteration
+        mesh = ctx.mesh
+        if mesh is not None and mesh.n_data > 1:
             raise NotImplementedError(
-                "ContinuousBatcher over a device mesh is not ported yet")
+                f"ContinuousBatcher over a data-parallel mesh "
+                f"({mesh.shape}): whisper_tpu's engine fails every job there "
+                "(its batch does not put the cross-KV on the data axes that "
+                "the window decode expects); only n_data = n_slice = 1 runs "
+                "(ROADMAP.md, queue 1)")
         self.bt = BatchTranscriber(ctx, batch_size=batch_size, params=params,
                                    device_mel=device_mel)
         if warmup:
@@ -983,18 +1008,42 @@ class ContinuousBatcher:
         self.active: list[_Job] = []
         self.n_iterations = 0
         # called as iteration_hook(n_iterations) at the top of every
-        # scheduler cycle, before admission: lets tests and metrics observe
-        # (or pause) the engine between iterations
+        # scheduler cycle (on a follower rank: as each plan arrives),
+        # before admission: lets tests and metrics observe (or pause) the
+        # engine between iterations
         self.iteration_hook = None
         self._closed = False
+        self.mesh = mesh
+        # rank 0 (coordinates all 0) schedules; the others follow its plans
+        self.leader = mesh is None or not any(mesh.coords.values())
+        # a running hash of each iteration's streams, as this rank sees
+        # them: equal on every rank of a mesh when they move in lockstep
+        self.plan_digest = ""
+        # host seconds rank 0 spends keeping a mesh in step: broadcasting
+        # iterations' plans ("plan"), the failure flags around them
+        # ("flags": the wait for the slowest rank's admission or iteration
+        # included), idle wakeups' empty plans ("idle", n_idle of them)
+        self.sync_s = {"plan": 0.0, "flags": 0.0, "idle": 0.0}
+        self.n_idle = 0
+        # the current CUDA device is per thread, and the kernels launch on
+        # it: the engine thread takes the context's (or this thread's)
+        dev = ctx.device
+        self._cuda_index = None if dev.type != "cuda" else (
+            torch.cuda.current_device() if dev.index is None else dev.index)
         self.thread = threading.Thread(target=self._run, daemon=True)
         self.thread.start()
 
     # -- client side -------------------------------------------------------
 
+    def _check_leader(self) -> None:
+        if not self.leader:
+            raise RuntimeError("requests enter the engine on rank 0 of the "
+                               "mesh; this rank replays its plans")
+
     def submit(self, pcm) -> list[Segment]:
         """Blocks until this stream finishes; returns its segments.
         Thread-safe."""
+        self._check_leader()
         if self._closed:
             raise RuntimeError("ContinuousBatcher is closed")
         job = _Job(pcm)
@@ -1009,14 +1058,19 @@ class ContinuousBatcher:
         job.st.result_all.  on_segment(Segment) is called for each
         finalized segment as the engine produces it, from the scheduler
         thread (the server's /stream endpoint rides it)."""
+        self._check_leader()
         job = _Job(pcm, on_segment=on_segment)
         self.queue.put(job)
         return job
 
     def close(self) -> None:
+        """Stop the engine once its active streams finish.  On a mesh every
+        rank calls it, and each returns once rank 0's engine has ended (a
+        rank still in the engine would cross the caller's next
+        collectives)."""
         self._closed = True
         self.queue.put(None)   # wake the engine
-        self.thread.join(timeout=30)
+        self.thread.join(timeout=30 if self.mesh is None else None)
 
     # -- the resident PCM pool ---------------------------------------------
 
@@ -1068,9 +1122,13 @@ class ContinuousBatcher:
 
     # -- engine ------------------------------------------------------------
 
-    def _admit(self, job: _Job | None) -> None:
+    def _admit(self, job: _Job | None, plan: list | None = None) -> bool:
+        """Prepare `job`'s stream and add it to `active`; -> whether it was
+        added (a stream that fails its prep, or is too short to decode,
+        resolves at once).  `plan` collects the PCM of each added job."""
         if job is None:
-            return
+            return False
+        pcm = job.pcm
         try:
             job.st = self.bt._make_stream(job.pcm)
             job.pcm = None          # the mel / padded PCM is what is needed
@@ -1081,18 +1139,28 @@ class ContinuousBatcher:
             job.error = f"stream prep failed: {e}"
             self._pool_release(job.st)
             job.done.set()
-            return
+            return False
         if job.st.done:             # too short to decode: resolved at once
             job.t_done = time.perf_counter()
             job.iter_done = self.n_iterations
             job.done.set()
-            return
+            return False
         self.active.append(job)
+        if plan is not None:
+            plan.append(pcm)
+        return True
 
     def _run(self):
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
         # grad mode is thread-local: this thread sets its own
         with torch.no_grad():
-            self._loop()
+            if self.leader:
+                self._loop()
+                if self.mesh is not None:
+                    self.mesh.broadcast_object(None)   # the close plan
+            else:
+                self._follow()
         # fail anything still queued after close
         while True:
             try:
@@ -1103,11 +1171,44 @@ class ContinuousBatcher:
                 job.error = "ContinuousBatcher closed"
                 job.done.set()
 
+    def _send(self, plan: dict) -> None:
+        """Rank 0: broadcast a plan to the other ranks (nothing without a
+        mesh); an empty batch is an idle wakeup's plan."""
+        if self.mesh is None:
+            return
+        t0 = time.perf_counter()
+        self.mesh.broadcast_object(plan)
+        if plan["batch"]:
+            self.sync_s["plan"] += time.perf_counter() - t0
+        else:
+            self.sync_s["idle"] += time.perf_counter() - t0
+            self.n_idle += 1
+
+    def _any_failed(self, failed: bool) -> bool:
+        """Whether any rank failed (this rank's `failed` without a mesh)."""
+        if self.mesh is None:
+            return failed
+        t0 = time.perf_counter()
+        failed = self.mesh.any_rank(failed)
+        if self.leader:
+            self.sync_s["flags"] += time.perf_counter() - t0
+        return failed
+
+    def _fail_active(self, error: str) -> None:
+        for j in self.active:
+            j.error = error
+            j.done.set()
+            self._pool_release(j.st)
+        self.active.clear()
+
     def _loop(self):
+        """Rank 0's (or the only) scheduler."""
+        idle = {"admit": [], "batch": []}
         while True:
             hook = self.iteration_hook
             if hook is not None:
                 hook(self.n_iterations)
+            admitted: list = []
             # admit new work: block when idle, drain when busy
             if not self.active:
                 try:
@@ -1115,10 +1216,11 @@ class ContinuousBatcher:
                 except queue.Empty:
                     if self._closed:
                         return
+                    self._send(idle)
                     continue
                 if job is None and self._closed:
                     return
-                self._admit(job)
+                self._admit(job, admitted)
             while len(self.active) < self.max_active:
                 # just in time: at most one iteration's worth of
                 # never-scheduled streams is prepared a cycle
@@ -1130,10 +1232,11 @@ class ContinuousBatcher:
                     break
                 if job is None and self._closed:
                     break
-                self._admit(job)
+                self._admit(job, admitted)
             if self._closed and not self.active:
                 return
             if not self.active:
+                self._send(idle)
                 continue
 
             # first-window-first, then round-robin
@@ -1145,44 +1248,75 @@ class ContinuousBatcher:
             batch = (fresh + inflight)[:min(len(self.active), self.B)]
             for i in batch:
                 self.active[i]._last_sched = self.n_iterations
-            # the resident pool only when every scheduled stream holds a row
-            sts = [j.st for j in self.active]
-            pcm_dev = (self._pool if self._pool is not None and all(
-                sts[i].pcm_row is not None for i in batch) else None)
-            try:
-                self.bt._iterate(sts, batch, pcm_dev)
-            except Exception as e:  # noqa: BLE001 - a dead engine thread
-                # would leave every submitter waiting forever
-                log_error("ContinuousBatcher: batch iteration failed:\n"
-                          + traceback.format_exc())
-                for j in self.active:
-                    j.error = f"batch iteration failed: {e}"
-                    j.done.set()
-                    self._pool_release(j.st)
-                self.active.clear()
-                continue
-            self.n_iterations += 1
+            self._send({"admit": admitted, "batch": batch})
+            self._step(batch)
 
-            now = time.perf_counter()
-            still = []
-            for idx, j in enumerate(self.active):
-                if not j._had_segment and idx in batch and j.st.result_all:
-                    j._had_segment = True
-                    j.t_first_segment = now
-                    j.iter_first = self.n_iterations
-                if j.on_segment is not None:
-                    segs = j.st.result_all
-                    while j._n_emitted < len(segs):
-                        try:
-                            j.on_segment(segs[j._n_emitted])
-                        except Exception:  # noqa: BLE001 - a client's
-                            pass           # callback must not kill the engine
-                        j._n_emitted += 1
-                if j.st.done:
-                    j.t_done = now
-                    j.iter_done = self.n_iterations
-                    self._pool_release(j.st)
-                    j.done.set()
-                else:
-                    still.append(j)
-            self.active = still
+    def _follow(self):
+        """A follower rank: replay rank 0's plans until its close plan."""
+        while True:
+            plan = self.mesh.broadcast_object()
+            if plan is None:
+                return
+            hook = self.iteration_hook
+            if hook is not None:
+                hook(self.n_iterations)
+            if not plan["batch"]:
+                continue
+            # every admission, even after one fails
+            added = [self._admit(_Job(pcm)) for pcm in plan["admit"]]
+            self._step(plan["batch"], all(added))
+
+    def _step(self, batch: list[int], admitted: bool = True) -> None:
+        """One window iteration over `batch` (indices into `active`), then
+        each job's segments, callbacks and completion.  On a mesh every rank
+        runs it with the same plan, and a failure on any rank fails every
+        rank's active jobs alike."""
+        if self._any_failed(not admitted):
+            self._fail_active("stream prep failed on another rank")
+            return
+        sts = [j.st for j in self.active]
+        h = hashlib.sha1(self.plan_digest.encode())
+        h.update(repr((len(sts), batch, [(sts[i].seek, sts[i].seek_end,
+                                          len(sts[i].result_all))
+                                         for i in batch])).encode())
+        self.plan_digest = h.hexdigest()
+        # the resident pool only when every scheduled stream holds a row
+        pcm_dev = (self._pool if self._pool is not None and all(
+            sts[i].pcm_row is not None for i in batch) else None)
+        error = None
+        try:
+            self.bt._iterate(sts, batch, pcm_dev)
+        except Exception as e:  # noqa: BLE001 - a dead engine thread
+            # would leave every submitter waiting forever
+            log_error("ContinuousBatcher: batch iteration failed:\n"
+                      + traceback.format_exc())
+            error = f"batch iteration failed: {e}"
+        if self._any_failed(error is not None):
+            self._fail_active(error or "batch iteration failed on another "
+                              "rank")
+            return
+        self.n_iterations += 1
+
+        now = time.perf_counter()
+        still = []
+        for idx, j in enumerate(self.active):
+            if not j._had_segment and idx in batch and j.st.result_all:
+                j._had_segment = True
+                j.t_first_segment = now
+                j.iter_first = self.n_iterations
+            if j.on_segment is not None:
+                segs = j.st.result_all
+                while j._n_emitted < len(segs):
+                    try:
+                        j.on_segment(segs[j._n_emitted])
+                    except Exception:  # noqa: BLE001 - a client's
+                        pass           # callback must not kill the engine
+                    j._n_emitted += 1
+            if j.st.done:
+                j.t_done = now
+                j.iter_done = self.n_iterations
+                self._pool_release(j.st)
+                j.done.set()
+            else:
+                still.append(j)
+        self.active = still

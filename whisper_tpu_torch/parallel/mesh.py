@@ -26,6 +26,10 @@ sharded (the packed leaf does not fit the spec tree), and every sharded
 dimension (vocab rows, heads, mlp width) must divide evenly over "model".
 Both raise ValueError.
 
+Host objects travel on a gloo group of their own over every rank
+(`host_group`): ContinuousBatcher's rank 0 broadcasts each iteration's
+plan on it, so the other ranks replay the same admissions and batches.
+
 Run as `torchrun --nproc-per-node N -m whisper_tpu_torch.parallel.mesh` to
 check a multi-GPU box: `dryrun_multichip` decodes windows sharded and on
 one device and asserts the same tokens.
@@ -70,11 +74,12 @@ class Mesh:
     "model") mesh: its axis names, `shape` (a dict, like
     jax.sharding.Mesh.shape), this rank's coordinates, the process group
     of each axis (`groups`, plus `data_group` over the data axes
-    together), the torch DeviceMesh and the device this rank computes on.
+    together), the torch DeviceMesh, the device this rank computes on and
+    `host_group`, a gloo group over every rank for host objects.
     """
 
     def __init__(self, axis_names, shape, coords, device, backend, groups,
-                 data_group, device_mesh=None):
+                 data_group, device_mesh=None, host_group=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(shape)
         self.coords = dict(coords)
@@ -83,6 +88,7 @@ class Mesh:
         self.groups = dict(groups)
         self.data_group = data_group
         self.device_mesh = device_mesh
+        self.host_group = host_group
 
     @property
     def n_model(self) -> int:
@@ -129,6 +135,21 @@ class Mesh:
         out = [None] * self.n_data
         dist.all_gather_object(out, obj, group=self.data_group)
         return out
+
+    def broadcast_object(self, obj=None):
+        """Rank 0's `obj` (picklable host data) on every rank; the other
+        ranks pass nothing and wait for it.  On `host_group` (gloo), so
+        the wait is on the host and the size need not be known up front."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.host_group)
+        return box[0]
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether `flag` holds on any rank (a host all-reduce on
+        `host_group`)."""
+        t = torch.tensor([int(flag)], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
+        return bool(t.item())
 
 
 def make_mesh(n_data: int = 1, n_model: int = 1, n_slice: int = 1,
@@ -195,8 +216,11 @@ def make_mesh(n_data: int = 1, n_model: int = 1, n_slice: int = 1,
             g = dist.new_group([r for r in range(n) if r % n_model == m])
             if m == coords["model"]:
                 data_group = g
+    # host objects: gloo whatever the backend (NCCL would need CUDA
+    # tensors of a size known up front)
+    host_group = dist.new_group(backend="gloo")
     return Mesh(names, dict(zip(names, dims)), coords, device, backend,
-                groups, data_group, dm)
+                groups, data_group, dm, host_group)
 
 
 def data_axes(mesh: Mesh):

@@ -71,6 +71,14 @@ class _BatchWorker:
 
     def __init__(self, ctx: WhisperContext, batch_size: int = 8,
                  window_ms: int = 50, warmup: bool = True):
+        if ctx.mesh is not None:
+            # each signature's engine drives the mesh's collectives from a
+            # thread of its own, and the serial fallback runs on rank 0
+            # alone: either would cross another's collectives
+            raise NotImplementedError(
+                "the batched server over a mesh-attached context is not "
+                "supported: its engines and its serial fallback would "
+                "interleave the mesh's collectives (ROADMAP.md, queue 1)")
         self.ctx = ctx
         self.batch_size = batch_size
         self.window_s = window_ms / 1000.0
