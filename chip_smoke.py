@@ -133,6 +133,16 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      ranks (rank 0 schedules, rank 1 replays its plans): the same streams'
      segments equal to the 1 x 2 transcribe's token for token, 2 late
      streams, an idle gap, both ranks' iterations and plan digests equal;
+     then the port's server over 1 x 2 on both ranks, with a context of
+     its own at large-v3's widths cut to 8 + 8 layers (--batch 4: rank 0
+     serves Handler on loopback, rank 1 follows its conductor's plans):
+     two streams at once through /inference and /stream (one engine;
+     whisper-server's defaults: timestamps, the temperature ladder) and,
+     with MAX_ENGINES at 1, a third of another signature (the serial
+     full() over the mesh), each response's segments equal token for
+     token to that context run directly (BatchTranscriber for the pair,
+     full() for the third), both ranks' plans equal, each rank through
+     K1 and K2;
      then the script itself, one rank over NCCL, runs
      parallel/mesh.dryrun_multichip at float32; the shapes
      this phase launches first are timed against their plain versions
@@ -268,6 +278,16 @@ MESH_TIMEOUT = 300
 # arrive while the first N_STREAMS decode
 MESH_IDLE_S = 1.5
 MESH_LATE = 2
+# the server over 1 x 2 runs a context of its own: large-v3's widths cut
+# to this many encoder and decoder layers (over gloo every decode step
+# crosses the host ~3 times a layer: at 32 + 32 the server's requests and
+# their references took 224 s); the form fields of the pair of requests
+# (none: whisper-server's defaults, timestamps and the temperature ladder
+# on) and of the third (a second signature: no timestamps, the ladder off,
+# so its window decodes to EOT or the loop's end)
+MESH_SERVER_LAYERS = 8
+MESH_SERVER_FIELDS: dict = {}
+MESH_SERVER_SERIAL = {"no_timestamps": "true", "temperature_inc": "0"}
 
 
 def log(msg: str) -> None:
@@ -2821,6 +2841,12 @@ def _mesh_rank_body(rank: int, world: int, rdv: str) -> dict:
             out["counts"]["1x2 engine"] = read_counts()
         del ctx, bt
         torch.cuda.empty_cache()
+        if (n_data, n_model) == (1, 2):
+            dist.barrier()
+            LAUNCHED["on"] = True
+            out["server"] = _mesh_server(mesh, streams)
+            LAUNCHED["on"] = False
+            out["counts"]["1x2 server"] = out["server"].pop("counts")
     out["shapes"] = {k: sorted(v) for k, v in LAUNCHED["shapes"].items()}
     dist.destroy_process_group()
     return out
@@ -2897,9 +2923,176 @@ def _mesh_engine(ctx, p, streams, want) -> dict:
     torch.cuda.synchronize()
     record(eng.n_iterations)
     out.update(wall=time.perf_counter() - t0, iterations=eng.n_iterations,
-               digests=digests, sync_s=dict(eng.sync_s), n_idle=eng.n_idle)
+               digests=digests, sync_s=dict(eng.conductor.sync_s),
+               n_idle=eng.conductor.n_idle)
     if eng.thread.is_alive():
         raise AssertionError("mesh engine: close() left the engine running")
+    return out
+
+
+def _server_params(fields: dict):
+    """The params the server's Handler makes for a /inference json or a
+    /stream request with these form fields."""
+    from whisper_tpu_torch import full_default_params
+    from whisper_tpu_torch.server import _apply_request_params
+    p = full_default_params()
+    p.print_progress = False
+    p.greedy.best_of = 2
+    p.no_context = False
+    _apply_request_params(p, {k: v.encode() for k, v in fields.items()})
+    if p.max_len == 0:
+        p.max_len = 60
+    return p
+
+
+def _mesh_server(mesh, streams) -> dict:
+    """The port's server over the 1 x 2 mesh, on both ranks, with a
+    context of its own: large-v3's widths cut to MESH_SERVER_LAYERS +
+    MESH_SERVER_LAYERS layers (seed 0, dense bf16, einsum_q8), attached to
+    `mesh`.  First the references, on both ranks: BatchTranscriber
+    .transcribe of streams 0 and 1 with whisper-server's default params
+    (timestamps and the temperature ladder on), and full() of stream 2
+    with a second signature (MESH_SERVER_SERIAL).  Then every rank
+    installs the server (--batch N_STREAMS); rank 1 checks that its worker
+    refuses a request and follows; rank 0 serves Handler on loopback and
+    sends streams 0 and 1 at once through /inference (json) and /stream
+    (the conductor's plan hook holds the pair's engine until both are
+    queued, so they share its first iteration, as transcribe's rows do),
+    then, with the worker's MAX_ENGINES at 1, stream 2 through
+    /inference: the serial full() over the mesh.  Each request's segments
+    (recorded on rank 0 from the worker) must equal its reference token
+    for token, and its body their json or SSE events; then rank 0 closes
+    the worker, whose close plan ends rank 1's follow().  -> walls, the
+    plans run (by op), their digest, rank 0's sync seconds and the
+    kernel launches of the server's run."""
+    import copy
+    import socket
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+
+    import whisper_tpu_torch.server as srv
+    from whisper_tpu_torch import WhisperContext
+    from whisper_tpu_torch.models.whisper import MODEL_DIMS
+    from whisper_tpu_torch.parallel.batch import BatchTranscriber
+    dims = list(MODEL_DIMS["large-v3"])
+    dims[4] = dims[8] = MESH_SERVER_LAYERS
+    t0 = time.perf_counter()
+    ctx = WhisperContext.from_random("large-v3", seed=0,
+                                     cross_mode="einsum_q8", dims=tuple(dims))
+    BatchTranscriber(ctx, batch_size=N_STREAMS, mesh=mesh)
+    torch.cuda.synchronize()
+    wall_context = time.perf_counter() - t0
+    pcm = [s.astype(np.float32) / 32768.0 for s in streams[:3]]
+    p_pair = _server_params(MESH_SERVER_FIELDS)
+    p_serial = _server_params({**MESH_SERVER_FIELDS, **MESH_SERVER_SERIAL})
+    t0 = time.perf_counter()
+    want = BatchTranscriber(ctx, batch_size=N_STREAMS,
+                            params=copy.deepcopy(p_pair)).transcribe(pcm[:2])
+    st = ctx.init_state()
+    if ctx.full(copy.deepcopy(p_serial), pcm[2], state=st) != 0:
+        raise AssertionError("mesh server: the reference full() failed")
+    want.append(st.result_all)
+    torch.cuda.synchronize()
+    out = {"wall_context": wall_context,
+           "wall_reference": time.perf_counter() - t0}
+
+    reset_counts()
+    t0 = time.perf_counter()
+    srv.install(ctx, batch=N_STREAMS, warmup=False)
+    worker = srv.STATE.batcher
+    cond = worker.conductor
+    ops = {}
+
+    def count(plan):
+        op = "close" if plan is None else plan["op"]
+        ops[op] = ops.get(op, 0) + 1
+
+    if not cond.leader:
+        cond.plan_hook = count
+        try:
+            worker.submit(pcm[0], copy.deepcopy(p_pair))
+            raise AssertionError("mesh server: a follower took a request")
+        except RuntimeError:
+            pass
+        srv.follow()
+    else:
+        got = {}
+        submit = cond.submit
+
+        def record(x, params, on_segment=None):
+            segs, lid = submit(x, params, on_segment)
+            got[next(i for i in range(3) if len(x) == len(pcm[i])
+                     and np.array_equal(x, pcm[i]))] = segs
+            return segs, lid
+
+        def hold(plan):
+            count(plan)
+            # the pair's engine: wait for the second request
+            if plan is not None and plan["op"] == "engine":
+                end = time.monotonic() + 60
+                while cond.inbox.empty() and time.monotonic() < end:
+                    time.sleep(0.005)
+
+        cond.submit, cond.plan_hook = record, hold
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        httpd = ThreadingHTTPServer(("127.0.0.1", port), srv.Handler)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        wavs = [wav_bytes(s) for s in streams[:3]]
+        try:
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(2) as pool:
+                # /inference first: the engine's rows in transcribe's order
+                pair = [pool.submit(http, port, "/inference",
+                                    MESH_SERVER_FIELDS, wavs[0])]
+                time.sleep(0.2)
+                pair.append(pool.submit(http, port, "/stream",
+                                        MESH_SERVER_FIELDS, wavs[1]))
+                res = [f.result() for f in pair]
+            out["wall_pair"] = time.perf_counter() - t1
+            worker.MAX_ENGINES = 1
+            res.append(http(port, "/inference",
+                            {**MESH_SERVER_FIELDS, **MESH_SERVER_SERIAL},
+                            wavs[2]))
+            out["wall_serial"] = res[2][3]
+            out["request_s"] = [r[3] for r in res]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            worker.close()
+        for i, (status, ctype, body, _) in enumerate(res):
+            if status != 200:
+                raise AssertionError(f"mesh server request {i}: HTTP "
+                                     f"{status}: {body[:500]!r}")
+        check_segments("mesh server", [got[i] for i in range(3)])
+        if _token_ids([got[i] for i in range(3)]) != _token_ids(want):
+            raise AssertionError("mesh server: segments differ from the "
+                                 "1 x 2 context's run directly")
+        for i in (0, 2):
+            if json.loads(res[i][2])["text"] != "".join(
+                    s.text + "\n" for s in want[i]):
+                raise AssertionError(f"mesh server request {i}: the json "
+                                     "body is not its segments' text")
+        events = [json.loads(ev.removeprefix("data: "))
+                  for ev in res[1][2].decode().split("\n\n")[:-2]]
+        if events != [{"start": s.t0 / 100.0, "end": s.t1 / 100.0,
+                       "text": s.text} for s in want[1]]:
+            raise AssertionError("mesh server: the /stream events are not "
+                                 "its segments")
+        if (ops.get("engine"), ops.get("full")) != (1, 1):
+            raise AssertionError(f"mesh server: plans {ops} (one engine, "
+                                 "one serial full() expected)")
+        out["tokens"] = [sum(len(s.tokens) for s in segs) for segs in want]
+        out["segments"] = [len(segs) for segs in want]
+    torch.cuda.synchronize()
+    out.update(wall=time.perf_counter() - t0, counts=read_counts(),
+               ops=ops, n_plans=cond.n_plans, digest=cond.plan_digest,
+               sync_s=dict(cond.sync_s), n_idle=cond.n_idle)
+    if cond.thread is not None and cond.thread.is_alive():
+        raise AssertionError("mesh server: close() left the conductor "
+                             "running")
     return out
 
 
@@ -2965,8 +3158,11 @@ def check_mesh(card_line: str) -> dict:
     MESH_TOL).  After the 1 x 2 run both ranks run ContinuousBatcher over
     the same context (_mesh_engine): rank 0's segments equal to the 1 x 2
     transcribe's, both ranks in lockstep (iterations, plan digests), each
-    through K1 and K2.  Then this process, one rank over NCCL, runs
-    dryrun_multichip at float32.
+    through K1 and K2; then the server over 1 x 2 (_mesh_server, on a
+    context of its own cut to MESH_SERVER_LAYERS + MESH_SERVER_LAYERS
+    layers): its responses equal to that context run directly, both
+    ranks' plans equal, each rank through K1 and K2.  Then this process, one rank over
+    NCCL, runs dryrun_multichip at float32.
     Walls and checks go to stderr.  -> the launch counts of the mesh runs
     (both ranks, both meshes); their launch shapes join LAUNCHED."""
     import multiprocessing
@@ -3024,6 +3220,35 @@ def check_mesh(card_line: str) -> dict:
     if lead["n_idle"] < 4:
         raise AssertionError(f"mesh engine: {lead['n_idle']} idle plans in "
                              f"{MESH_IDLE_S} s")
+    # the server over 1 x 2: the ranks ran the same plans (the plan hook,
+    # set once install() has started the conductors, may miss a first
+    # idle plan), each through K1 and K2
+    lead, follow = (res["server"] for res in ranks)
+    for r in (lead, follow):
+        r["busy"] = {k: v for k, v in r["ops"].items() if k != "idle"}
+    for key in ("n_plans", "digest", "busy"):
+        if lead[key] != follow[key]:
+            raise AssertionError(f"mesh server: the ranks' {key} differ: "
+                                 f"{lead[key]} vs {follow[key]}")
+    for r, res in enumerate(ranks):
+        require_launches(f"mesh server rank {r}",
+                         res["counts"]["1x2 server"], ("K1", "K2"))
+    sync = lead["sync_s"]
+    elog(f"[{card_line}] mesh server (1 x 2, --batch {N_STREAMS}, "
+         f"{MESH_SERVER_LAYERS} + {MESH_SERVER_LAYERS} layers, the context "
+         f"{lead['wall_context']:.3f} s): /inference + /stream of {MESH_S} s "
+         f"at once {lead['wall_pair']:.3f} s (each "
+         f"{lead['request_s'][0]:.3f} / {lead['request_s'][1]:.3f} s), the "
+         f"serial full() of a second signature {lead['wall_serial']:.3f} s; "
+         f"segments {lead['segments']}, tokens {lead['tokens']}, equal to "
+         f"the context run directly (references "
+         f"{lead['wall_reference']:.3f} s); plans {lead['ops']}"
+         f" ({lead['n_plans']}), digests equal on both ranks; rank 0's sync "
+         f"(s): plans {sync['plan']:.4f}, failure flags {sync['flags']:.4f},"
+         f" idle plans {sync['idle']:.4f} ({lead['n_idle']}); the run "
+         f"{lead['wall']:.2f} s; launches rank 0 "
+         f"{ranks[0]['counts']['1x2 server']}, rank 1 "
+         f"{ranks[1]['counts']['1x2 server']}")
     dry = _mesh_dryrun(str(out_dir / "rdv_nccl"))
     if dry["backend"] != "nccl" or min(dry["steps"].values()) <= 0:
         raise AssertionError(f"mesh dryrun: {dry}")

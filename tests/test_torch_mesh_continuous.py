@@ -13,7 +13,8 @@ admission or after an iteration, fails the jobs on every rank alike.
 
 Data parallel: whisper_tpu's engine fails every job (the window decode's
 sharding does not match the engine's batch), so the port refuses such a
-mesh; so does the port's batched server for any mesh-attached context.
+mesh; so does the port's batched server (tests/test_torch_mesh_server.py
+runs it over a tensor-parallel one).
 """
 
 import numpy as np
@@ -151,8 +152,8 @@ def test_jax_engine_fails_every_job_on_data_parallel_mesh(model):
 
 
 def test_refusals_in_process():
-    """A data-parallel view refuses the engine before any collective; the
-    batched server refuses any mesh-attached context."""
+    """A data-parallel view refuses the engine, and the batched server,
+    before any collective."""
     from whisper_tpu_torch.api import WhisperContext
     from whisper_tpu_torch.server import _BatchWorker
     ctx = WhisperContext.from_random(dims=DIMS, device="cpu")
@@ -160,6 +161,6 @@ def test_refusals_in_process():
         ctx.mesh = view
         with pytest.raises(NotImplementedError, match="data-parallel"):
             ContinuousBatcher(ctx, batch_size=4)
-    ctx.mesh = _view(1, 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    ctx.mesh = _view(2, 1)
+    with pytest.raises(NotImplementedError, match="data-parallel"):
         _BatchWorker(ctx, batch_size=2, warmup=False)

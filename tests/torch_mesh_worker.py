@@ -1,5 +1,5 @@
-"""Rank bodies for tests/test_torch_mesh.py and
-tests/test_torch_mesh_continuous.py.
+"""Rank bodies for tests/test_torch_mesh.py,
+tests/test_torch_mesh_continuous.py and tests/test_torch_mesh_server.py.
 
 Each rank is a process of its own, started by `spawn` (which imports this
 module, not the test module: a rank imports torch and the port only).  It
@@ -9,11 +9,16 @@ job and pickles what the job returns, or the traceback, to out_dir.
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
+import socket
 import threading
 import time
 import traceback
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -188,8 +193,8 @@ def job_engine(mesh, path, streams, late, after_idle, overrides,
         cb.close()
     record(cb.n_iterations)
     out.update(digests=digests, iterations=cb.n_iterations,
-               alive=cb.thread.is_alive(), n_idle=cb.n_idle,
-               sync_s=cb.sync_s)
+               alive=cb.thread.is_alive(), n_idle=cb.conductor.n_idle,
+               sync_s=cb.conductor.sync_s)
     return out
 
 
@@ -249,6 +254,163 @@ def job_engine_refused(mesh, path, overrides):
     raise AssertionError("ContinuousBatcher took a data-parallel mesh")
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(port, path, body=None, headers=None, timeout=600):
+    """-> (status, content type, body)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def multipart(wav: bytes, fields: dict) -> tuple[bytes, dict]:
+    boundary = "meshboundary"
+    parts = [(f"--{boundary}\r\nContent-Disposition: form-data; "
+              f'name="file"; filename="a.wav"\r\n\r\n').encode() + wav]
+    for k, v in fields.items():
+        parts.append((f"--{boundary}\r\nContent-Disposition: form-data; "
+                      f'name="{k}"\r\n\r\n{v}').encode())
+    body = b"\r\n".join(parts) + f"\r\n--{boundary}--\r\n".encode()
+    return body, {"Content-Type":
+                  f'multipart/form-data; boundary="{boundary}"'}
+
+
+def run_steps(port, steps, wavs, control=None) -> dict:
+    """A server scenario, on whisper_tpu's server or the port's: each step
+    is a list of requests (name, path, form fields, WAV name) sent at once
+    (a /load's fields are its JSON body), or ("control", arg), handed to
+    control(arg) between requests.  -> {name: (status, type, body)}."""
+    out = {}
+    for step in steps:
+        if step[0] == "control":
+            if control is not None:
+                control(step[1])
+            continue
+
+        def send(req):
+            name, path, fields, wav = req
+            if wav is None:
+                return http(port, path, json.dumps(fields).encode())
+            return http(port, path, *multipart(wavs[wav], fields))
+
+        with ThreadPoolExecutor(len(step)) as pool:
+            for req, res in zip(step, pool.map(send, step)):
+                out[req[0]] = res
+    return out
+
+
+def job_server(mesh, path, mode, steps, wavs, fault_len):
+    """The port's server over a tensor-parallel mesh: every rank attaches
+    the mesh and calls server.install (serial, or --batch 2); rank 0 serves
+    Handler on a free port and runs `steps` against it (run_steps), the
+    other ranks check that their worker refuses a request, then follow()
+    until rank 0 closes its worker or loads another model.  Rank 1 fails
+    once the plan that carries PCM of fault_len samples: an engine's
+    iteration after its collectives, or a serial full() partway, where
+    the window's collectives are done and its prompt not yet carried on.
+    Every rank logs each plan (op and engine number), the prompt carried
+    into each serial full() and the names of the live threads, and
+    reports its plan count and digest; a ("control", "past") step records
+    rank 0's carried prompt."""
+    from http.server import ThreadingHTTPServer
+
+    import whisper_tpu_torch.server as srv
+    from whisper_tpu_torch.parallel.batch import BatchTranscriber
+    ctx = load(path, {})
+    BatchTranscriber(ctx, batch_size=2, mesh=mesh)
+    srv.install(ctx, path, batch=2 if mode == "batch2" else 0, warmup=False)
+    worker = srv._worker()
+    cond = worker if mode == "serial" else worker.conductor
+    out = {"leader": cond.leader, "plans": [], "threads": set(),
+           "engines": 0, "pasts": []}
+    sigs: dict = {}
+    armed = {"fault": mesh.coords["model"] == 1}
+
+    def fail_once(obj, name, after):
+        orig = getattr(obj, name)
+
+        def bad(*args, **kwargs):
+            delattr(obj, name)
+            if after:
+                orig(*args, **kwargs)
+            raise RuntimeError("injected fault")
+        setattr(obj, name, bad)
+
+    def hook(plan):
+        out["threads"].update(t.name for t in threading.enumerate())
+        if plan is None:
+            out["plans"].append(("close",))
+            return
+        op = plan["op"]
+        sig = plan.get("sig") or (srv._BatchWorker._signature(plan["params"])
+                                  if op == "engine" else None)
+        out["plans"].append((op, sigs.setdefault(sig, len(sigs)))
+                            if sig is not None else (op,))
+        if op == "full":
+            out["pasts"].append(list(ctx._default_state.prompt_past))
+        if worker is not cond:
+            out["engines"] = max(out["engines"], len(worker.engines))
+            assert all(e.thread is None for e in worker.engines.values())
+        if armed["fault"] and op == "iterate" and any(
+                len(pcm) == fault_len for pcm in plan["admit"]):
+            fail_once(worker.engines[plan["sig"]].bt, "_iterate", True)
+            armed["fault"] = False
+        elif (armed["fault"] and op == "full"
+              and len(plan["pcm"]) == fault_len):
+            fail_once(ctx, "_emit_segments", False)
+            armed["fault"] = False
+
+    cond.plan_hook = hook
+    if cond.leader:
+        port = free_port()
+        httpd = ThreadingHTTPServer(("127.0.0.1", port), srv.Handler)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+        def control(arg):
+            if arg == "past":
+                out["past"] = list(ctx._default_state.prompt_past)
+            elif srv.STATE.batcher is not None:
+                srv.STATE.batcher.MAX_ENGINES = arg
+
+        try:
+            out["responses"] = run_steps(port, steps, wavs, control)
+            out["after_load"] = {
+                "mesh": srv.STATE.ctx.mesh is not None,
+                "dtype": str(srv.STATE.ctx.compute_dtype),
+                "conductor": srv.STATE.conductor is not None or (
+                    srv.STATE.batcher is not None
+                    and srv.STATE.batcher.conductor is not None)}
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            if srv._worker() is not None:
+                srv._worker().close()
+    else:
+        from whisper_tpu_torch.api import full_default_params
+        out["refused"] = []
+        for call in (worker.submit, cond.submit):
+            try:
+                call(np.zeros(16000, np.float32), full_default_params())
+            except RuntimeError as e:
+                out["refused"].append(str(e))
+        t0 = time.monotonic()
+        srv.follow()
+        out["followed_s"] = time.monotonic() - t0
+    out.update(n_plans=cond.n_plans, digest=cond.plan_digest,
+               n_idle=cond.n_idle, threads=sorted(out["threads"]),
+               alive=cond.thread is not None and cond.thread.is_alive(),
+               sync_s=cond.sync_s)
+    return out
+
+
 JOBS = {"batch": job_batch, "encode": job_encode, "dryrun": job_dryrun,
         "engine": job_engine, "engine_faults": job_engine_faults,
-        "engine_refused": job_engine_refused}
+        "engine_refused": job_engine_refused, "server": job_server}

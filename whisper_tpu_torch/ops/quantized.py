@@ -134,6 +134,16 @@ def dequantize_t(codes_t, scales_t, mins_t=None) -> torch.Tensor:
     return w
 
 
+def dequantize_weights(codes, scales, mins=None, dtype=torch.bfloat16):
+    """Full dequantization in whisper_tpu's (N, K) layout (copy of
+    whisper_tpu.ops.quantized.dequantize_weights): codes (N, K), scales
+    and mins (N, K/32); w = code * scale [+ min] in f32, then `dtype`."""
+    w = codes.float() * scales.float().repeat_interleave(QK, dim=1)
+    if mins is not None:
+        w = w + mins.float().repeat_interleave(QK, dim=1)
+    return w.to(dtype)
+
+
 def quantized_matmul_ref(x, codes_t, scales_t, mins_t=None):
     """Plain PyTorch version: the TPU kernel's roundings (x and the scales
     to bf16, each dequantized weight to bf16), then one float32 matmul.

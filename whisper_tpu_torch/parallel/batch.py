@@ -40,10 +40,10 @@ and DTW pass whose slot count divides over the data axes runs this rank's
 rows and all-gathers the host results, so every rank's stream states
 advance alike.  The resident PCM stack of transcribe is off under a mesh,
 as in whisper_tpu.  ContinuousBatcher runs over a tensor-parallel mesh
-(n_data = n_slice = 1): rank 0 schedules and broadcasts each iteration's
-plan, and every other rank replays it (see the class).  It refuses a
-data-parallel mesh (NotImplementedError), where whisper_tpu's engine fails
-every job.
+(n_data = n_slice = 1) under parallel/conductor.py: rank 0 schedules and
+broadcasts each iteration's plan, and every other rank replays it (see the
+class).  It refuses a data-parallel mesh (NotImplementedError), where
+whisper_tpu's engine fails every job.
 """
 
 from __future__ import annotations
@@ -958,21 +958,20 @@ class ContinuousBatcher:
 
     Over a tensor-parallel mesh (the context's `mesh` with n_data =
     n_slice = 1; parallel/mesh.py) every rank constructs the engine with
-    the same arguments.  Rank 0 takes the requests and schedules as
-    above; before each iteration it broadcasts the iteration's plan (the
-    PCM of the streams admitted this cycle, in order, and the batch's
-    indices into `active`) on the mesh's host group, and every other
-    rank's thread admits the same streams and runs the same iteration, so
-    the model's collectives pair up and the ranks' stream states move in
-    lockstep (`plan_digest` hashes each rank's view of every iteration).
-    An idle rank 0 sends an empty plan at every wakeup (0.25 s), so no
-    rank waits in a collective for longer.  Around each iteration every
-    rank all-reduces a flag: if any rank failed to admit the plan's
-    streams or raised in the iteration, every rank fails its active jobs
-    alike.  A rank that dies, or raises between two of the model's
-    collectives, leaves the others waiting in a collective: that is not
-    recovered.  A data-parallel mesh is refused: whisper_tpu's engine
-    fails every job there.
+    the same arguments, and the engine starts no thread of its own: it
+    runs under a Conductor (parallel/conductor.py), the one thread a rank
+    that runs the mesh's collectives -- `conductor`, the server's, or one
+    of its own, started by the constructor, when none is given.  Rank 0
+    takes the requests; its conductor calls `schedule()` (admission and
+    the batch, as above) and broadcasts each iteration's plan (the PCM of
+    the streams admitted this cycle, in order, and the batch's indices
+    into `active`) on the mesh's host group, and every rank's conductor
+    calls `run(plan)`, so the model's collectives pair up and the ranks'
+    stream states move in lockstep (`plan_digest` hashes each rank's view
+    of every iteration).  Around each iteration every rank all-reduces a
+    flag: if any rank failed to admit the plan's streams or raised in the
+    iteration, every rank fails its active jobs alike.  A data-parallel
+    mesh is refused: whisper_tpu's engine fails every job there.
     """
 
     # the pool's rows x row length stay under this many bytes (it shares
@@ -981,7 +980,8 @@ class ContinuousBatcher:
 
     def __init__(self, ctx: WhisperContext, batch_size: int = 8,
                  params: FullParams | None = None, device_mel: bool = False,
-                 max_active: int | None = None, warmup: bool = False):
+                 max_active: int | None = None, warmup: bool = False,
+                 conductor=None):
         mesh = ctx.mesh
         if mesh is not None and mesh.n_data > 1:
             raise NotImplementedError(
@@ -1019,19 +1019,24 @@ class ContinuousBatcher:
         # a running hash of each iteration's streams, as this rank sees
         # them: equal on every rank of a mesh when they move in lockstep
         self.plan_digest = ""
-        # host seconds rank 0 spends keeping a mesh in step: broadcasting
-        # iterations' plans ("plan"), the failure flags around them
-        # ("flags": the wait for the slowest rank's admission or iteration
-        # included), idle wakeups' empty plans ("idle", n_idle of them)
-        self.sync_s = {"plan": 0.0, "flags": 0.0, "idle": 0.0}
-        self.n_idle = 0
-        # the current CUDA device is per thread, and the kernels launch on
-        # it: the engine thread takes the context's (or this thread's)
-        dev = ctx.device
-        self._cuda_index = None if dev.type != "cuda" else (
-            torch.cuda.current_device() if dev.index is None else dev.index)
-        self.thread = threading.Thread(target=self._run, daemon=True)
-        self.thread.start()
+        self.conductor = conductor
+        if mesh is None:
+            # the current CUDA device is per thread, and the kernels launch
+            # on it: the engine thread takes the context's (or this one's)
+            dev = ctx.device
+            self._cuda_index = None if dev.type != "cuda" else (
+                torch.cuda.current_device() if dev.index is None
+                else dev.index)
+            self.thread = threading.Thread(target=self._run, daemon=True,
+                                           name="ContinuousBatcher")
+            self.thread.start()
+        elif conductor is None:
+            from .conductor import Conductor
+            self.conductor = Conductor(ctx, {None: self})
+            self.conductor.start()
+            self.thread = self.conductor.thread
+        else:
+            self.thread = None
 
     # -- client side -------------------------------------------------------
 
@@ -1061,16 +1066,28 @@ class ContinuousBatcher:
         self._check_leader()
         job = _Job(pcm, on_segment=on_segment)
         self.queue.put(job)
+        if self.conductor is not None:
+            self.conductor.wake()
         return job
 
     def close(self) -> None:
         """Stop the engine once its active streams finish.  On a mesh every
-        rank calls it, and each returns once rank 0's engine has ended (a
-        rank still in the engine would cross the caller's next
-        collectives)."""
+        rank calls it, and each returns once rank 0's conductor has sent
+        its close plan (a rank still in the engine would cross the
+        caller's next collectives); the conductor's other engines end with
+        it."""
         self._closed = True
+        if self.conductor is not None:
+            self.conductor.close()
+            return
         self.queue.put(None)   # wake the engine
-        self.thread.join(timeout=30 if self.mesh is None else None)
+        self.thread.join(timeout=30)
+
+    def _finish(self) -> None:
+        """The conductor's close plan: take no more work, fail what is
+        queued."""
+        self._closed = True
+        self._fail_queued()
 
     # -- the resident PCM pool ---------------------------------------------
 
@@ -1151,17 +1168,16 @@ class ContinuousBatcher:
         return True
 
     def _run(self):
+        """The thread of an engine without a mesh."""
         if self._cuda_index is not None:
             torch.cuda.set_device(self._cuda_index)
         # grad mode is thread-local: this thread sets its own
         with torch.no_grad():
-            if self.leader:
-                self._loop()
-                if self.mesh is not None:
-                    self.mesh.broadcast_object(None)   # the close plan
-            else:
-                self._follow()
-        # fail anything still queued after close
+            self._loop()
+        self._fail_queued()
+
+    def _fail_queued(self) -> None:
+        """Fail anything still queued after close."""
         while True:
             try:
                 job = self.queue.get_nowait()
@@ -1171,28 +1187,10 @@ class ContinuousBatcher:
                 job.error = "ContinuousBatcher closed"
                 job.done.set()
 
-    def _send(self, plan: dict) -> None:
-        """Rank 0: broadcast a plan to the other ranks (nothing without a
-        mesh); an empty batch is an idle wakeup's plan."""
-        if self.mesh is None:
-            return
-        t0 = time.perf_counter()
-        self.mesh.broadcast_object(plan)
-        if plan["batch"]:
-            self.sync_s["plan"] += time.perf_counter() - t0
-        else:
-            self.sync_s["idle"] += time.perf_counter() - t0
-            self.n_idle += 1
-
     def _any_failed(self, failed: bool) -> bool:
         """Whether any rank failed (this rank's `failed` without a mesh)."""
-        if self.mesh is None:
-            return failed
-        t0 = time.perf_counter()
-        failed = self.mesh.any_rank(failed)
-        if self.leader:
-            self.sync_s["flags"] += time.perf_counter() - t0
-        return failed
+        return failed if self.conductor is None else \
+            self.conductor.any_rank(failed)
 
     def _fail_active(self, error: str) -> None:
         for j in self.active:
@@ -1202,13 +1200,11 @@ class ContinuousBatcher:
         self.active.clear()
 
     def _loop(self):
-        """Rank 0's (or the only) scheduler."""
-        idle = {"admit": [], "batch": []}
+        """The scheduler of an engine without a mesh."""
         while True:
             hook = self.iteration_hook
             if hook is not None:
                 hook(self.n_iterations)
-            admitted: list = []
             # admit new work: block when idle, drain when busy
             if not self.active:
                 try:
@@ -1216,53 +1212,54 @@ class ContinuousBatcher:
                 except queue.Empty:
                     if self._closed:
                         return
-                    self._send(idle)
                     continue
                 if job is None and self._closed:
                     return
-                self._admit(job, admitted)
-            while len(self.active) < self.max_active:
-                # just in time: at most one iteration's worth of
-                # never-scheduled streams is prepared a cycle
-                if sum(1 for j in self.active if j._last_sched < 0) >= self.B:
-                    break
-                try:
-                    job = self.queue.get_nowait()
-                except queue.Empty:
-                    break
-                if job is None and self._closed:
-                    break
-                self._admit(job, admitted)
-            if self._closed and not self.active:
-                return
-            if not self.active:
-                self._send(idle)
-                continue
-
-            # first-window-first, then round-robin
-            fresh = [i for i, j in enumerate(self.active)
-                     if j._last_sched < 0]
-            inflight = sorted(
-                (i for i, j in enumerate(self.active) if j._last_sched >= 0),
-                key=lambda i: self.active[i]._last_sched)
-            batch = (fresh + inflight)[:min(len(self.active), self.B)]
-            for i in batch:
-                self.active[i]._last_sched = self.n_iterations
-            self._send({"admit": admitted, "batch": batch})
-            self._step(batch)
-
-    def _follow(self):
-        """A follower rank: replay rank 0's plans until its close plan."""
-        while True:
-            plan = self.mesh.broadcast_object()
+                self._admit(job)
+            plan = self.schedule()
             if plan is None:
-                return
-            hook = self.iteration_hook
-            if hook is not None:
-                hook(self.n_iterations)
-            if not plan["batch"]:
+                if self._closed:
+                    return
                 continue
-            # every admission, even after one fails
+            self.run(plan)
+
+    def schedule(self) -> dict | None:
+        """Rank 0 (or the only rank): admit queued streams (at most one
+        iteration's worth of fresh ones, up to max_active) and pick the
+        batch: first-window-first, then round-robin.  -> the iteration's
+        plan {"admit": the admitted streams' PCM, "batch": indices into
+        `active`}, or None when no stream is active."""
+        admitted: list = []
+        while len(self.active) < self.max_active:
+            # just in time: at most one iteration's worth of
+            # never-scheduled streams is prepared a cycle
+            if sum(1 for j in self.active if j._last_sched < 0) >= self.B:
+                break
+            try:
+                job = self.queue.get_nowait()
+            except queue.Empty:
+                break
+            if job is None and self._closed:
+                break
+            self._admit(job, admitted)
+        if not self.active:
+            return None
+        fresh = [i for i, j in enumerate(self.active) if j._last_sched < 0]
+        inflight = sorted(
+            (i for i, j in enumerate(self.active) if j._last_sched >= 0),
+            key=lambda i: self.active[i]._last_sched)
+        batch = (fresh + inflight)[:min(len(self.active), self.B)]
+        for i in batch:
+            self.active[i]._last_sched = self.n_iterations
+        return {"admit": admitted, "batch": batch}
+
+    def run(self, plan: dict) -> None:
+        """One iteration of `plan`: rank 0's from its own schedule, a
+        follower's from rank 0 (every admission first, even after one
+        fails)."""
+        if self.leader:
+            self._step(plan["batch"])
+        else:
             added = [self._admit(_Job(pcm)) for pcm in plan["admit"]]
             self._step(plan["batch"], all(added))
 

@@ -20,11 +20,20 @@ With --batch N, compatible requests ride a ContinuousBatcher.
     python -m whisper_tpu_torch.server -m MODEL.bin --device cpu
 
 The model runs on --device (the card by default), in bfloat16.
+
+Over a tensor-parallel mesh (parallel/mesh.py; one process a card, e.g.
+under torchrun) the server is built in process: every rank builds the same
+context, attaches the mesh with BatchTranscriber(ctx, mesh=...) and calls
+`install(ctx, batch=N)`; rank 0 then serves Handler on a
+ThreadingHTTPServer and every other rank calls `follow()`, which replays
+rank 0's work (parallel/conductor.py) until rank 0 closes its worker or
+loads another model.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import io
 import json
 import re
@@ -37,6 +46,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from .api import SamplingStrategy, WhisperContext, full_default_params
 from .audio.io import load_audio
 from .outputs import to_timestamp
+from .parallel.conductor import Conductor, full_streaming
 
 
 class _State:
@@ -44,6 +54,8 @@ class _State:
     model_path: str = ""
     lock = threading.Lock()
     batcher: "_BatchWorker | None" = None
+    # the serial server over a mesh: its requests' full() on every rank
+    conductor: Conductor | None = None
 
 
 STATE = _State()
@@ -65,34 +77,43 @@ class _BatchWorker:
     scheduler thread), further signatures fall back to serial ctx.full
     under a lock.  window_ms is kept for CLI compatibility; continuous
     admission makes a collection window unnecessary.
+
+    Over a tensor-parallel mesh (ctx.mesh with n_data = n_slice = 1) every
+    rank constructs the worker with the same arguments; its engines start
+    no thread, and one Conductor (parallel/conductor.py) a rank runs them
+    and the serial fallback: rank 0's routes each request (`route`) and
+    schedules, the other ranks replay its plans until `follow()` returns.
     """
 
     MAX_ENGINES = 4
 
     def __init__(self, ctx: WhisperContext, batch_size: int = 8,
                  window_ms: int = 50, warmup: bool = True):
-        if ctx.mesh is not None:
-            # each signature's engine drives the mesh's collectives from a
-            # thread of its own, and the serial fallback runs on rank 0
-            # alone: either would cross another's collectives
+        mesh = ctx.mesh
+        if mesh is not None and mesh.n_data > 1:
             raise NotImplementedError(
-                "the batched server over a mesh-attached context is not "
-                "supported: its engines and its serial fallback would "
-                "interleave the mesh's collectives (ROADMAP.md, queue 1)")
+                f"the batched server over a data-parallel mesh "
+                f"({mesh.shape}): whisper_tpu's engine fails every job there "
+                "(ContinuousBatcher); only n_data = n_slice = 1 runs")
         self.ctx = ctx
         self.batch_size = batch_size
         self.window_s = window_ms / 1000.0
         self._elock = threading.Lock()   # engine registry
         self._slock = threading.Lock()   # serial-fallback requests
         self.engines: dict = {}
+        self.conductor = (None if mesh is None
+                          else Conductor(ctx, self.engines, router=self))
         if warmup and ctx.n_loaded > 0:
             # pre-build the default-signature engine and run the encoder
             # and both decode prompt buckets once, so no live request on
-            # the default configuration pays the one-time set-up
+            # the default configuration pays the one-time set-up (over a
+            # mesh every rank's constructor does so at the same point)
             t0 = time.perf_counter()
-            self._engine_for(self._default_params(), warmup=True)
+            self.new_engine(self._default_params(), warmup=True)
             print(f"server: warmed the default engine in "
                   f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
+        if self.conductor is not None:
+            self.conductor.start()
 
     @staticmethod
     def _default_params():
@@ -142,81 +163,88 @@ class _BatchWorker:
                 and p.grammar_rules is None
                 and p.logits_filter_callback is None)
 
-    def _engine_for(self, params, warmup: bool = False):
-        from .parallel.batch import ContinuousBatcher
-        sig = self._signature(params)
+    def route(self, params, make=None):
+        """The engine that carries a request with these params, made when
+        its signature has none and there is room (by make(params): over a
+        mesh the conductor's engine plan), or None: the request runs as a
+        serial full()."""
+        if not self._batchable(params):
+            return None
         with self._elock:
-            eng = self.engines.get(sig)
-            if eng is None:
-                if len(self.engines) >= self.MAX_ENGINES:
-                    return None
-                import copy
-                eng = ContinuousBatcher(
-                    self.ctx, batch_size=self.batch_size,
-                    params=copy.deepcopy(params), warmup=warmup)
-                self.engines[sig] = eng
+            eng = self.engines.get(self._signature(params))
+            if eng is None and len(self.engines) < self.MAX_ENGINES:
+                eng = (make or self.new_engine)(params)
         return eng
 
-    def submit(self, pcm, params):
-        """Blocks until this request's segments are ready; returns them."""
-        if self._batchable(params):
-            eng = self._engine_for(params)
-            if eng is not None:
-                job = eng.submit_async(pcm)
-                job.done.wait()
-                if job.error is not None:
-                    raise RuntimeError(job.error)
-                return list(job.st.result_all), job.st.full_lang_id()
+    def new_engine(self, params, warmup: bool = False):
+        """Make and register the engine of params' signature (over a mesh,
+        on every rank, under the conductor)."""
+        from .parallel.batch import ContinuousBatcher
+        eng = ContinuousBatcher(
+            self.ctx, batch_size=self.batch_size,
+            params=copy.deepcopy(params), warmup=warmup,
+            conductor=self.conductor)
+        self.engines[self._signature(params)] = eng
+        return eng
+
+    def submit(self, pcm, params, on_segment=None):
+        """Blocks until this request's segments are ready -> (segments,
+        lang_id).  on_segment(Segment), if given, is called for each
+        segment AS THE ENGINE PRODUCES IT (between window iterations on
+        the batched path, per emission on the serial path)."""
+        if self.conductor is not None:
+            return self.conductor.submit(pcm, params, on_segment)
+        eng = self.route(params)
+        if eng is not None:
+            job = eng.submit_async(pcm, on_segment=on_segment)
+            job.done.wait()
+            if job.error is not None:
+                raise RuntimeError(job.error)
+            return list(job.st.result_all), job.st.full_lang_id()
         with self._slock:
             state = self.ctx.init_state()
-            if self.ctx.full(params, pcm, state=state) != 0:
+            if full_streaming(self.ctx, params, pcm, state, on_segment) != 0:
                 raise RuntimeError("failed to process audio")
             return list(state.result_all), state.full_lang_id()
 
     def submit_stream(self, pcm, params, on_segment):
-        """Like submit, but invokes on_segment(Segment) for each segment
-        AS THE ENGINE PRODUCES IT (between window iterations on the
-        batched path, per emission on the serial path) — the transport
-        behind the server's SSE /stream endpoint."""
-        if self._batchable(params):
-            eng = self._engine_for(params)
-            if eng is not None:
-                job = eng.submit_async(pcm, on_segment=on_segment)
-                job.done.wait()
-                if job.error is not None:
-                    raise RuntimeError(job.error)
-                return job.st.result_all
-        with self._slock:
-            state = self.ctx.init_state()
-            n_seen = 0
+        """submit() with on_segment, -> the segments: the transport behind
+        the server's SSE /stream endpoint."""
+        return self.submit(pcm, params, on_segment)[0]
 
-            def _cb(st, n_new, _=None):
-                nonlocal n_seen
-                segs = st.result_all
-                while n_seen < len(segs):
-                    on_segment(segs[n_seen])
-                    n_seen += 1
-
-            params.new_segment_callback = _cb
-            try:
-                if self.ctx.full(params, pcm, state=state) != 0:
-                    raise RuntimeError("failed to process audio")
-            finally:
-                params.new_segment_callback = None
-            _cb(state, 0)   # anything emitted without a callback pass
-            return list(state.result_all)
+    def follow(self) -> None:
+        """A rank other than 0 of a mesh: replay rank 0's work until it
+        closes the worker or loads another model."""
+        if self.conductor is None:
+            raise RuntimeError("follow() is for the ranks of a mesh")
+        self.conductor.follow()
 
     def rebind(self, ctx: WhisperContext) -> None:
-        """Swap the model (POST /load): drain and drop every engine —
-        they hold the old weights."""
-        with self._elock:
-            engines, self.engines = self.engines, {}
-            self.ctx = ctx
-        for eng in engines.values():
-            eng.close()
+        """Swap the model (POST /load): drain and drop every engine --
+        they hold the old weights.  Over a mesh the conductor drains them
+        and its close plan releases the other ranks; `ctx` (from_file's,
+        with no mesh, as whisper_tpu's /load gives) is then served by
+        engines with threads of their own."""
+        if ctx.mesh is not None:
+            raise NotImplementedError(
+                "rebinding the server to a mesh-attached context: the other "
+                "ranks cannot follow a context that rank 0 loads")
+        self._drop(ctx)
 
     def close(self) -> None:
-        self.rebind(self.ctx)
+        self._drop(self.ctx)
+
+    def _drop(self, ctx: WhisperContext) -> None:
+        if self.conductor is not None:
+            self.conductor.close()   # every rank's engines end with it
+        with self._elock:
+            engines = list(self.engines.values())
+            self.engines.clear()
+            self.ctx = ctx
+            if ctx.mesh is None:
+                self.conductor = None
+        for eng in engines:
+            eng.close()
 
 
 class _SegmentsView:
@@ -418,6 +446,12 @@ def _format_response(ctx, fmt: str, params=None,
         separators=(",", ":"))
 
 
+def _worker():
+    """What the requests go through: the batched worker, or over a mesh
+    the serial server's conductor; None: full() here, under the lock."""
+    return STATE.batcher if STATE.batcher is not None else STATE.conductor
+
+
 class Handler(BaseHTTPRequestHandler):
     def _send(self, code: int, content_type: str, body: str):
         data = body.encode("utf-8")
@@ -455,6 +489,12 @@ class Handler(BaseHTTPRequestHandler):
                         # engines hold the old weights; drain them and
                         # rebind to the new model
                         STATE.batcher.rebind(STATE.ctx)
+                    if STATE.conductor is not None:
+                        # the serial server over a mesh: its close plan
+                        # releases the other ranks; the new context has
+                        # no mesh, and is served as without one
+                        STATE.conductor.close()
+                        STATE.conductor = None
                 # reference responds with this exact text (server.cpp:1029)
                 self._send(200, "application/text", "Load was successful!")
             except Exception as e:
@@ -497,12 +537,15 @@ class Handler(BaseHTTPRequestHandler):
             if STATE.ctx is None:
                 raise RuntimeError("no model loaded")
             duration_s = len(pcm) / 16000.0
-            if STATE.batcher is not None:
-                segs, lid_detected = STATE.batcher.submit(pcm, params)
-                from .languages import lang_id as _lang_id
-                lid = (_lang_id(params.language)
-                       if params.language not in (None, "", "auto")
-                       else lid_detected)
+            worker = _worker()
+            if worker is not None:
+                # the serial server's conductor: the language of the
+                # context's own state, as full() here would leave it
+                segs, lid = worker.submit(pcm, params)
+                if (STATE.batcher is not None
+                        and params.language not in (None, "", "auto")):
+                    from .languages import lang_id as _lang_id
+                    lid = _lang_id(params.language)
                 view = _SegmentsView(segs, max(lid, 0), ctx=STATE.ctx)
                 ctype, out = _format_response(view, fmt, params, duration_s,
                                               offset_n)
@@ -567,15 +610,17 @@ class Handler(BaseHTTPRequestHandler):
                 separators=(",", ":")) + "\n\n").encode("utf-8")
 
         try:
-            if STATE.batcher is not None:
-                # segments arrive from the engine's scheduler thread;
-                # hand them to this handler thread through a queue
+            worker = _worker()
+            if worker is not None:
+                # segments arrive from the engine's scheduler thread (or
+                # the conductor's); hand them to this handler thread
+                # through a queue
                 chan: "_q.Queue" = _q.Queue()
                 done = object()
 
                 def _pump():
                     try:
-                        STATE.batcher.submit_stream(pcm, params, chan.put)
+                        worker.submit(pcm, params, chan.put)
                         chan.put(done)
                     except Exception as e:  # noqa: BLE001
                         chan.put(RuntimeError(str(e)))
@@ -631,14 +676,38 @@ def _arg_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def install(ctx: WhisperContext, model_path: str = "", batch: int = 0,
+            window_ms: int = 50, warmup: bool = True) -> None:
+    """Make `ctx` the served model, with --batch's worker: a _BatchWorker
+    when batch > 0, else (over a mesh) a Conductor for the serial
+    server.  Over a mesh every rank calls it with the same arguments;
+    rank 0 then serves Handler, the others call follow()."""
+    STATE.ctx, STATE.model_path = ctx, model_path
+    STATE.batcher = STATE.conductor = None
+    if batch > 0:
+        STATE.batcher = _BatchWorker(ctx, batch_size=batch,
+                                     window_ms=window_ms, warmup=warmup)
+    elif ctx.mesh is not None:
+        # the context's own state, as full() without a mesh decodes into
+        STATE.conductor = Conductor(ctx, state=ctx._default_state)
+        STATE.conductor.start()
+
+
+def follow() -> None:
+    """A rank other than 0 of a mesh, after install(): replay rank 0's
+    work until rank 0 closes its worker or loads another model."""
+    worker = _worker()
+    if worker is None:
+        raise RuntimeError("follow() is for the ranks of a mesh")
+    worker.follow()
+
+
 def main(argv=None) -> int:
     args = _arg_parser().parse_args(argv)
 
-    STATE.ctx = WhisperContext.from_file(args.model, device=args.device)
-    STATE.model_path = args.model
+    install(WhisperContext.from_file(args.model, device=args.device),
+            args.model, args.batch, args.batch_window_ms)
     if args.batch > 0:
-        STATE.batcher = _BatchWorker(STATE.ctx, batch_size=args.batch,
-                                     window_ms=args.batch_window_ms)
         print(f"cross-request batching: up to {args.batch} per step",
               file=sys.stderr)
 

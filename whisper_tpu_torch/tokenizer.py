@@ -1,4 +1,5 @@
-"""Tokenization (copy of whisper_tpu.tokenizer's `tokenize`).
+"""Tokenization (copy of whisper_tpu.tokenizer: `tokenize`, `detokenize`
+and the GPT-2 byte table behind `hf_token_to_bytes`).
 
 The reference tokenizer (reference: src/whisper.cpp:3283-3331) is a
 GPT-2-style regex word split followed by greedy longest-substring matching
@@ -44,3 +45,43 @@ def tokenize(vocab: Vocab, text: str) -> list[int]:
             if not found:
                 i += 1  # skip one byte, like the reference's "unknown token"
     return tokens
+
+
+def detokenize(vocab: Vocab, ids, skip_special: bool = True) -> str:
+    """Token ids -> text (bytes concatenated, then utf-8 decoded)."""
+    buf = b""
+    for tid in ids:
+        tid = int(tid)
+        if skip_special and tid >= vocab.token_eot:
+            continue
+        buf += vocab.id_to_token[tid]
+    return buf.decode("utf-8", errors="replace")
+
+
+# ---------------------------------------------------------------------------
+# GPT-2 byte <-> unicode mapping (needed when importing HF vocab files, which
+# store tokens in the escaped byte-level representation; reference converter:
+# models/convert-pt-to-ggml.py bytes_to_unicode)
+# ---------------------------------------------------------------------------
+
+def _bytes_to_unicode() -> dict[int, str]:
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("\u00a1"), ord("\u00ac") + 1))
+          + list(range(ord("\u00ae"), ord("\u00ff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(2 ** 8):
+        if b not in bs:
+            bs.append(b)
+            cs.append(2 ** 8 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+_BYTE_ENCODER = _bytes_to_unicode()
+_BYTE_DECODER = {v: k for k, v in _BYTE_ENCODER.items()}
+
+
+def hf_token_to_bytes(token: str) -> bytes:
+    """Convert an HF byte-level BPE token string to raw bytes."""
+    return bytes(_BYTE_DECODER[ch] for ch in token)
