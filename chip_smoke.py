@@ -1416,6 +1416,7 @@ def serve(card_line: str, ctx, label: str, need, quality: str = "greedy",
     counts of transcribe; `trace` (einsum_q8 only): one window of the first
     stream once more under the profiler (`traced`)."""
     from whisper_tpu_torch import BatchTranscriber
+    from whisper_tpu_torch.utils.trace import TRACE
 
     p = serving_params(quality)
     bt = BatchTranscriber(ctx, batch_size=batch, params=p, device_mel=True)
@@ -1430,10 +1431,16 @@ def serve(card_line: str, ctx, label: str, need, quality: str = "greedy",
     while True:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        TRACE.drain()
+        TRACE.enable()
         t0 = time.perf_counter()
         result = bt.transcribe(streams)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        TRACE.disable()
+        spans = TRACE.summary()
+        iterations = [round((r.t1 - r.t0) / 1e9, 4) for r in TRACE.drain()
+                      if r.name == "iterate"]
         launches = read_counts()
         if quality != "bo5" or bt.n_retried_windows or p.logprob_thold >= 0:
             break
@@ -1448,10 +1455,10 @@ def serve(card_line: str, ctx, label: str, need, quality: str = "greedy",
         f"{audio_s / wall:.2f} audio-s per wall-s, {bt.n_windows} windows, "
         f"{bt.n_retried_windows} retried, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[{card_line}] {label} phase_times (s): "
-        + json.dumps({k: round(v, 4) for k, v in bt.phase_times.items()}))
-    log(f"[{card_line}] {label} window_times (batch, s): "
-        + json.dumps([(b, round(t, 4)) for b, t in bt.window_times]))
+    log(f"[{card_line}] {label} spans (s; encode on the stream): "
+        + json.dumps({k: round(v.get("stream_seconds", v["seconds"]), 4)
+                      for k, v in spans.items()}))
+    log(f"[{card_line}] {label} iterations (s): " + json.dumps(iterations))
     log(f"kernel launches in {label}: {launches}")
     check_segments(label, result)
     require_launches(label, launches, need)
@@ -1652,10 +1659,10 @@ def check_continuous(card_line: str, ctx) -> dict:
                 raise AssertionError(f"{label}: the engine never reached "
                                      "its iteration hook")
             jobs = [eng.submit_async(pcm) for pcm in streams]
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
             go.set()
             _wait_jobs(label, jobs)
-            wall = time.perf_counter() - t0
+            wall = (time.time_ns() - t0) / 1e9
         finally:
             eng.close()
         got = [j.st.result_all for j in jobs]
@@ -1663,7 +1670,7 @@ def check_continuous(card_line: str, ctx) -> dict:
         if _token_ids(got) != _token_ids(want[device_mel]):
             raise AssertionError(f"{label}: segments differ from "
                                  "BatchTranscriber.transcribe's")
-        ttfs = [j.t_first_segment - t0 for j in jobs]
+        ttfs = [(j.t_first_segment - t0) / 1e9 for j in jobs]
         elog(f"[{card_line}] {label}: {len(jobs)} x {STREAM_S} s int16, "
              f"batch {N_STREAMS}: equal to transcribe token for token; "
              f"wall {wall:.3f} s, {len(jobs) * STREAM_S / wall:.2f} audio-s "
@@ -1710,13 +1717,15 @@ def check_continuous(card_line: str, ctx) -> dict:
                 f"{j.iter_joined}, first segment at {j.iter_first}")
     if None in rows:
         raise AssertionError("continuous run 2: a stream held no pool row")
+    late_ttfs = [round((j.t_first_segment - j.t_submit) / 1e9, 3)
+                 for j in late_jobs]
     elog(f"[{card_line}] continuous run 2: {N_STREAMS} + {CONT_LATE} late "
          f"streams of {STREAM_S} s, batch {N_STREAMS}: wall {wall:.3f} s, "
          f"{(N_STREAMS + CONT_LATE) * STREAM_S / wall:.2f} audio-s per "
          f"wall-s, {eng.n_iterations} iterations; late streams joined at "
          f"iterations {[j.iter_joined for j in late_jobs]}, first segments "
          f"at {[j.iter_first for j in late_jobs]}, time to first segment "
-         f"{[round(j.t_first_segment - j.t_submit, 3) for j in late_jobs]} "
+         f"{late_ttfs} "
          f"s; every scheduled stream held a pool row")
 
     run_gated(False, "continuous run 3 (host mel)")

@@ -19,6 +19,7 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_ggml import write_model  # noqa: E402
+from test_torch_trace import traced  # noqa: E402,F401
 from whisper_tpu.api import WhisperContext as JaxContext  # noqa: E402
 from whisper_tpu.api import full_default_params as jax_params  # noqa: E402
 from whisper_tpu.parallel.batch import ContinuousBatcher as JaxEngine  # noqa: E402
@@ -114,7 +115,7 @@ def _run_gated(engine, streams):
 
 @pytest.mark.parametrize("device_mel", [False, True], ids=["host", "device"])
 @pytest.mark.parametrize("config", list(CONFIGS))
-def test_engine_matches_whisper_tpu(ctx, jctx, config, device_mel):
+def test_engine_matches_whisper_tpu(ctx, jctx, config, device_mel, traced):
     B, over = CONFIGS[config]
     streams = [_noise(s, seed=40 + s, int16=device_mel) for s in (4, 35, 62)]
     want = _run_gated(JaxEngine(jctx, batch_size=B, device_mel=device_mel,
@@ -133,7 +134,8 @@ def test_engine_matches_whisper_tpu(ctx, jctx, config, device_mel):
                     [getattr(t, key) for t in a.tokens], rtol=1e-4,
                     atol=1e-4, err_msg=key)
     assert sum(len(j.st.result_all) for j in want) >= 4
-    assert eng.bt.n_windows == sum(b for b, _ in eng.bt.window_times)
+    spans = traced.summary()
+    assert eng.bt.n_windows == spans["iterate"]["value"]
     if config == "best_of_ladder":
         assert eng.bt.n_retried_windows > 0     # the t > 0 rungs ran
     if device_mel:

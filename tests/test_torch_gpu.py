@@ -2,7 +2,8 @@
 K6 also at ragged lengths, pad keys of 1e4, batch 4, and for determinism), the
 serving slice through K1 and K2 (and in 4-bit cross-KV), from_file + full
 over block-quantized files through K1, K3 and K2, K4 or K5 in every cross
-mode, and the encoder's attention variants through K1 and K6.  Every test
+mode, the encoder's attention variants through K1 and K6, and the
+tracer's clock and waits (utils/trace.py).  Every test
 here needs CUDA and skips without it.  The card has no JAX and tests/conftest.py imports it, so
 run this file there without the conftest:
 
@@ -24,6 +25,7 @@ from whisper_tpu_torch.ops import cross_attention as xa  # noqa: E402
 from whisper_tpu_torch.ops import encoder_attention as ea  # noqa: E402
 from whisper_tpu_torch.ops import mel_pallas as mp  # noqa: E402
 from whisper_tpu_torch.ops import quantized as qm  # noqa: E402
+from whisper_tpu_torch.utils.trace import TRACE, Tracer  # noqa: E402
 from whisper_tpu_torch.weights import ggml_writer  # noqa: E402
 from whisper_tpu_torch.weights.vocab import synthetic_vocab  # noqa: E402
 
@@ -1127,3 +1129,96 @@ def test_stream_vad_step_on_card(gen, tmp_path):
     assert [(s.t0, s.t1, s.text, [t.id for t in s.tokens])
             for s in ctx.result_all] == want
     assert segs == [(t0, t1, text) for t0, t1, text, _ in want]
+
+
+def test_trace_clock_is_the_profilers(gen):
+    """A span (time.time_ns()) fenced around one K2 launch holds the
+    kernel's start and end as torch.profiler's device events give them,
+    within 50 us: one clock, as the benchmark's idle-gap attribution
+    assumes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    shape = (4, 20, 64, 1500)
+    q = (torch.randn(4, 20, 1, 64, generator=gen, device="cuda") * 0.3
+         ).to(torch.bfloat16)
+    kq, ks = xa.quantize_kv_bhdt(
+        torch.randn(shape, generator=gen, device="cuda") * 0.3)
+    vq, vs = xa.quantize_kv_bhdt(
+        torch.randn(shape, generator=gen, device="cuda") * 0.3)
+    xa.cross_attention_decode_q8dt(q, kq, ks, vq, vs)     # built and warm
+    torch.cuda.synchronize()
+    tr = Tracer()
+    tr.enable()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tr.span("k2"):
+            xa.cross_attention_decode_q8dt(q, kq, ks, vq, vs)
+            torch.cuda.synchronize()
+    (span,) = tr.drain()
+    (k2,) = [e for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and "xattn_q8dt" in e.name()]
+    print(f"span {span.t0}..{span.t1}, K2 {k2.start_ns()}..{k2.end_ns()} "
+          f"(start - t0 {k2.start_ns() - span.t0} ns, t1 - end "
+          f"{span.t1 - k2.end_ns()} ns)")
+    slack = 50_000
+    assert span.t0 - slack <= k2.start_ns() < k2.end_ns() <= span.t1 + slack
+
+
+def test_decode_window_waits_only_in_wait_spans(gen):
+    """One window decode under torch's sync debug mode: every call that
+    waits for the device (each warns) comes while a `wait` span is open
+    on its thread, so the `step` spans (dispatch_ms.batch) hold no wait."""
+    import threading
+    import time
+    import warnings
+    dims = (51864, 32, 128, 2, 2, 48, 128, 2, 2, 80)
+    ctx = WhisperContext.from_random(dims=dims, seed=1, device="cuda")
+    p = full_default_params()
+    p.print_progress = False
+    p.language = "en"
+    p.temperature_inc = 0.0
+    p.no_timestamps = True
+    p.max_tokens = 8
+    bt = BatchTranscriber(ctx, batch_size=2, params=p, device_mel=True)
+    bt.warmup(pcm_dtype=np.int16)
+    rng = np.random.RandomState(0)
+    windows = (rng.randn(2, 2 * 1500 * 160 + 400) * 3000).astype(np.int16)
+    kc, vc = bt._encode_local(windows)
+    live = np.ones((2,), bool)
+    seeks = np.zeros((2,), np.int32)
+    ends = np.full((2,), 3000, np.int32)
+    keys = np.zeros((2, 2), np.uint32)
+    torch.cuda.synchronize()
+    seen = []
+
+    def show(message, category, *args, **kwargs):
+        # one warning a synchronizing call (and one notice as the mode
+        # is set, which is not one)
+        if "called a synchronizing CUDA operation" in str(message):
+            seen.append((time.time_ns(), threading.get_ident(),
+                         str(message)))
+
+    TRACE.drain()
+    TRACE.enable()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = bt._decode_rows([list(bt.prompt_init)] * 2, kc, vc,
+                                      live, seeks, ends, 0.0, keys)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        TRACE.disable()
+        recs = TRACE.drain()
+    waits = [r for r in recs if r.name == "wait"]
+    n_tokens = int(out["n_tokens"])
+    assert n_tokens >= 2 and len(waits) == n_tokens + 2
+    assert sum(r.name == "step" for r in recs) == n_tokens - 1
+    outside = [(msg, [r.name for r in recs if r.t0 <= t <= r.t1])
+               for t, thread, msg in seen
+               if not any(w.thread == thread and w.t0 <= t <= w.t1
+                          for w in waits)]
+    assert len(seen) >= len(waits) and not outside, outside[:5]

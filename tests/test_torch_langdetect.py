@@ -13,6 +13,7 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_ggml import write_model  # noqa: E402
+from test_torch_trace import traced  # noqa: E402,F401
 from whisper_tpu.api import WhisperContext as JaxContext  # noqa: E402
 from whisper_tpu.api import full_default_params as jax_params  # noqa: E402
 from whisper_tpu.parallel.batch import BatchTranscriber as JaxBatch  # noqa: E402
@@ -103,7 +104,7 @@ def test_auto_language_transcribe_matches_whisper_tpu(path, streams):
         assert st.prompt_init[1] == tctx.vocab.token_lang(st.lang_id_state)
 
 
-def test_detect_language_stops(path, streams):
+def test_detect_language_stops(path, streams, traced):
     """detect_language resolves each stream's language and decodes
     nothing, in one iteration per batch."""
     jctx, tctx = _contexts(path, "einsum")
@@ -114,7 +115,7 @@ def test_detect_language_stops(path, streams):
                                           detect_language=True))
     assert jbt.transcribe(streams) == [[], [], []]
     assert tbt.transcribe(streams) == [[], [], []]
-    assert len(tbt.window_times) == 1 and tbt.n_windows == 0
+    assert traced.summary()["iterate"]["count"] == 1 and tbt.n_windows == 0
     assert ([st.full_lang_id() for st in tbt.last_states]
             == [st.full_lang_id() for st in jbt.last_states])
     # the serial full() detects the same language for a stream

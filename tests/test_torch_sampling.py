@@ -36,6 +36,7 @@ from test_torch_full import (_assert_same_segments, _params,  # noqa: E402
                              files, jax_context, jax_strict, pcm)
 from test_torch_slice import (_first_divergence, _segments,  # noqa: E402
                               contexts)
+from test_torch_trace import traced  # noqa: E402,F401
 from whisper_tpu.api import full_default_params as jax_params  # noqa: E402
 from whisper_tpu.api import window_rng as jax_window_rng  # noqa: E402
 from whisper_tpu.decode.filters import FilterOptions as JaxOptions  # noqa: E402
@@ -152,7 +153,8 @@ def test_full_default_ladder(files, pcm, jax_strict, draw_gaps):
 
 
 @pytest.mark.parametrize("batch", [2, 10], ids=["multipass", "tiled"])
-def test_batch_best_of_ladder(contexts, short_streams, draw_gaps, batch):
+def test_batch_best_of_ladder(contexts, short_streams, draw_gaps, batch,
+                              traced):
     """BatchTranscriber with the ladder live and best_of 5: at batch 2 a
     stream's five candidates span three passes (merged before ranking), at
     batch 10 both streams' candidates share one pass and the later rungs
@@ -172,6 +174,7 @@ def test_batch_best_of_ladder(contexts, short_streams, draw_gaps, batch):
     assert _segments(tres) == _segments(jres), _first_divergence(jres, tres)
     assert all(_segments(jres))
     _assert_draws_clear(draw_gaps, at_least=10)
-    assert set(tb.phase_times) == {"upload", "prep", "encode", "decode",
-                                   "finish"}
-    assert sum(b for b, _ in tb.window_times) == tb.n_windows
+    spans = traced.summary()
+    assert {"transcribe", "prep", "upload", "iterate", "encode", "decode",
+            "step", "wait", "finish"} <= set(spans)
+    assert spans["iterate"]["value"] == tb.n_windows

@@ -13,6 +13,7 @@ torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_trace import traced  # noqa: E402,F401
 from whisper_tpu.api import WhisperContext as JaxContext  # noqa: E402
 from whisper_tpu.api import full_default_params as jax_params  # noqa: E402
 from whisper_tpu.parallel.batch import BatchTranscriber as JaxBatch  # noqa: E402
@@ -77,7 +78,7 @@ def _first_divergence(jres, tres):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_batch_segments_identical(contexts, streams, case):
+def test_batch_segments_identical(contexts, streams, case, traced):
     jctx, tctx = contexts
     overrides = CASES[case]
     jres = JaxBatch(jctx, batch_size=2, params=_params(jax_params, overrides),
@@ -89,9 +90,10 @@ def test_batch_segments_identical(contexts, streams, case):
     want, got = _segments(jres), _segments(tres)
     assert all(want), want
     assert got == want, _first_divergence(jres, tres)
-    assert set(bt.phase_times) == {"upload", "prep", "encode", "decode",
-                                   "finish"}
-    assert sum(b for b, _ in bt.window_times) == bt.n_windows
+    spans = traced.summary()
+    assert {"transcribe", "prep", "upload", "iterate", "encode", "decode",
+            "step", "wait", "finish"} <= set(spans)
+    assert spans["iterate"]["value"] == bt.n_windows
     # segment text and probabilities come along with the ids
     for js, ts in zip(jres, tres):
         for a, b in zip(js, ts):

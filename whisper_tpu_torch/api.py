@@ -61,6 +61,7 @@ from .tokenizer import tokenize
 from .utils.device import resolve_device
 from .utils.logging import log_error, log_info, log_warn
 from .utils.timings import Timings
+from .utils.trace import TRACE
 from .weights.convert import from_jax, params_from_ggml, random_params
 from .weights.ggml_reader import Hparams, read_ggml_file
 from .weights.vocab import Vocab, synthetic_vocab
@@ -439,13 +440,21 @@ class WhisperContext:
     def _regex_suppress_ids(self, pattern: str) -> tuple:
         """Token ids whose text fully matches `pattern`
         (reference: suppress_regex, src/whisper.cpp:5098-5106)."""
-        key = ("regex", pattern)
-        if key not in self._fn_cache:
+        def make():
             pat = re.compile(pattern)
-            self._fn_cache[key] = tuple(sorted(
+            return tuple(sorted(
                 tid for tok, tid in self.vocab.token_to_id.items()
                 if pat.fullmatch(tok.decode("utf-8", errors="replace"))))
-        return self._fn_cache[key]
+        return self._cached(("regex", pattern), make)
+
+    def _cached(self, key, make):
+        """_fn_cache[key], made by make() on a miss (traced: the counter
+        `fn_built`, which stays 0 once the shapes a caller uses are warm)."""
+        fn = self._fn_cache.get(key)
+        if fn is None:
+            TRACE.count("fn_built")
+            fn = self._fn_cache[key] = make()
+        return fn
 
     def _decode_window_fn(self, B: int, P: int, opts: FilterOptions,
                           single_segment: bool, no_timestamps: bool,
@@ -456,9 +465,7 @@ class WhisperContext:
         beam_size, one (2,) key).  On a mesh, greedy rows split over the
         data axes when B divides over them (parallel/mesh.split_window_fn);
         the serial beam's rows are coupled and run replicated."""
-        key = ("dec", B, P, opts, single_segment, no_timestamps, max_tokens,
-               strategy, extra_suppress)
-        if key not in self._fn_cache:
+        def make():
             kw = dict(consts=FilterConsts.from_vocab(
                           self.vocab, self.config.n_audio_ctx),
                       options=opts,
@@ -466,16 +473,17 @@ class WhisperContext:
                                             no_timestamps, max_tokens),
                       extra_suppress=extra_suppress, device=self.device)
             if strategy == "beam":
-                fn = make_beam_decode_window(beam_size=B, **kw)
-            elif strategy == "greedy":
-                fn = make_decode_window(**kw)
-                if self.mesh is not None:
-                    from .parallel.mesh import split_window_fn
-                    fn = split_window_fn(fn, self.mesh, B)
-            else:
+                return make_beam_decode_window(beam_size=B, **kw)
+            if strategy != "greedy":
                 raise ValueError(f"unknown decode strategy {strategy!r}")
-            self._fn_cache[key] = fn
-        return self._fn_cache[key]
+            fn = make_decode_window(**kw)
+            if self.mesh is not None:
+                from .parallel.mesh import split_window_fn
+                fn = split_window_fn(fn, self.mesh, B)
+            return fn
+        return self._cached(("dec", B, P, opts, single_segment,
+                             no_timestamps, max_tokens, strategy,
+                             extra_suppress), make)
 
     def _beam_batch_window_fn(self, S: int, K: int, P: int,
                               opts: FilterOptions, single_segment: bool,
@@ -486,9 +494,7 @@ class WhisperContext:
         and (S, 2) keys, per-beam outputs (S*K rows).  On a mesh the
         streams split over the data axes when S divides over them, a
         stream's K beams staying on one rank."""
-        key = ("decbb", S, K, P, opts, single_segment, no_timestamps,
-               max_tokens, extra_suppress)
-        if key not in self._fn_cache:
+        def make():
             from .parallel.mesh import row_slice, split_window_fn
             sl = row_slice(self.mesh, S)
             fn = make_batched_beam_decode_window(
@@ -500,9 +506,9 @@ class WhisperContext:
                 n_streams=S if sl is None else sl.stop - sl.start,
                 beam_size=K, extra_suppress=extra_suppress,
                 device=self.device)
-            self._fn_cache[key] = (fn if sl is None
-                                   else split_window_fn(fn, self.mesh, S))
-        return self._fn_cache[key]
+            return fn if sl is None else split_window_fn(fn, self.mesh, S)
+        return self._cached(("decbb", S, K, P, opts, single_segment,
+                             no_timestamps, max_tokens, extra_suppress), make)
 
     @property
     def _cur_state(self) -> WhisperState:

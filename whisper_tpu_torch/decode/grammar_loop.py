@@ -273,10 +273,9 @@ def decode_window_grammar(ctx, prompt, kc, vc, t_cur, seek, seek_end,
     if speculative:
         extra = (ctx._regex_suppress_ids(params.suppress_regex)
                  if params.suppress_regex else ())
-        key = ("gchunk", opts, extra)
-        if key not in ctx._fn_cache:
-            ctx._fn_cache[key] = _make_chunk_fn(ctx, consts, opts, extra)
-        chunk_fn = ctx._fn_cache[key]
+        chunk_fn = ctx._cached(("gchunk", opts, extra),
+                               lambda: _make_chunk_fn(ctx, consts, opts,
+                                                      extra))
         i_stop = params.max_tokens if params.max_tokens > 0 else 1 << 30
 
         i = 0

@@ -11,10 +11,17 @@ of that flag per token).
 Variable-length prompts are LEFT-padded inside a fixed prompt buffer: pad
 slots are masked out of attention and position ids are shifted, so the
 math matches a dense prompt decode.
+
+Traced (utils/trace.py), the host's time in the token loop splits into
+`step` spans (one a decode step: its launches and the token's draw and
+bookkeeping, enqueued without a wait) and `wait` spans (every host read
+of the device: the stop flag once a token, the results at the end).  The
+window's inputs go up from pinned memory without a wait.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -22,6 +29,7 @@ import torch
 
 from ..constants import CHUNK_SIZE, TICKS_PER_SECOND
 from ..models import whisper as wm
+from ..utils.trace import TRACE
 from . import rng
 from .filters import (FilterConsts, FilterOptions, make_process_logits,
                       sample_token_data)
@@ -235,7 +243,11 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         dev = (k_cross[0] if prequant else k_cross).device
 
         def dev_tensor(a, dtype):
-            return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+            host = torch.as_tensor(np.asarray(a))
+            if dev.type == "cuda":
+                # from pinned memory the copy is queued, not waited for
+                host = host.pin_memory()
+            return host.to(dev, non_blocking=True).to(dtype)
 
         prompt = dev_tensor(prompt, torch.long)
         B = prompt.shape[0]
@@ -298,47 +310,53 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
         failed = false_b
 
         i = 0
-        done = bool(torch.all(completed | failed))   # one host read a token
+        with TRACE.span("wait"):    # one host read a token
+            done = bool(torch.all(completed | failed))
+        # token i: its logits (a decode step past the first token), the
+        # draw, the bookkeeping; the next token's logits are skipped when
+        # every row is done
         while i < N and not done:
-            live = ~(completed | failed)
+            with TRACE.span("step") if i else contextlib.nullcontext():
+                if i:
+                    pos_ids = torch.clamp_max(P - pad_len + (i - 1),
+                                              cfg.n_text_ctx - 1)
+                    lg_raw, kv = wm.decode_step(
+                        params, tok, pos_ids, P + i - 1, kv, kc_loop,
+                        vc_loop, kv_len=P + i, n_head=cfg.n_head,
+                        pad_len=pad_len, compute_dtype=cd)
 
-            tok, keys = draw_or_argmax(pr, lp, temperature, keys)
-            p, plog, tid, pt, ptsum = token_data(tok, pr, lp, consts)
+                    penult_was_ts = torch.where(live, last_was_ts,
+                                                penult_was_ts)
+                    last_was_ts = torch.where(live, tok >= token_beg,
+                                              last_was_ts)
 
-            tokens[:, i] = torch.where(live, tok, tokens[:, i])
-            p_arr[:, i] = torch.where(live, p, 0.0)
-            plog_arr[:, i] = torch.where(live, plog, 0.0)
-            tid_arr[:, i] = torch.where(live, tid, 0)
-            pt_arr[:, i] = torch.where(live, pt, 0.0)
-            ptsum_arr[:, i] = torch.where(live, ptsum, 0.0)
-            sum_lp = sum_lp + torch.where(live, plog, 0.0)
+                    lg, lp, pr = process_logits(
+                        lg_raw, temperature, is_initial=false_b,
+                        last_was_ts=last_was_ts, penult_was_ts=penult_was_ts,
+                        has_ts=has_ts, seek_delta=seek_delta)
+                live = ~(completed | failed)
 
-            has_ts, seek_delta, result_len, completed, failed = \
-                token_state_update(
-                    consts, cfg, i=i, tok=tok, live=live, has_ts=has_ts,
-                    seek_delta=seek_delta, result_len=result_len,
-                    completed=completed, failed=failed,
-                    seek=seek, seek_end=seek_end, N=N)
+                tok, keys = draw_or_argmax(pr, lp, temperature, keys)
+                p, plog, tid, pt, ptsum = token_data(tok, pr, lp, consts)
+
+                tokens[:, i] = torch.where(live, tok, tokens[:, i])
+                p_arr[:, i] = torch.where(live, p, 0.0)
+                plog_arr[:, i] = torch.where(live, plog, 0.0)
+                tid_arr[:, i] = torch.where(live, tid, 0)
+                pt_arr[:, i] = torch.where(live, pt, 0.0)
+                ptsum_arr[:, i] = torch.where(live, ptsum, 0.0)
+                sum_lp = sum_lp + torch.where(live, plog, 0.0)
+
+                has_ts, seek_delta, result_len, completed, failed = \
+                    token_state_update(
+                        consts, cfg, i=i, tok=tok, live=live, has_ts=has_ts,
+                        seek_delta=seek_delta, result_len=result_len,
+                        completed=completed, failed=failed,
+                        seek=seek, seek_end=seek_end, N=N)
 
             i += 1
-            # the next token's logits are skipped when everyone is done
-            done = bool(torch.all(completed | failed))
-            if i >= N or done:
-                break
-            pos_ids = torch.clamp_max(P - pad_len + (i - 1),
-                                      cfg.n_text_ctx - 1)
-            lg_raw, kv = wm.decode_step(
-                params, tok, pos_ids, P + i - 1, kv, kc_loop, vc_loop,
-                kv_len=P + i, n_head=cfg.n_head, pad_len=pad_len,
-                compute_dtype=cd)
-
-            penult_was_ts = torch.where(live, last_was_ts, penult_was_ts)
-            last_was_ts = torch.where(live, tok >= token_beg, last_was_ts)
-
-            lg, lp, pr = process_logits(
-                lg_raw, temperature, is_initial=false_b,
-                last_was_ts=last_was_ts, penult_was_ts=penult_was_ts,
-                has_ts=has_ts, seek_delta=seek_delta)
+            with TRACE.span("wait"):
+                done = bool(torch.all(completed | failed))
 
         out = {
             "tokens": tokens, "p": p_arr, "plog": plog_arr, "tid": tid_arr,
@@ -348,7 +366,8 @@ def make_decode_window(*, consts: FilterConsts, options: FilterOptions,
             "completed": completed, "failed": failed,
             "no_speech_prob": no_speech_prob,
         }
-        res = {key: val.cpu().numpy() for key, val in out.items()}
+        with TRACE.span("wait"):
+            res = {key: val.cpu().numpy() for key, val in out.items()}
         res["n_tokens"] = np.int32(i)
         return res
 

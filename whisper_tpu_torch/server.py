@@ -47,6 +47,7 @@ from .api import SamplingStrategy, WhisperContext, full_default_params
 from .audio.io import load_audio
 from .outputs import to_timestamp
 from .parallel.conductor import Conductor, full_streaming
+from .utils.trace import TRACE
 
 
 class _State:
@@ -474,6 +475,12 @@ class Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         length = int(self.headers.get("Content-Length", 0))
+        if self.path == "/inference":
+            # a request enters the program here (traced: its id and the
+            # span `http`, whose self time is the handler's own)
+            with TRACE.request(), TRACE.span("http", length):
+                self._do_inference(self.rfile.read(length))
+            return
         body = self.rfile.read(length)
 
         if self.path == "/load":
@@ -505,11 +512,10 @@ class Handler(BaseHTTPRequestHandler):
         if self.path == "/stream":
             self._do_stream(body)
             return
+        self._send(404, "application/json", '{"error": "not found"}')
 
-        if self.path != "/inference":
-            self._send(404, "application/json", '{"error": "not found"}')
-            return
-
+    def _do_inference(self, body: bytes):
+        """POST /inference: one multipart form, one transcription."""
         try:
             form = _parse_multipart(body, self.headers.get("Content-Type", ""))
             if "file" not in form:
