@@ -5,11 +5,13 @@
 
 Phases, each of which must pass (the script exits nonzero otherwise):
   1. require CUDA; print the card's name and power limit
-  2. build kernels K1-K7 from whisper_tpu_torch/csrc with nvcc (one process
-     per source, in parallel)
+  2. build kernels K1-K7 and the encoder block's five row-wise epilogues
+     (csrc/encoder_epilogue.cu) from whisper_tpu_torch/csrc with nvcc (one
+     process per source, in parallel)
   3. compare each kernel with its plain PyTorch version on the card at
      every shape the paths below give it, taken from the models they load
-     (K2 also with G = 5 queries a (b, h), batched beam search's form)
+     (K2 also with G = 5 queries a (b, h), batched beam search's form; the
+     epilogues at the batch cells' 256 windows of large-v3's encoder)
      (and K3 at the prompt passes of serving batches of 4 and 64 streams),
      and, after the paths, at every other shape they launched (each
      launch's shape noted from its entry point's arguments; compared,
@@ -196,9 +198,22 @@ K3_SERVE_M = (4 * 232, BENCH_BATCH * 232)
 # at the kernels' rounding points (they read <= 5.0e-3).  K7 is f32
 # against f32: it read 4.8e-8, and f32 products on TF32-rounded operands
 # read 8.8e-3.
+# The encoder's epilogues: the bias casts and residual sums equal their
+# plain versions bit for bit (0); the layernorms' bf16 outputs may sit one
+# bf16 ulp away (their mean and variance summed in another order than
+# PyTorch's Welford), at most 2^-7 of the largest output, and GELU's
+# likewise (tanhf compiled otherwise); tests/test_torch_gpu.py counts the
+# elements.
 KERNEL_TOL = {"K1": 2e-2, "K1dt": 2e-2, "K2": 5e-4, "K2G": 5e-4, "K3": 1e-5,
               "K3+mins": 1e-5, "K4": 5e-4, "K5": 5e-4, "K6": 2e-2,
-              "K7": 1e-5}
+              "K7": 1e-5, "ln_cast": 2 ** -7, "bias_cast": 0.0,
+              "bias_residual_ln": 2 ** -7, "bias_gelu_cast": 2 ** -7,
+              "bias_residual": 0.0}
+# the encoder block's row-wise epilogue kernels (ops/encoder_epilogue.py)
+EPILOGUES = ("ln_cast", "bias_cast", "bias_residual_ln", "bias_gelu_cast",
+             "bias_residual")
+# the batch cells' encode: 256 windows of 1,500 rows
+EPILOGUE_ROWS = 256 * 1500
 # bf16 on the card against f32 on the CPU through two encoder and two
 # decoder layers at full width: bf16 keeps ~3 significant digits per
 # rounding and the errors add over ~20 roundings in series.  einsum_q4 is
@@ -360,19 +375,31 @@ def stream_ms(make_call, nbytes: int, n_runs: int = 5) -> float:
     return statistics.median(times)
 
 
+def errors(name, out, ref) -> tuple[float, float]:
+    """(max abs err, max rel err) of a kernel's output or tuple of outputs
+    against its plain version's; raises on a non-finite output."""
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    err = rel = 0.0
+    for o, r in zip(outs, refs):
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        e = float((o.float() - r.float()).abs().max())
+        err, rel = max(err, e), max(rel, e / float(r.float().abs().max()))
+    return err, rel
+
+
 def compare(name, tol, kernel, plain, args, library=None, dense=None):
     """-> (max abs err, rel err, kernel ms, plain ms, library ms or None,
     dense ms or None); raises past tol.  `library` is one PyTorch call that
     computes the same function on the same inputs, `dense` (K2, K3, K5) the
     library call of the same shape over dequantized bf16 operands: both
-    timed only, as yardsticks."""
+    timed only, as yardsticks.  The plain version runs first: two of the
+    epilogues write into their input."""
+    ref = plain(*args)
     out = kernel(*args)
     torch.cuda.synchronize()
-    ref = plain(*args)
-    if not torch.isfinite(out).all():
-        raise AssertionError(f"{name}: non-finite kernel output")
-    err = float((out - ref).abs().max())
-    rel = err / float(ref.abs().max())
+    err, rel = errors(name, out, ref)
+    del out, ref
     ms = time_ms(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args))
     lib_ms = time_ms(library) if library is not None else None
@@ -398,7 +425,9 @@ def path_shapes() -> dict:
     4 and 64 streams and at the CLI defaults' five decoders; K4/K5
     (B, H, Ta, Dh); K7 (seconds of PCM, n_mels); K1, K2, K4, K5 and K6
     also at the serving batch with large-v3's heads split over two "model"
-    ranks (the phase "mesh").  A shape that a main path launches and this
+    ranks (the phase "mesh"); the encoder's epilogues (rows, width) at the
+    batch cells' 256 windows of large-v3 (bias_cast with its q and v
+    pairs: (rows, width, 2)).  A shape that a main path launches and this
     list lacks is checked after the paths (check_launched)."""
     from whisper_tpu_torch.models.whisper import MODEL_DIMS, WhisperConfig
     from whisper_tpu_torch.ops.encoder_attention import BLOCK_Q
@@ -456,7 +485,12 @@ def path_shapes() -> dict:
                    xattn(half, N_STREAMS)],
             "K6": [padded(big, 1), padded(small, 1), padded(big, N_STREAMS),
                    padded(half, N_STREAMS)],
-            "K7": [(MEL_S, big.n_mels), (MEL_S, small.n_mels)]}
+            "K7": [(MEL_S, big.n_mels), (MEL_S, small.n_mels)],
+            "ln_cast": [(EPILOGUE_ROWS, d)],
+            "bias_cast": [(EPILOGUE_ROWS, d, 2)],
+            "bias_residual_ln": [(EPILOGUE_ROWS, d)],
+            "bias_gelu_cast": [(EPILOGUE_ROWS, 4 * d)],
+            "bias_residual": [(EPILOGUE_ROWS, d)]}
 
 
 def work(key, shape) -> tuple[int, int, str]:
@@ -499,6 +533,17 @@ def work(key, shape) -> tuple[int, int, str]:
                       + n * n_mel)
         ops, kind = n * (2 * 2 * 400 * bins + 3 * bins
                          + 2 * bins * n_mel), "f32"
+    elif key in EPILOGUES:
+        # bytes a row element (f32 x, bf16 y and outputs) and f32 operations
+        # an element (a layernorm's two sums and its affine map; GELU's
+        # tanh counted as ten), plus the (D,) f32 vectors
+        rows, D, pairs = shape + (1,) * (3 - len(shape))
+        per, n_vec, op = {"ln_cast": (6, 2, 7), "bias_cast": (4, 1, 1),
+                          "bias_residual_ln": (12, 3, 9),
+                          "bias_gelu_cast": (4, 1, 18),
+                          "bias_residual": (10, 1, 2)}[key]
+        nbytes = pairs * (rows * D * per + n_vec * D * 4)
+        ops, kind = pairs * rows * D * op, "f32"
     else:
         raise KeyError(key)
     return nbytes, ops, kind
@@ -536,6 +581,7 @@ def kernel_cases(gen):
     from whisper_tpu_torch.audio.mel import pad_audio
     from whisper_tpu_torch.ops import cross_attention as xa
     from whisper_tpu_torch.ops import encoder_attention as ea
+    from whisper_tpu_torch.ops import encoder_epilogue as ee
     from whisper_tpu_torch.ops import mel_pallas as mp
     from whisper_tpu_torch.ops import quantized as qm
 
@@ -619,6 +665,23 @@ def kernel_cases(gen):
         padded = torch.from_numpy(pad_audio(mel_pcm(seconds))[0]).cuda()
         return list(mp.mel_block_inputs(padded, mel_filterbank(n_mel))), None
 
+    def epilogue(key):
+        # x: the residual stream (f32), y: a GEMM's bf16 output; biases and
+        # layernorm weights f32
+        def make(rows, D, pairs=1):
+            def x():
+                return randn(rows, D) * 20 + 1
+
+            def y():
+                return (randn(rows, D) * 10).to(torch.bfloat16)
+            bias, w, b = randn(D), randn(D) + 1, randn(D)
+            return {"ln_cast": lambda: [x(), w, b],
+                    "bias_cast": lambda: [(y(), bias), (y(), b)][:pairs],
+                    "bias_residual_ln": lambda: [x(), y(), bias, w, b],
+                    "bias_gelu_cast": lambda: [y(), bias],
+                    "bias_residual": lambda: [x(), y(), bias]}[key](), None
+        return make
+
     cases = {
         "K1": ("encoder_attention", ea.self_attention, ea.self_attention_ref,
                k1),
@@ -642,6 +705,9 @@ def kernel_cases(gen):
         "K7": ("log_mel (_mel_blocks)", mp._mel_blocks, mp._mel_blocks_ref,
                k7),
     }
+    for key in EPILOGUES:
+        cases[key] = (f"encoder epilogue {key}", getattr(ee, key),
+                      getattr(ee, f"{key}_ref"), epilogue(key))
     dense_of = {"K2": xattn_dense, "K2G": xattn_dense, "K3": k3_dense,
                 "K3+mins": k3_dense, "K5": xattn_dense}
     return cases, dense_of
@@ -747,6 +813,13 @@ def launch_shape(entry: str, args) -> tuple[str, tuple]:
                 (M, K, N) + (("bf16",) if args[1] else ()))
     if entry == "wtt_log_mel":
         return "K7", ("frames",) + tuple(args[11:13])    # n, n_mel
+    if entry == "wtt_bias_cast":
+        return "bias_cast", (args[5], args[6], args[4])  # rows, D, pairs
+    rows_at = {"wtt_ln_cast": 4, "wtt_bias_residual_ln": 7,
+               "wtt_bias_gelu_cast": 2, "wtt_bias_residual": 4}
+    if entry in rows_at:
+        i = rows_at[entry]
+        return entry.removeprefix("wtt_"), tuple(args[i:i + 2])  # rows, D
     raise KeyError(f"no launch shape for {entry}")
 
 
@@ -788,13 +861,10 @@ def check_launched(gen, res) -> dict:
                                      "check_kernels does not check")
             name, kernel, plain, make = cases[key]
             args, _ = make(*shape)
+            ref = plain(*args)
             out = kernel(*args)
             torch.cuda.synchronize()
-            ref = plain(*args)
-            if not torch.isfinite(out).all():
-                raise AssertionError(f"{key} {shape}: non-finite output")
-            err = float((out - ref).abs().max())
-            rel = err / float(ref.abs().max())
+            err, rel = errors(f"{key} {shape}", out, ref)
             log(f"{key} {name} {shape} (launched on a main path): "
                 f"max_abs_err {err:.3e} rel {rel:.3e} (tol "
                 f"{KERNEL_TOL[key]})")
@@ -914,13 +984,15 @@ def counters() -> dict:
     has two entries, (B, T, H, Dh) and (B, H, Dh, Tp)."""
     from whisper_tpu_torch.ops import cross_attention as xa
     from whisper_tpu_torch.ops import encoder_attention as ea
+    from whisper_tpu_torch.ops import encoder_epilogue as ee
     from whisper_tpu_torch.ops import mel_pallas as mp
     from whisper_tpu_torch.ops import quantized as qm
     return {"K1": (ea.self_attention, ea.encoder_attention),
             "K2": (xa.cross_attention_decode_q8dt,),
             "K3": (qm.quantized_matmul,), "K4": (xa.cross_attention_decode,),
             "K5": (xa.cross_attention_decode_q8,),
-            "K6": (ea.encoder_attention_btd,), "K7": (mp._mel_blocks,)}
+            "K6": (ea.encoder_attention_btd,), "K7": (mp._mel_blocks,),
+            **{k: (getattr(ee, k),) for k in EPILOGUES}}
 
 
 def reset_counts() -> None:
@@ -3473,7 +3545,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_launched(gen, res)
     draws = check_draws(card_line)
-    keys = ("K1", "K2", "K2G", "K3", "K4", "K5", "K6", "K7")
+    keys = ("K1", "K2", "K2G", "K3", "K4", "K5", "K6", "K7", *EPILOGUES)
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in keys}
     log(f"kernel launches, all paths: {launches}")
     log("kernel launches by path: " + json.dumps(
@@ -3525,6 +3597,9 @@ def main() -> int:
               "whisper_tpu/ops/encoder_attention.py:165"),
         entry("K7", "log_mel", "log_mel.cu",
               "whisper_tpu/ops/mel_pallas.py:58"),
+        *(entry(key, key, "encoder_epilogue.cu",
+                "none: XLA fused the encoder block's elementwise passes")
+          for key in EPILOGUES),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -2,7 +2,8 @@
 K6 also at ragged lengths, pad keys of 1e4, batch 4, and for determinism), the
 serving slice through K1 and K2 (and in 4-bit cross-KV), from_file + full
 over block-quantized files through K1, K3 and K2, K4 or K5 in every cross
-mode, the encoder's attention variants through K1 and K6, and the
+mode, the encoder's attention variants through K1 and K6, the encoder
+block's five row-wise epilogue kernels and the fused encode, and the
 tracer's clock and waits (utils/trace.py).  Every test
 here needs CUDA and skips without it.  The card has no JAX and tests/conftest.py imports it, so
 run this file there without the conftest:
@@ -1222,3 +1223,178 @@ def test_decode_window_waits_only_in_wait_spans(gen):
                if not any(w.thread == thread and w.t0 <= t <= w.t1
                           for w in waits)]
     assert len(seen) >= len(waits) and not outside, outside[:5]
+
+
+# the encoder block's row-wise epilogues (ops/encoder_epilogue.py): rows of
+# one window, a few, one, and the batch cells' 256 windows
+EPILOGUE_ROWS = (1, 17, 1500, 256 * 1500)
+
+
+def _epilogue_pairs(gen, kernel, rows, D):
+    """One call of `kernel` at (rows, D) and its plain version on the same
+    inputs -> [(kernel output, plain output, scale)]: scale None where the
+    two must be equal bit for bit; for the layernorms' and GELU's bf16
+    outputs, the magnitude of the f32 terms each was rounded from."""
+    from whisper_tpu_torch.ops import encoder_epilogue as ee
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    def ln_terms(x):
+        # |gamma * rstd * (x - mean)| + |beta|, from PyTorch's f32 layernorm
+        return (ee._layernorm(x, w, b, ee.EPS) - b).abs() + b.abs()
+
+    x = randn(rows, D, scale=2.0, shift=0.3)
+    y = randn(rows, D).to(torch.bfloat16)
+    bias = randn(D, scale=0.1)
+    w, b = randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1)
+    n = getattr(ee, kernel).launches
+    if kernel == "ln_cast":
+        pairs = [(ee.ln_cast(x, w, b), ee.ln_cast_ref(x, w, b), ln_terms(x))]
+    elif kernel == "bias_cast":
+        y1 = randn(rows, D).to(torch.bfloat16)
+        refs = ee.bias_cast_ref((y, bias), (y1, w))
+        outs = ee.bias_cast((y, bias), (y1, w))
+        assert outs[0] is y and outs[1] is y1
+        pairs = [(o, r, None) for o, r in zip(outs, refs)]
+    elif kernel == "bias_residual_ln":
+        refs = ee.bias_residual_ln_ref(x, y, bias, w, b)
+        outs = ee.bias_residual_ln(x, y, bias, w, b)
+        pairs = [(outs[0], refs[0], None),
+                 (outs[1], refs[1], ln_terms(refs[0]))]
+    elif kernel == "bias_gelu_cast":
+        ref = ee.bias_gelu_cast_ref(y, bias)
+        terms = (y.float() + bias).abs()
+        assert ee.bias_gelu_cast(y, bias) is y
+        pairs = [(y, ref, terms)]
+    else:
+        pairs = [(ee.bias_residual(x, y, bias), ee.bias_residual_ref(x, y, bias),
+                  None)]
+    torch.cuda.synchronize()
+    assert getattr(ee, kernel).launches == n + 1
+    return pairs
+
+
+@pytest.mark.parametrize("kernel,D", [
+    (k, d) for k in ("ln_cast", "bias_cast", "bias_residual_ln",
+                     "bias_residual") for d in (384, 1280)]
+    + [("bias_gelu_cast", d) for d in (4 * 384, 4 * 1280)])
+def test_epilogue_kernels_match_plain_on_card(gen, kernel, D):
+    """Each kernel against its plain version at rows 1, 17, 1500 and
+    256 x 1500: the bias casts, the residual sums and bias_residual_ln's x'
+    bit for bit; the layernorms' and GELU's bf16 outputs equal in >= 99.99%
+    of the elements of all four row counts together, and the others within
+    one bf16 ulp of the f32 terms they were rounded from (the layernorms
+    sum their mean and variance in another order than PyTorch's Welford,
+    so their f32 results differ by a few f32 ulps of |gamma x_hat| +
+    |beta|: where the two terms cancel, that is many ulps of the small
+    output itself; GELU's tanhf may be compiled otherwise).  On an H100
+    80GB HBM3 the worst reading was 99.99777% equal (ln_cast, D 384), the
+    others exactly one ulp of their terms; GELU equal bit for bit."""
+    n_out = n_diff = 0
+    worst = 0.0
+    for rows in EPILOGUE_ROWS:
+        for got, want, terms in _epilogue_pairs(gen, kernel, rows, D):
+            assert got.shape == want.shape and got.dtype == want.dtype
+            if terms is None:
+                assert torch.equal(got, want), (kernel, rows, D)
+                continue
+            assert torch.isfinite(got).all()
+            n_out += got.numel()
+            for i in range(0, rows, 32768):
+                g, r = got[i:i + 32768].float(), want[i:i + 32768].float()
+                ulp = torch.exp2(torch.floor(torch.log2(terms[i:i + 32768]))
+                                 - 7)
+                gap = (g - r).abs()
+                n_diff += int((gap > 0).sum())
+                worst = max(worst, float((gap / ulp).nan_to_num(0).max()))
+            del got, want, terms
+        torch.cuda.empty_cache()
+    if n_out:
+        share = 1 - n_diff / n_out
+        print(f"{kernel} D {D}: {n_diff} of {n_out} bf16 outputs differ, "
+              f"{100 * share:.5f}% equal; worst {worst:.3f} bf16 ulps of "
+              "their terms")
+        assert share >= 0.9999 and worst <= 1, (n_diff, n_out, worst)
+
+
+def test_encode_fused_epilogues_on_card(gen, monkeypatch):
+    """One encode at large-v3's widths (1280, 20 heads, 128 mels) cut to 4
+    layers, B 2: the fused sequence against the plain one on the card
+    (`_on_card` patched off), within TOL (bf16 with one-ulp layernorm
+    differences carried through 4 layers; it read 5.3e-3 on an H100 80GB
+    HBM3); each kernel launched once
+    a layer, and neither `_linear` nor the plain GELU or layernorm run in
+    the blocks."""
+    from whisper_tpu_torch.ops import encoder_epilogue as ee
+    from whisper_tpu_torch.weights.convert import random_params
+    dims = list(wm.MODEL_DIMS["large-v3"])
+    dims[4], dims[8] = 4, 1
+    cfg = wm.WhisperConfig(*dims)
+    params = random_params(cfg, seed=5, dtype=torch.bfloat16, device="cuda")
+    mel = torch.randn(2, 2 * cfg.n_audio_ctx, cfg.n_mels, generator=gen,
+                      device="cuda")
+    names = ("ln_cast", "bias_cast", "bias_residual_ln", "bias_gelu_cast",
+             "bias_residual")
+    calls = {"_linear": 0, "_gelu": 0, "_layernorm": 0}
+    for name in calls:
+        def spy(*args, _fn=getattr(wm, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(wm, name, spy)
+    n = {k: getattr(ee, k).launches for k in names}
+    with torch.no_grad():
+        fused = wm.encode(params, mel, n_head=cfg.n_audio_head)
+        torch.cuda.synchronize()
+        assert {k: getattr(ee, k).launches - n[k] for k in names} == \
+            dict.fromkeys(names, cfg.n_audio_layer)
+        # the conv stem's two GELUs and ln_post
+        assert calls == {"_linear": 0, "_gelu": 2, "_layernorm": 1}
+        monkeypatch.setattr(wm, "_on_card", lambda x: False)
+        plain = wm.encode(params, mel, n_head=cfg.n_audio_head)
+    assert calls["_linear"] == 6 * cfg.n_audio_layer
+    err = _rel_err(fused, plain)
+    print(f"encode fused vs plain, large-v3 widths x 4 layers: rel {err:.3e}")
+    assert err <= TOL
+
+
+def test_epilogue_wrappers_refuse_on_card(gen):
+    """Wrong dtype, shape, width, contiguity or alignment raise before a
+    launch; the C entry points refuse what they do not take, and the
+    wrapper's launch check raises on it."""
+    from whisper_tpu_torch.ops import encoder_epilogue as ee
+    from whisper_tpu_torch.ops._build import library
+    x = torch.randn(4, 64, generator=gen, device="cuda")
+    w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    y = x.to(torch.bfloat16)
+    odd = torch.zeros(x.numel() + 1, device="cuda")[1:].view(4, 64)
+    wide = torch.zeros(1, 2056, device="cuda")
+    for call in (lambda: ee.ln_cast(y, w, b),                 # dtype
+                 lambda: ee.ln_cast(x, w.to(torch.bfloat16), b),
+                 lambda: ee.ln_cast(x, w[:32], b),            # shape
+                 lambda: ee.ln_cast(x.t(), w[:4], b[:4]),     # contiguity
+                 lambda: ee.ln_cast(odd, w, b),               # alignment
+                 lambda: ee.ln_cast(x[:, :12].contiguous(), w[:12], b[:12]),
+                 lambda: ee.ln_cast(wide, wide[0], wide[0]),  # past 2048
+                 lambda: ee.bias_cast((y, b), (y[:2], b)),
+                 lambda: ee.bias_cast((y, b), (y, b), (y, b)),
+                 lambda: ee.bias_residual_ln(x, x, b, w, b),
+                 lambda: ee.bias_gelu_cast(x, b),
+                 lambda: ee.bias_residual(x, y[:2], b)):
+        with pytest.raises(ValueError):
+            call()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(4, 2056, dtype=torch.bfloat16, device="cuda")
+    for entry, args in (
+            ("wtt_ln_cast", (x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                             out.data_ptr(), 4, 12, 1e-5, stream)),
+            ("wtt_ln_cast", (x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                             out.data_ptr(), 1, 2056, 1e-5, stream)),
+            ("wtt_bias_cast", (y.data_ptr(), b.data_ptr(), y.data_ptr(),
+                               b.data_ptr(), 3, 4, 64, stream)),
+            ("wtt_bias_gelu_cast", (y.data_ptr(), b.data_ptr(), 0, 64,
+                                    stream)),
+            ("wtt_bias_residual", (x.data_ptr(), y.data_ptr(), b.data_ptr(),
+                                   out.data_ptr(), 4, 60, stream))):
+        with pytest.raises(RuntimeError):
+            library().call(entry, *args)

@@ -9,7 +9,9 @@ its output to bf16 before the cast: the bf16 parity bounds cover that.
 
 Kernels: the encoder's self-attention runs through K1 (`attn_impl`
 "pallas", "pallas_dt", "pallas_pf", "flash") or K6 ("pallas_btd")
-(ops/encoder_attention.py); block-quantized decoder weights through K3
+(ops/encoder_attention.py), and on the card in bf16 the elementwise passes
+between an encoder block's GEMMs through ops/encoder_epilogue.py
+(`_fused_epilogues`); block-quantized decoder weights through K3
 (ops/quantized.py); the decode step's cross-attention through K2 on "q8e"
 and "q8dt", K4 on ("bhtd", K/V) and K5 on {"q", "s"}
 (ops/cross_attention.py).  The "q8i" and "q4e" steps and the dense einsum
@@ -43,7 +45,10 @@ from ..ops.encoder_attention import (BLOCK_Q, encoder_attention,
                                      encoder_attention_btd_ref,
                                      encoder_attention_ref, self_attention,
                                      self_attention_ref)
+from ..ops.encoder_epilogue import (bias_cast, bias_gelu_cast, bias_residual,
+                                    bias_residual_ln, ln_cast)
 from ..ops.quantized import quantized_matmul
+from ..utils.trace import TRACE
 
 # canonical dims per released model; order matches WhisperConfig fields
 MODEL_DIMS = {
@@ -212,15 +217,65 @@ def _flash_self_attention(q, k, v, compute_dtype):
     return self_attention(q, k, v, compute_dtype)
 
 
+# an encoder block's matrices: dense tensors, or a block-quantized dict
+# that `_linear` sends to K3
+_ENCODER_MATRICES = ("q_w", "k_w", "v_w", "o_w", "mlp0_w", "mlp2_w")
+
+
+def _on_card(x) -> bool:
+    return x.device.type == "cuda"
+
+
+def _fused_epilogues(x, blk, compute_dtype, tp) -> bool:
+    """Whether an encoder block runs the passes between its GEMMs through
+    the row-wise kernels of ops/encoder_epilogue.py: activations on a CUDA
+    card, bf16 compute, dense matrices and no tensor-parallel mesh (whose
+    o and mlp2 outputs are all-reduced f32 partial sums).  Otherwise the
+    block runs the plain torch sequence; both make the same roundings."""
+    return (_on_card(x) and compute_dtype == torch.bfloat16 and tp is None
+            and all(isinstance(blk[k], torch.Tensor)
+                    for k in _ENCODER_MATRICES))
+
+
+def _qkv(x, blk, cd, fused: bool):
+    """The block's entry: the attention layernorm, rounded to the compute
+    dtype once for the three projections, whose results come out in it
+    (every attention impl casts q/k/v to it first) -> (B, T, D) each."""
+    if fused:
+        ln = ln_cast(x, blk["attn_ln_w"].float(), blk["attn_ln_b"].float())
+        q, k, v = (F.linear(ln, blk[w].to(cd)) for w in ("q_w", "k_w", "v_w"))
+        q, v = bias_cast((q, blk["q_b"].float()), (v, blk["v_b"].float()))
+        return q, k, v
+    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"]).to(cd)
+    return (_linear(ln, blk["q_w"], blk["q_b"], cd, cd),
+            _linear(ln, blk["k_w"], None, cd, cd),        # K has no bias
+            _linear(ln, blk["v_w"], blk["v_b"], cd, cd))
+
+
+def _out_mlp(x, attn, blk, cd, tp, fused: bool):
+    """x + the attention's output projection, then + the MLP's: the
+    residual stream in f32, each product's operands in the compute
+    dtype."""
+    if fused:
+        y = F.linear(attn.to(cd), blk["o_w"].to(cd))
+        x, ln = bias_residual_ln(x, y, blk["o_b"].float(),
+                                 blk["mlp_ln_w"].float(),
+                                 blk["mlp_ln_b"].float())
+        h = bias_gelu_cast(F.linear(ln, blk["mlp0_w"].to(cd)),
+                           blk["mlp0_b"].float())
+        return bias_residual(x, F.linear(h, blk["mlp2_w"].to(cd)),
+                             blk["mlp2_b"].float())
+    x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
+    ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
+    h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
+    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
+
+
 def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum",
                    tp=None):
-    cd = compute_dtype
-    # rounded to the compute dtype once for the three projections, whose
-    # results come out in it: every attention impl casts q/k/v to it first
-    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"]).to(cd)
-    q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd, cd), n_head)
-    k = _split_heads(_linear(ln, blk["k_w"], None, cd, cd), n_head)
-    v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], cd, cd), n_head)
+    fused = _fused_epilogues(x, blk, compute_dtype, tp)
+    q, k, v = (_split_heads(t, n_head)
+               for t in _qkv(x, blk, compute_dtype, fused))
     if attn_impl == "pallas":
         attn = self_attention(q, k, v, compute_dtype)
     elif attn_impl == "pallas_interpret":
@@ -231,11 +286,7 @@ def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum",
         attn = _attention(q, k, v, compute_dtype=compute_dtype)
     else:
         raise ValueError(f"unknown encoder attn_impl {attn_impl!r}")
-    x = x + _linear(attn, blk["o_w"], blk["o_b"], compute_dtype, tp=tp)
-
-    ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
-    h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], compute_dtype))
-    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype, tp=tp)
+    return _out_mlp(x, attn, blk, compute_dtype, tp, fused)
 
 
 def _layernorm_dt(x, w, b, eps: float = 1e-5):
@@ -298,12 +349,9 @@ def _encoder_block_pf(x, blk, n_head, compute_dtype, t_valid: int,
 
     attn = attn_fn(proj_ht(blk["q_w"], blk["q_b"]), proj_ht(blk["k_w"], None),
                    proj_ht(blk["v_w"], blk["v_b"]), t_valid)
-    x = x + _linear(attn.reshape(B, -1, Tp).transpose(1, 2), blk["o_w"],
-                    blk["o_b"], compute_dtype, tp=tp)
-
-    ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
-    h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], compute_dtype))
-    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], compute_dtype, tp=tp)
+    return _out_mlp(x, attn.reshape(B, -1, Tp).transpose(1, 2), blk,
+                    compute_dtype, tp,
+                    _fused_epilogues(x, blk, compute_dtype, tp))
 
 
 def _encoder_block_btd(x, blk, n_head, compute_dtype, t_valid: int,
@@ -312,17 +360,10 @@ def _encoder_block_btd(x, blk, n_head, compute_dtype, t_valid: int,
     (B, Tp, D) output, each head the Dh-wide column slice of a row."""
     attn_fn = encoder_attention_btd_ref if interpret else \
         encoder_attention_btd
-    cd = compute_dtype
-    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"]).to(cd)
-    q = _linear(ln, blk["q_w"], blk["q_b"], cd, cd)
-    k = _linear(ln, blk["k_w"], None, cd, cd)                # K has no bias
-    v = _linear(ln, blk["v_w"], blk["v_b"], cd, cd)
+    fused = _fused_epilogues(x, blk, compute_dtype, tp)
+    q, k, v = _qkv(x, blk, compute_dtype, fused)
     attn = attn_fn(q, k, v, n_head, t_valid)
-    x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
-
-    ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
-    h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
+    return _out_mlp(x, attn, blk, compute_dtype, tp, fused)
 
 
 # padded whole-stack variants: impl -> (block fn, channels first)
@@ -374,6 +415,9 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
     layers = _layers(enc["blocks"])
     tp = _model_axis(params)
     n_head = _local_heads(enc["blocks"]["q_w"], n_head)
+    if base != "pallas_dt" and _fused_epilogues(x, layers[0], compute_dtype,
+                                                tp):
+        TRACE.count("encoder_fused", len(layers))
 
     if base in _PADDED_BLOCKS:
         block_fn, channels_first = _PADDED_BLOCKS[base]

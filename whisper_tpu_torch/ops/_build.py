@@ -35,6 +35,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every kernel entry point: name -> argtypes
 SIGNATURES = {
     # q, k, v, out, B, T, H, Dh, stream
@@ -60,6 +61,16 @@ SIGNATURES = {
     # n_stages, stream
     "wtt_cross_attention_bhtd_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _P],
+    # x, w, b, out, rows, D, eps, stream
+    "wtt_ln_cast": [_P, _P, _P, _P, _I, _I, _F, _P],
+    # y0, b0, y1, b1, n_pairs, rows, D, stream
+    "wtt_bias_cast": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, bias, w, b, x_out, ln_out, rows, D, eps, stream
+    "wtt_bias_residual_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # y, bias, rows, D, stream
+    "wtt_bias_gelu_cast": [_P, _P, _I, _I, _P],
+    # x, y, bias, x_out, rows, D, stream
+    "wtt_bias_residual": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 
