@@ -5,13 +5,16 @@
 
 Phases, each of which must pass (the script exits nonzero otherwise):
   1. require CUDA; print the card's name and power limit
-  2. build kernels K1-K7 and the encoder block's five row-wise epilogues
-     (csrc/encoder_epilogue.cu) from whisper_tpu_torch/csrc with nvcc (one
-     process per source, in parallel)
+  2. build kernels K1-K7, the encoder block's five row-wise epilogues
+     (csrc/encoder_epilogue.cu; the decode step's layers run them too) and
+     the decode step's self-attention (csrc/self_attn_step.cu) from
+     whisper_tpu_torch/csrc with nvcc (one process per source, in
+     parallel)
   3. compare each kernel with its plain PyTorch version on the card at
      every shape the paths below give it, taken from the models they load
      (K2 also with G = 5 queries a (b, h), batched beam search's form; the
-     epilogues at the batch cells' 256 windows of large-v3's encoder)
+     epilogues at the batch cells' 256 windows of large-v3's encoder,
+     self_attn_step at their decode step's 256 rows and full cache)
      (and K3 at the prompt passes of serving batches of 4 and 64 streams),
      and, after the paths, at every other shape they launched (each
      launch's shape noted from its entry point's arguments; compared,
@@ -204,16 +207,26 @@ K3_SERVE_M = (4 * 232, BENCH_BATCH * 232)
 # PyTorch's Welford), at most 2^-7 of the largest output, and GELU's
 # likewise (tanhf compiled otherwise); tests/test_torch_gpu.py counts the
 # elements.
+# The decoder's self_attn_step: its bf16 outputs against the plain step's
+# (cuBLAS products, an f32 softmax), which make the same roundings in
+# another order: a score within an f32 rounding of a bf16 tie may round
+# the other way, and with it the weights, moving an output by about one
+# bf16 ulp (2^-8 of the largest output at most); tests/test_torch_gpu.py
+# counts the elements.
 KERNEL_TOL = {"K1": 2e-2, "K1dt": 2e-2, "K2": 5e-4, "K2G": 5e-4, "K3": 1e-5,
               "K3+mins": 1e-5, "K4": 5e-4, "K5": 5e-4, "K6": 2e-2,
               "K7": 1e-5, "ln_cast": 2 ** -7, "bias_cast": 0.0,
               "bias_residual_ln": 2 ** -7, "bias_gelu_cast": 2 ** -7,
-              "bias_residual": 0.0}
+              "bias_residual": 0.0, "self_attn_step": 1e-2}
 # the encoder block's row-wise epilogue kernels (ops/encoder_epilogue.py)
 EPILOGUES = ("ln_cast", "bias_cast", "bias_residual_ln", "bias_gelu_cast",
              "bias_residual")
 # the batch cells' encode: 256 windows of 1,500 rows
 EPILOGUE_ROWS = 256 * 1500
+# the batch cells' decode step: 256 rows over a cache of 72 prompt slots
+# (n_max_text_ctx 64 carried), 220 tokens and one (parallel/batch.py
+# `_prompt_bucket`, decode/loop.py)
+STEP_ROWS, STEP_CACHE = 256, 72 + 220 + 1
 # bf16 on the card against f32 on the CPU through two encoder and two
 # decoder layers at full width: bf16 keeps ~3 significant digits per
 # rounding and the errors add over ~20 roundings in series.  einsum_q4 is
@@ -490,7 +503,17 @@ def path_shapes() -> dict:
             "bias_cast": [(EPILOGUE_ROWS, d, 2)],
             "bias_residual_ln": [(EPILOGUE_ROWS, d)],
             "bias_gelu_cast": [(EPILOGUE_ROWS, 4 * d)],
-            "bias_residual": [(EPILOGUE_ROWS, d)]}
+            "bias_residual": [(EPILOGUE_ROWS, d)],
+            # the decoder's self-attention over its cache (B, H, Dh, C)
+            "self_attn_step": [(STEP_ROWS, big.n_text_head,
+                                big.n_text_state // big.n_text_head,
+                                STEP_CACHE)]}
+
+
+def step_pad(B: int) -> list[int]:
+    """self_attn_step's check inputs: row b's pad slots (its keys start
+    there; every key up to the cache's end is valid)."""
+    return [b * 7 % 16 for b in range(B)]
 
 
 def work(key, shape) -> tuple[int, int, str]:
@@ -544,6 +567,15 @@ def work(key, shape) -> tuple[int, int, str]:
                           "bias_residual": (10, 1, 2)}[key]
         nbytes = pairs * (rows * D * per + n_vec * D * 4)
         ops, kind = pairs * rows * D * op, "f32"
+    elif key == "self_attn_step":
+        # the valid keys' K and V, the q/k/v row in, q and v back, the two
+        # cache columns, the output, biases and pad lengths; f32 dots
+        B, H, Dh, C = shape
+        keys = sum(C - p for p in step_pad(B))
+        D = H * Dh
+        nbytes = (H * Dh * keys * 2 * 2 + B * D * 2 * (3 + 2 + 2 + 1)
+                  + 2 * D * 4 + B * 8)
+        ops, kind = 4 * H * Dh * keys, "f32"
     else:
         raise KeyError(key)
     return nbytes, ops, kind
@@ -580,6 +612,7 @@ def kernel_cases(gen):
     from whisper_tpu_torch.audio.filters import mel_filterbank
     from whisper_tpu_torch.audio.mel import pad_audio
     from whisper_tpu_torch.ops import cross_attention as xa
+    from whisper_tpu_torch.ops import decoder_attention as da
     from whisper_tpu_torch.ops import encoder_attention as ea
     from whisper_tpu_torch.ops import encoder_epilogue as ee
     from whisper_tpu_torch.ops import mel_pallas as mp
@@ -682,6 +715,21 @@ def kernel_cases(gen):
                     "bias_residual": lambda: [x(), y(), bias]}[key](), None
         return make
 
+    def self_attn(B, H, Dh, C):
+        # q, k, v at unit scale (scores of unit spread), the full cache
+        # valid past each row's pad slots, the new column the last
+        D = H * Dh
+        qkv = (randn(B, 3 * D) / 0.3).to(torch.bfloat16)
+        caches = [(randn(B, H, Dh, C) / 0.3).to(torch.bfloat16)
+                  for _ in range(2)]
+        pad = torch.tensor(step_pad(B), device="cuda")
+        return [qkv, randn(D), randn(D), *caches, C - 1, C, pad, H], None
+
+    def self_attn_plain(qkv, *rest):
+        # the kernel and its plain version write q and v into qkv: the
+        # plain one, which runs first, works on a copy
+        return da.self_attn_step_ref(qkv.clone(), *rest)
+
     cases = {
         "K1": ("encoder_attention", ea.self_attention, ea.self_attention_ref,
                k1),
@@ -708,6 +756,8 @@ def kernel_cases(gen):
     for key in EPILOGUES:
         cases[key] = (f"encoder epilogue {key}", getattr(ee, key),
                       getattr(ee, f"{key}_ref"), epilogue(key))
+    cases["self_attn_step"] = ("decoder self_attn_step", da.self_attn_step,
+                               self_attn_plain, self_attn)
     dense_of = {"K2": xattn_dense, "K2G": xattn_dense, "K3": k3_dense,
                 "K3+mins": k3_dense, "K5": xattn_dense}
     return cases, dense_of
@@ -815,6 +865,8 @@ def launch_shape(entry: str, args) -> tuple[str, tuple]:
         return "K7", ("frames",) + tuple(args[11:13])    # n, n_mel
     if entry == "wtt_bias_cast":
         return "bias_cast", (args[5], args[6], args[4])  # rows, D, pairs
+    if entry == "wtt_self_attn_step":
+        return "self_attn_step", tuple(args[7:11])       # B, H, Dh, C
     rows_at = {"wtt_ln_cast": 4, "wtt_bias_residual_ln": 7,
                "wtt_bias_gelu_cast": 2, "wtt_bias_residual": 4}
     if entry in rows_at:
@@ -983,6 +1035,7 @@ def counters() -> dict:
     """Each kernel's wrappers, whose `launches` count their launches; K1
     has two entries, (B, T, H, Dh) and (B, H, Dh, Tp)."""
     from whisper_tpu_torch.ops import cross_attention as xa
+    from whisper_tpu_torch.ops import decoder_attention as da
     from whisper_tpu_torch.ops import encoder_attention as ea
     from whisper_tpu_torch.ops import encoder_epilogue as ee
     from whisper_tpu_torch.ops import mel_pallas as mp
@@ -992,7 +1045,8 @@ def counters() -> dict:
             "K3": (qm.quantized_matmul,), "K4": (xa.cross_attention_decode,),
             "K5": (xa.cross_attention_decode_q8,),
             "K6": (ea.encoder_attention_btd,), "K7": (mp._mel_blocks,),
-            **{k: (getattr(ee, k),) for k in EPILOGUES}}
+            **{k: (getattr(ee, k),) for k in EPILOGUES},
+            "self_attn_step": (da.self_attn_step,)}
 
 
 def reset_counts() -> None:
@@ -3545,7 +3599,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_launched(gen, res)
     draws = check_draws(card_line)
-    keys = ("K1", "K2", "K2G", "K3", "K4", "K5", "K6", "K7", *EPILOGUES)
+    keys = ("K1", "K2", "K2G", "K3", "K4", "K5", "K6", "K7", *EPILOGUES,
+            "self_attn_step")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in keys}
     log(f"kernel launches, all paths: {launches}")
     log("kernel launches by path: " + json.dumps(
@@ -3600,6 +3655,8 @@ def main() -> int:
         *(entry(key, key, "encoder_epilogue.cu",
                 "none: XLA fused the encoder block's elementwise passes")
           for key in EPILOGUES),
+        entry("self_attn_step", "self_attn_step", "self_attn_step.cu",
+              "none: the decode step is one XLA program on the TPU"),
     ]
     for k in kernels:
         if k["launches"] <= 0:

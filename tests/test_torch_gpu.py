@@ -1398,3 +1398,202 @@ def test_epilogue_wrappers_refuse_on_card(gen):
                                    out.data_ptr(), 4, 60, stream))):
         with pytest.raises(RuntimeError):
             library().call(entry, *args)
+
+
+# the decode step's self-attention over its cache (ops/decoder_attention.py)
+# at rows 1, 16 and the batch cells' 256, over a cache of 293 columns (72
+# prompt slots, 220 tokens and one); pads as the carried prompts leave them
+STEP_C = 293
+# its bf16 outputs against the plain step's: the same roundings in another
+# order, so a score within an f32 rounding of a bf16 tie rounds the other
+# way now and then, and with it the weights.  On an H100 80GB HBM3 the
+# worst readings were 99.979% equal (B 256, no pads) and 0.5 bf16 ulps of
+# the terms; without the weights' bf16 rounding most outputs move
+STEP_EQUAL = 0.999
+STEP_ULPS = 1
+
+
+def _self_attn_inputs(gen, B, H=20, Dh=64, C=STEP_C):
+    D = H * Dh
+    qkv = torch.randn(B, 3 * D, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    caches = [torch.randn(B, H, Dh, C, generator=gen,
+                          device="cuda").to(torch.bfloat16) for _ in range(2)]
+    q_b, v_b = (torch.randn(D, generator=gen, device="cuda") * 0.3
+                for _ in range(2))
+    return qkv, q_b, v_b, caches
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["nopad", "pad"])
+@pytest.mark.parametrize("B", [1, 16, 256])
+def test_self_attn_step_matches_plain_on_card(gen, B, padded):
+    """The kernel against its plain version at kv_len 1, 72 (the prompt),
+    136 (64 tokens on) and the whole cache, with pad lengths 0-63 or none:
+    q and v written back and the two cache columns bit for bit; the
+    outputs equal in >= STEP_EQUAL of the elements of all four together,
+    the others within STEP_ULPS bf16 ulps of the magnitude sum
+    sum_j w_j |v_j| they were rounded from."""
+    from whisper_tpu_torch.ops import decoder_attention as da
+    H, Dh = 20, 64
+    n_out = n_diff = 0
+    worst = 0.0
+    for kv_len in (1, 72, 136, STEP_C):
+        qkv, q_b, v_b, caches = _self_attn_inputs(gen, B)
+        pad = ((torch.arange(B, device="cuda") * 37 % 64).clamp_max(
+            kv_len - 1) if padded else None)
+        ref_qkv = qkv.clone()
+        ref_caches = [c.clone() for c in caches]
+        ci = kv_len - 1
+        want = da.self_attn_step_ref(ref_qkv, q_b, v_b, *ref_caches, ci,
+                                     kv_len, pad, H)
+        n = da.self_attn_step.launches
+        got = da.self_attn_step(qkv, q_b, v_b, *caches, ci, kv_len, pad, H)
+        torch.cuda.synchronize()
+        assert da.self_attn_step.launches == n + 1
+        assert torch.equal(qkv, ref_qkv)
+        for c, r in zip(caches, ref_caches):
+            assert torch.equal(c, r)
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got).all()
+        # the magnitude sum each output was rounded from, from the plain
+        # version's weights
+        D = H * Dh
+        q = ref_qkv[:, :D].reshape(B, H, 1, Dh).float()
+        mask = da.step_mask(STEP_C, kv_len, pad, "cuda")
+        w = torch.softmax(torch.matmul(q, ref_caches[0].float())
+                          * Dh ** -0.5 + mask, dim=-1)
+        terms = torch.matmul(w, ref_caches[1].float().abs().transpose(-1, -2))
+        terms = terms.reshape(B, D)
+        ulp = torch.exp2(torch.floor(torch.log2(terms)) - 7)
+        gap = (got.float() - want.float()).abs()
+        n_out += got.numel()
+        n_diff += int((gap > 0).sum())
+        worst = max(worst, float((gap / ulp).max()))
+    share = 1 - n_diff / n_out
+    print(f"self_attn_step B {B} pad {padded}: {n_diff} of {n_out} bf16 "
+          f"outputs differ, {100 * share:.5f}% equal; worst {worst:.3f} bf16 "
+          "ulps of their terms")
+    assert share >= STEP_EQUAL and worst <= STEP_ULPS, (n_diff, n_out, worst)
+
+
+def test_decode_step_fused_on_card(gen, monkeypatch):
+    """large-v3's decoder (32 layers, 1280 wide, 20 heads) at B 16 over
+    int8 cross-KV (K2): a 68-token prompt (pads 0-4), then 10 steps fused
+    and plain (`_on_card` patched off) from the same cache, teacher-forced
+    with the same tokens: the logits within TOL of the plain ones at every
+    step (bf16 with one-ulp layernorm and rounding-flip differences
+    through 32 layers; the reading is printed); each kernel launched once
+    a layer (ln_cast once a step) and neither `_linear` nor the plain
+    GELU or layernorm run in the layers."""
+    from whisper_tpu_torch.decode.loop import prompt_mask
+    from whisper_tpu_torch.ops import decoder_attention as da
+    from whisper_tpu_torch.ops import encoder_epilogue as ee
+    from whisper_tpu_torch.weights.convert import random_params
+    dims = list(wm.MODEL_DIMS["large-v3"])
+    dims[4] = 1
+    cfg = wm.WhisperConfig(*dims)
+    params = random_params(cfg, seed=5, dtype=torch.bfloat16, device="cuda")
+    L, H, D = cfg.n_text_layer, cfg.n_text_head, cfg.n_text_state
+    Dh, B, P, N, Ta = D // H, 16, 68, 10, 1500
+    kc, vc = (("q8e",
+               torch.randint(-127, 128, (L, B, H, Dh, Ta), generator=gen,
+                             device="cuda", dtype=torch.int8),
+               torch.rand(L, B, H, Ta, generator=gen, device="cuda") * 0.03)
+              for _ in range(2))
+    pad = torch.arange(B, device="cuda") % 5
+    prompt = torch.randint(0, 50000, (B, P), generator=gen, device="cuda")
+    steps = torch.randint(0, 50000, (N, B), generator=gen, device="cuda")
+    positions, mask = prompt_mask(pad, P)
+    with torch.no_grad():
+        _, k_self, v_self = wm.decode_prompt(
+            params, prompt, positions, ("q8",) + kc[1:], ("q8",) + vc[1:], H,
+            self_mask=mask)
+    C = P + N + 1
+    cache0 = {}
+    for name, kv in (("k", k_self), ("v", v_self)):
+        cache0[name] = torch.zeros((L, B, H, Dh, C), dtype=torch.bfloat16,
+                                   device="cuda")
+        cache0[name][..., :P] = kv.permute(0, 1, 3, 4, 2)
+
+    names = ("ln_cast", "bias_cast", "bias_residual_ln", "bias_gelu_cast")
+    calls = {"_linear": 0, "_gelu": 0, "_layernorm": 0}
+    for name in calls:
+        def spy(*args, _fn=getattr(wm, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(wm, name, spy)
+
+    def run():
+        cache = {n: c.clone() for n, c in cache0.items()}
+        out = []
+        with torch.no_grad():
+            for i in range(N):
+                logits, cache = wm.decode_step(
+                    params, steps[i], P - pad + i, P + i, cache, kc, vc,
+                    kv_len=P + i + 1, n_head=H, pad_len=pad)
+                out.append(logits)
+        return torch.stack(out), cache
+
+    n = {k: getattr(ee, k).launches for k in names}
+    n_attn = da.self_attn_step.launches
+    fused, fused_cache = run()
+    torch.cuda.synchronize()
+    assert {k: getattr(ee, k).launches - n[k] for k in names} == {
+        "ln_cast": N, "bias_cast": N * L, "bias_residual_ln": 3 * N * L,
+        "bias_gelu_cast": N * L}
+    assert da.self_attn_step.launches - n_attn == N * L
+    assert calls == {"_linear": 0, "_gelu": 0, "_layernorm": 0}
+    monkeypatch.setattr(wm, "_on_card", lambda x: False)
+    plain, plain_cache = run()
+    assert calls["_linear"] == 8 * N * L
+    errs = [_rel_err(f, p) for f, p in zip(fused, plain)]
+    cache_err = max(_rel_err(fused_cache[n][..., P:].float(),
+                             plain_cache[n][..., P:].float())
+                    for n in ("k", "v"))
+    print(f"decode_step fused vs plain, large-v3 x 32 layers, B {B}: logits "
+          f"rel {max(errs):.3e} (by step {[f'{e:.2e}' for e in errs]}), "
+          f"new cache columns rel {cache_err:.3e}")
+    assert max(errs) <= TOL and cache_err <= TOL
+
+
+def test_self_attn_step_refuses_on_card(gen):
+    """Wrong dtype, shape, contiguity, head width, cache column or key
+    count raise before a launch; the C entry point refuses what it does
+    not take, and the wrapper's launch check raises on it."""
+    from whisper_tpu_torch.ops import decoder_attention as da
+    from whisper_tpu_torch.ops._build import library
+    B, H, Dh, C = 2, 4, 64, 16
+    qkv, q_b, v_b, (kc, vc) = _self_attn_inputs(gen, B, H, Dh, C)
+    pad = torch.zeros(B, dtype=torch.long, device="cuda")
+    good = [qkv, q_b, v_b, kc, vc, 3, 4, pad, H]
+
+    def with_(i, val):
+        args = list(good)
+        args[i] = val
+        return args
+    for args in (with_(0, qkv.float()),                       # dtype
+                 with_(0, qkv[..., :-8]),                     # shape
+                 with_(1, q_b.to(torch.bfloat16)),
+                 with_(3, kc.float()),
+                 with_(4, vc[..., :-1].contiguous()),         # C differs
+                 with_(3, kc.transpose(0, 1).contiguous().transpose(0, 1)),
+                 with_(7, pad.int()),
+                 with_(7, pad[:1].expand(B)),                 # contiguity
+                 with_(5, C), with_(5, -1),                   # cache column
+                 with_(6, 0), with_(6, C + 1),                # keys
+                 with_(8, 3)):                                # D % heads
+        with pytest.raises(ValueError):
+            da.self_attn_step(*args)
+    wide = _self_attn_inputs(gen, 1, 2, 128, 8)               # Dh 128
+    with pytest.raises(ValueError):
+        da.self_attn_step(wide[0], wide[1], wide[2], *wide[3], 0, 1, None, 2)
+    out = torch.empty(B, H * Dh, dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (qkv.data_ptr(), q_b.data_ptr(), v_b.data_ptr(), kc.data_ptr(),
+            vc.data_ptr(), 0, out.data_ptr())
+    for shape in ((B, H, 65, C, 0, 1), (B, H, Dh, C, C, 1),
+                  (B, H, Dh, C, 0, C + 1), (B, H, Dh, C, 0, 0),
+                  (0, H, Dh, C, 0, 1)):
+        with pytest.raises(RuntimeError):
+            library().call("wtt_self_attn_step", *ptrs, *shape, 0.125,
+                           stream)

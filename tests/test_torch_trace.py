@@ -18,6 +18,8 @@ from whisper_tpu_torch import WhisperContext, full_default_params  # noqa: E402
 from whisper_tpu_torch.parallel.batch import (BatchTranscriber,  # noqa: E402
                                               ContinuousBatcher)
 from whisper_tpu_torch.utils.trace import TRACE, Tracer  # noqa: E402
+from whisper_tpu_torch.models import whisper as wm  # noqa: E402
+from whisper_tpu_torch.weights.convert import random_params  # noqa: E402
 
 @pytest.fixture
 def traced():
@@ -262,3 +264,40 @@ def test_threads_lose_no_span():
             assert up.thread == r.thread and up.rid == r.rid
             assert up.name == ("outer" if r.name == "inner" else "inner")
     assert len({r.rid for r in recs}) == n_threads
+
+
+def test_decoder_fused_counts_the_fused_steps_layers(monkeypatch):
+    """`decoder_fused` counts a decode step's layers once a step when the
+    step runs fused (the card patched, bf16); nothing for the CPU's plain
+    step, and nothing at all with the tracer off."""
+    cfg = wm.WhisperConfig(128, 24, 64, 4, 2, 32, 64, 4, 3, 80)
+    params = random_params(cfg, seed=3, dtype=torch.bfloat16, device="cpu")
+    L, B, H, Dh, C = cfg.n_text_layer, 2, 4, 16, 8
+    g = torch.Generator()
+    g.manual_seed(0)
+    kc, vc = (torch.randn(L, B, H, Dh, 24, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+
+    def step():
+        cache = {n: torch.zeros(L, B, H, Dh, C, dtype=torch.bfloat16)
+                 for n in ("k", "v")}
+        wm.decode_step(params, torch.tensor([5, 7]), torch.tensor([3, 4]),
+                       4, cache, kc, vc, kv_len=5, n_head=H,
+                       pad_len=torch.tensor([0, 2]))
+
+    TRACE.drain()
+    step()
+    monkeypatch.setattr(wm, "_on_card", lambda x: True)
+    step()
+    assert TRACE.drain() == []
+    monkeypatch.undo()
+    TRACE.enable()
+    try:
+        step()
+        monkeypatch.setattr(wm, "_on_card", lambda x: True)
+        step()
+        step()
+    finally:
+        TRACE.disable()
+        recs = TRACE.drain()
+    assert [r.value for r in recs if r.name == "decoder_fused"] == [L, L]

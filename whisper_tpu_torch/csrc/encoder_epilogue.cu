@@ -321,18 +321,39 @@ bias_residual_kernel(const float* __restrict__ x,
   }
 }
 
-// blocks of one wave of `kernel` for `rows` rows (a warp each)
+// blocks of one wave of `kernel` for `rows` rows (a warp each).  The wave
+// (SMs x the kernel's blocks an SM) is looked up once a thread for each
+// device and kernel: the occupancy query costs more host time than the
+// launch, and the decode step makes ~100 of these launches
 cudaError_t one_wave(const void* kernel, int rows, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
+  struct Wave {
+    const void* kernel;
+    int dev;
+    long long blocks;
+  };
+  constexpr int kCached = 64;
+  static thread_local Wave waves[kCached];
+  static thread_local int n_waves = 0;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
   if (e != cudaSuccess) return e;
+  long long wave = 0;
+  for (int i = 0; i < n_waves; ++i)
+    if (waves[i].kernel == kernel && waves[i].dev == dev) {
+      wave = waves[i].blocks;
+      break;
+    }
+  if (wave == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+    if (e != cudaSuccess) return e;
+    wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    if (n_waves < kCached) waves[n_waves++] = {kernel, dev, wave};
+  }
   const long long want = ((long long)rows + kWarps - 1) / kWarps;
-  const long long wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
   *grid = (int)(want < wave ? want : wave);
   return cudaSuccess;
 }

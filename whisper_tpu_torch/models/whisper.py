@@ -11,9 +11,11 @@ Kernels: the encoder's self-attention runs through K1 (`attn_impl`
 "pallas", "pallas_dt", "pallas_pf", "flash") or K6 ("pallas_btd")
 (ops/encoder_attention.py), and on the card in bf16 the elementwise passes
 between an encoder block's GEMMs through ops/encoder_epilogue.py
-(`_fused_epilogues`); block-quantized decoder weights through K3
-(ops/quantized.py); the decode step's cross-attention through K2 on "q8e"
-and "q8dt", K4 on ("bhtd", K/V) and K5 on {"q", "s"}
+(`_fused_epilogues`); on the card in bf16 a decode step's layers through
+those epilogues and one self-attention kernel over the KV cache
+(ops/decoder_attention.py, `_fused_decoder`); block-quantized decoder
+weights through K3 (ops/quantized.py); the decode step's cross-attention
+through K2 on "q8e" and "q8dt", K4 on ("bhtd", K/V) and K5 on {"q", "s"}
 (ops/cross_attention.py).  The "q8i" and "q4e" steps and the dense einsum
 are plain torch, as whisper_tpu leaves them to XLA.  `*_interpret`
 attention impls select the kernels' plain versions on any device.
@@ -31,6 +33,7 @@ without a mesh, or on a mesh of one "model" rank, run no collective.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -45,8 +48,9 @@ from ..ops.encoder_attention import (BLOCK_Q, encoder_attention,
                                      encoder_attention_btd_ref,
                                      encoder_attention_ref, self_attention,
                                      self_attention_ref)
-from ..ops.encoder_epilogue import (bias_cast, bias_gelu_cast, bias_residual,
-                                    bias_residual_ln, ln_cast)
+from ..ops.decoder_attention import MAX_DH, self_attn_step, step_mask
+from ..ops.encoder_epilogue import (MAX_LN_WIDTH, bias_cast, bias_gelu_cast,
+                                    bias_residual, bias_residual_ln, ln_cast)
 from ..ops.quantized import quantized_matmul
 from ..utils.trace import TRACE
 
@@ -818,13 +822,120 @@ def _cross_attn_step(xq, kc, vc, compute_dtype):
     return _merge_heads(out.transpose(1, 2))
 
 
-def _cross_layer(kc, l: int):
-    """Layer l of a stacked cross-KV in any form _cross_attn_step takes."""
+def _cross_layers(kc) -> list:
+    """Every layer of a stacked cross-KV in any form _cross_attn_step
+    takes, from one unbind of each stacked tensor."""
     if isinstance(kc, torch.Tensor):
-        return kc[l]
+        return kc.unbind(0)
     if isinstance(kc, dict):
-        return {key: val[l] for key, val in kc.items()}
-    return (kc[0],) + tuple(a[l] for a in kc[1:])
+        return [dict(zip(kc, vals))
+                for vals in zip(*(v.unbind(0) for v in kc.values()))]
+    return [(kc[0],) + vals for vals in zip(*(a.unbind(0) for a in kc[1:]))]
+
+
+# the decoder block's matrices that a decode step multiplies by
+_DECODER_MATRICES = ("q_w", "k_w", "v_w", "o_w", "xq_w", "xo_w", "mlp0_w",
+                     "mlp2_w")
+
+
+def _fused_decoder(x, blocks, kv_self, compute_dtype, tp) -> bool:
+    """Whether a decode step runs its layers through the kernels: the
+    self-attention over the cache (ops/decoder_attention.py) and the
+    row-wise epilogues between the GEMMs (ops/encoder_epilogue.py).  The
+    rule of `_fused_epilogues` on the decoder's matrices, with a cache in
+    the compute dtype and widths the kernels take; otherwise the step runs
+    the plain torch sequence, which makes the same roundings."""
+    D = x.shape[-1]
+    kk, vv = kv_self["k"], kv_self["v"]
+    return (_on_card(x) and compute_dtype == torch.bfloat16 and tp is None
+            and D % 8 == 0 and D <= MAX_LN_WIDTH and kk.shape[-2] <= MAX_DH
+            and all(c.dtype == compute_dtype and c.is_contiguous()
+                    for c in (kk, vv))
+            and all(isinstance(blocks[k], torch.Tensor)
+                    for k in _DECODER_MATRICES))
+
+
+# id of a decoder's stacked q_w -> (weak references to its stacked blocks,
+# their versions, the fused step's layers); see _fused_layers
+_FUSED_LAYERS: dict[int, tuple] = {}
+
+
+def _fused_layers(blocks: dict, compute_dtype) -> list[dict]:
+    """The fused decode step's weights a layer, built once a decoder: the
+    matrices in the compute dtype as (in, out) views for torch.mm on 2-D
+    rows (less host time a GEMM than F.linear on (B, 1, D)), q/k/v
+    concatenated into one (D, 3D) matrix for one GEMM (a copy: 32 x 3 x
+    1280^2 bf16, 315 MB, at large-v3), the biases and layernorm weights in
+    f32 as the kernels take them, and each layer's exit layernorm (the
+    next layer's attention layernorm; the last layer's is the decoder's,
+    read a step).  Rebuilt when a stacked block is replaced or written in
+    place.  The layers hold detached views, which keep the weights'
+    storage but not the stacked tensors alive, so the entry goes with its
+    q_w."""
+    srcs = tuple(blocks.values())
+    key = id(blocks["q_w"])
+    versions = tuple(t._version for t in srcs)
+    hit = _FUSED_LAYERS.get(key)
+    if (hit is not None and hit[1] == versions
+            and all(ref() is t for ref, t in zip(hit[0], srcs))):
+        return hit[2]
+    cd = compute_dtype
+    mats = {"qkv_w": torch.cat([blocks[k].to(cd)
+                                for k in ("q_w", "k_w", "v_w")], dim=1)}
+    mats.update((k, blocks[k].to(cd))
+                for k in ("o_w", "xq_w", "xo_w", "mlp0_w", "mlp2_w"))
+    vecs = {k: blocks[k].float() for k in (
+        "q_b", "v_b", "o_b", "xq_b", "xo_b", "mlp0_b", "mlp2_b", "attn_ln_w",
+        "attn_ln_b", "xattn_ln_w", "xattn_ln_b", "mlp_ln_w", "mlp_ln_b")}
+    layers = [{**{k: v[l].detach().t() for k, v in mats.items()},
+               **{k: v[l].detach() for k, v in vecs.items()}}
+              for l in range(blocks["q_w"].shape[0])]
+    for blk, nxt in zip(layers, layers[1:]):
+        blk["exit_ln_w"], blk["exit_ln_b"] = nxt["attn_ln_w"], nxt["attn_ln_b"]
+    _FUSED_LAYERS[key] = (tuple(weakref.ref(t) for t in srcs), versions,
+                          layers)
+    weakref.finalize(blocks["q_w"], _FUSED_LAYERS.pop, key, None)
+    return layers
+
+
+def _decode_layers_fused(x, dec, layers, kk, vv, cache_index, kv_len,
+                         pad_len, k_cross, v_cross, nh, group, cd):
+    """decode_step's layers on the card, on (B, D) rows: per layer the
+    q/k/v GEMM, the self-attention kernel (bias adds, cache writes,
+    attention over the valid keys), then each GEMM's epilogue, the
+    residual stream in f32 and every GEMM's input in bf16; each layer's
+    last epilogue computes the next layer's entry layernorm -> the
+    decoder's final layernorm of x, bf16 (B, D)."""
+    B = x.shape[0]
+    if pad_len is not None:      # as the kernel reads it
+        pad_len = pad_len.to(torch.long).contiguous()
+    ln = ln_cast(x, layers[0]["attn_ln_w"], layers[0]["attn_ln_b"])
+    final = (dec["ln_w"].float(), dec["ln_b"].float())
+    for blk, k_l, v_l, kc_l, vc_l in zip(layers, kk.unbind(0), vv.unbind(0),
+                                         _cross_layers(k_cross),
+                                         _cross_layers(v_cross)):
+        attn = self_attn_step(torch.mm(ln, blk["qkv_w"]), blk["q_b"],
+                              blk["v_b"], k_l, v_l, cache_index, kv_len,
+                              pad_len, nh)
+        x, ln = bias_residual_ln(x, torch.mm(attn, blk["o_w"]), blk["o_b"],
+                                 blk["xattn_ln_w"], blk["xattn_ln_b"])
+        xq = torch.mm(ln, blk["xq_w"])
+        if isinstance(kc_l, tuple) and kc_l[0] == "q8i":
+            # the q8i step quantizes q from f32, as `_linear` leaves it
+            xq = torch.add(xq, blk["xq_b"])
+        else:       # every other step rounds q to bf16 first
+            xq, = bias_cast((xq, blk["xq_b"]))
+        # (S*K, D) -> (S, K, H, Dh): a stream's beams as queries
+        attn = _cross_attn_step(xq.reshape(B // group, group, nh, -1),
+                                kc_l, vc_l, cd)
+        y = torch.mm(attn.reshape(B, -1).to(cd), blk["xo_w"])
+        x, ln = bias_residual_ln(x, y, blk["xo_b"], blk["mlp_ln_w"],
+                                 blk["mlp_ln_b"])
+        h = bias_gelu_cast(torch.mm(ln, blk["mlp0_w"]), blk["mlp0_b"])
+        x, ln = bias_residual_ln(x, torch.mm(h, blk["mlp2_w"]), blk["mlp2_b"],
+                                 *(blk["exit_ln_w"], blk["exit_ln_b"])
+                                 if "exit_ln_w" in blk else final)
+    return ln
 
 
 def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
@@ -858,16 +969,21 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
     C = kk.shape[-1]
     dev = kk.device
 
-    x = _embed(dec, tokens, pos_ids, tp)[:, None, :]
+    x = _embed(dec, tokens, pos_ids, tp)
+    if _fused_decoder(x, blocks, kv_self, cd, tp):
+        layers = _fused_layers(blocks, cd)
+        TRACE.count("decoder_fused", len(layers))
+        ln = _decode_layers_fused(x, dec, layers, kk, vv, cache_index,
+                                  kv_len, pad_len, k_cross, v_cross, nh,
+                                  group, cd)
+        return _logits(ln, dec["tok_emb"], cd, tp), kv_self
+    x = x[:, None, :]
 
     # attention mask over cache positions: valid iff pad_len <= idx < kv_len
-    idx = torch.arange(C, device=dev)
-    valid = (idx < kv_len)[None, :]
-    if pad_len is not None:
-        valid = valid & (idx[None, :] >= pad_len[:, None])
-    attn_mask = torch.where(valid, 0.0, float("-inf"))[:, None, None, :]
+    attn_mask = step_mask(C, kv_len, pad_len, dev)
 
-    for l, blk in enumerate(_layers(blocks)):
+    for l, (blk, kc_l, vc_l) in enumerate(zip(
+            _layers(blocks), _cross_layers(k_cross), _cross_layers(v_cross))):
         ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
         q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd), nh)
         k_new = _split_heads(_linear(ln, blk["k_w"], None, cd), nh)
@@ -883,7 +999,7 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
         # (S*K, 1, H, Dh) -> (S, K, H, Dh): a stream's beams as queries
         attn = _cross_attn_step(
             xq.reshape(xq.shape[0] // group, group, nh, xq.shape[-1]),
-            _cross_layer(k_cross, l), _cross_layer(v_cross, l), cd)
+            kc_l, vc_l, cd)
         x = x + _linear(attn.reshape(x.shape[0], 1, -1), blk["xo_w"],
                         blk["xo_b"], cd, tp=tp)
 

@@ -10,7 +10,8 @@ failed build raises; nothing falls back to another path.
 
 Each C entry point takes device pointers and the CUDA stream as
 `ctypes.c_void_p` (from `Tensor.data_ptr()` and
-`torch.cuda.current_stream().cuda_stream`), launches on that stream, and
+`torch.cuda.current_stream().cuda_stream`, or the same handle from
+`torch._C._cuda_getCurrentRawStream`), launches on that stream, and
 returns `cudaGetLastError()` as an int.
 """
 
@@ -71,6 +72,10 @@ SIGNATURES = {
     "wtt_bias_gelu_cast": [_P, _P, _I, _I, _P],
     # x, y, bias, x_out, rows, D, stream
     "wtt_bias_residual": [_P, _P, _P, _P, _I, _I, _P],
+    # qkv, q_b, v_b, k_cache, v_cache, pad_len (or 0), out, B, H, Dh, C,
+    # cache_index, kv_len, scale, stream
+    "wtt_self_attn_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _F, _P],
 }
 
 

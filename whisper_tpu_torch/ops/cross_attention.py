@@ -169,7 +169,7 @@ def cross_attention_decode_q8dt(q, k_q, k_s, v_q, v_s):
                    out.data_ptr(), B, H, G, Dh, Ta,
                    _q8dt_cluster(B * H, Ta, G, Dh),
                    int(_q8dt_words(Ta, k_q.data_ptr(), v_q.data_ptr())),
-                   torch.cuda.current_stream(q.device).cuda_stream)
+                   torch._C._cuda_getCurrentRawStream(q.get_device()))
     cross_attention_decode_q8dt.launches += 1
     if G > 1:
         cross_attention_decode_q8dt.launches_grouped += 1

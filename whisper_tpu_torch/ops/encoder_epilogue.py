@@ -27,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ._build import library
+
 EPS = 1e-5              # the encoder's layernorms (models/whisper.py)
 MAX_LN_WIDTH = 2048     # the layernorm kernels keep a row in registers
 
@@ -71,22 +73,22 @@ def bias_residual_ref(x, y, bias):
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def _check(fn_name: str, D: int, tensors, max_width: int | None = None):
     """Each (name, tensor, dtype, shape) as given, on the first tensor's
     CUDA device, contiguous and 16-byte aligned; D a multiple of 8 (at most
     max_width).  -> the rows."""
-    dev = tensors[0][1].device
-    if dev.type != "cuda":
-        raise ValueError(f"{fn_name}: unsupported device {dev}")
+    first = tensors[0][1]
+    if not first.is_cuda:
+        raise ValueError(f"{fn_name}: unsupported device {first.device}")
+    dev = first.get_device()
     for name, x, dtype, shape in tensors:
-        if (tuple(x.shape) != tuple(shape) or x.dtype != dtype
-                or x.device != dev):
+        if x.shape != shape or x.dtype != dtype or x.get_device() != dev:
             raise ValueError(f"{fn_name}: {name} is {tuple(x.shape)} "
                              f"{x.dtype} on {x.device}, expected "
-                             f"{tuple(shape)} {dtype} on {dev}")
+                             f"{tuple(shape)} {dtype} on {first.device}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{fn_name}: {name} must be contiguous and "
                              "16-byte aligned")
@@ -101,15 +103,14 @@ def _check(fn_name: str, D: int, tensors, max_width: int | None = None):
 
 def ln_cast(x, w, b):
     """x (..., D) f32 -> bf16 LN(x) (w, b (D,) f32)."""
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return ln_cast_ref(x, w, b)
     D = x.shape[-1]
     rows = _check("ln_cast", D, (("x", x, torch.float32, x.shape),
                                  ("w", w, torch.float32, (D,)),
                                  ("b", b, torch.float32, (D,))),
                   MAX_LN_WIDTH)
-    from ._build import library
-    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x, dtype=torch.bfloat16)
     library().call("wtt_ln_cast", x.data_ptr(), w.data_ptr(), b.data_ptr(),
                    out.data_ptr(), rows, D, EPS, _stream(x))
     ln_cast.launches += 1
@@ -125,7 +126,7 @@ def bias_cast(*pairs):
     if not 1 <= len(pairs) <= 2:
         raise ValueError(f"bias_cast: {len(pairs)} pairs, takes 1 or 2")
     y = pairs[0][0]
-    if y.device.type == "cpu":
+    if not y.is_cuda and y.device.type == "cpu":
         return bias_cast_ref(*pairs)
     D = y.shape[-1]
     rows = _check("bias_cast", D, [
@@ -133,7 +134,6 @@ def bias_cast(*pairs):
         for t in ((f"y{i}", yi, torch.bfloat16, y.shape),
                   (f"b{i}", bi, torch.float32, (D,)))])
     (y0, b0), (y1, b1) = pairs[0], pairs[-1]
-    from ._build import library
     library().call("wtt_bias_cast", y0.data_ptr(), b0.data_ptr(),
                    y1.data_ptr(), b1.data_ptr(), len(pairs), rows, D,
                    _stream(y))
@@ -147,16 +147,15 @@ bias_cast.launches = 0
 def bias_residual_ln(x, y, bias, w, b):
     """x (..., D) f32, y bf16 of its shape, bias/w/b (D,) f32 -> (x' = x +
     (f32(y) + bias) f32, bf16 LN(x'))."""
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return bias_residual_ln_ref(x, y, bias, w, b)
     D = x.shape[-1]
     rows = _check("bias_residual_ln", D, (
         ("x", x, torch.float32, x.shape), ("y", y, torch.bfloat16, x.shape),
         ("bias", bias, torch.float32, (D,)), ("w", w, torch.float32, (D,)),
         ("b", b, torch.float32, (D,))), MAX_LN_WIDTH)
-    from ._build import library
     x_out = torch.empty_like(x)
-    ln = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    ln = torch.empty_like(x, dtype=torch.bfloat16)
     library().call("wtt_bias_residual_ln", x.data_ptr(), y.data_ptr(),
                    bias.data_ptr(), w.data_ptr(), b.data_ptr(),
                    x_out.data_ptr(), ln.data_ptr(), rows, D, EPS, _stream(x))
@@ -170,13 +169,12 @@ bias_residual_ln.launches = 0
 def bias_gelu_cast(y, bias):
     """y (..., D) bf16, bias (D,) f32: y = bf16(gelu_tanh(f32(y) + bias)) in
     place -> y."""
-    if y.device.type == "cpu":
+    if not y.is_cuda and y.device.type == "cpu":
         return bias_gelu_cast_ref(y, bias, y.dtype)
     D = y.shape[-1]
     rows = _check("bias_gelu_cast", D, (
         ("y", y, torch.bfloat16, y.shape),
         ("bias", bias, torch.float32, (D,))))
-    from ._build import library
     library().call("wtt_bias_gelu_cast", y.data_ptr(), bias.data_ptr(), rows,
                    D, _stream(y))
     bias_gelu_cast.launches += 1
@@ -189,13 +187,12 @@ bias_gelu_cast.launches = 0
 def bias_residual(x, y, bias):
     """x (..., D) f32, y bf16 of its shape, bias (D,) f32 -> x + (f32(y) +
     bias), f32."""
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return bias_residual_ref(x, y, bias)
     D = x.shape[-1]
     rows = _check("bias_residual", D, (
         ("x", x, torch.float32, x.shape), ("y", y, torch.bfloat16, x.shape),
         ("bias", bias, torch.float32, (D,))))
-    from ._build import library
     x_out = torch.empty_like(x)
     library().call("wtt_bias_residual", x.data_ptr(), y.data_ptr(),
                    bias.data_ptr(), x_out.data_ptr(), rows, D, _stream(x))
