@@ -6,15 +6,17 @@
 Phases, each of which must pass (the script exits nonzero otherwise):
   1. require CUDA; print the card's name and power limit
   2. build kernels K1-K7, the encoder block's five row-wise epilogues
-     (csrc/encoder_epilogue.cu; the decode step's layers run them too) and
-     the decode step's self-attention (csrc/self_attn_step.cu) from
+     (csrc/encoder_epilogue.cu; the decode step's layers run them too),
+     the decode step's self-attention (csrc/self_attn_step.cu) and the
+     cross-KV quantizer (csrc/cross_kv_quant.cu) from
      whisper_tpu_torch/csrc with nvcc (one process per source, in
      parallel)
   3. compare each kernel with its plain PyTorch version on the card at
      every shape the paths below give it, taken from the models they load
      (K2 also with G = 5 queries a (b, h), batched beam search's form; the
-     epilogues at the batch cells' 256 windows of large-v3's encoder,
-     self_attn_step at their decode step's 256 rows and full cache)
+     epilogues and cross_kv_quant at the batch cells' 256 windows of
+     large-v3's encoder, self_attn_step at their decode step's 256 rows and
+     full cache)
      (and K3 at the prompt passes of serving batches of 4 and 64 streams),
      and, after the paths, at every other shape they launched (each
      launch's shape noted from its entry point's arguments; compared,
@@ -45,7 +47,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      + full: K1, K3 with mins and K4 launch
   7. the serving path: BatchTranscriber.transcribe on 4 int16 streams of
      45 s with large-v3 random weights (seed 0), greedy with the bench's
-     serving settings: K1 and K2 launch; then once more with 4-bit cross-KV
+     serving settings: K1, K2 and cross_kv_quant launch; then once more
+     with 4-bit cross-KV
      (cross_mode="einsum_q4", bench.py's kv=q4): K1 launches
   8. path C, the CLI's --kv-q8 / --kv-q4: path A's file through
      from_file(..., cross_mode="einsum_q8") + full on 15 s of PCM (K1, K2,
@@ -207,6 +210,7 @@ K3_SERVE_M = (4 * 232, BENCH_BATCH * 232)
 # PyTorch's Welford), at most 2^-7 of the largest output, and GELU's
 # likewise (tanhf compiled otherwise); tests/test_torch_gpu.py counts the
 # elements.
+# cross_kv_quant's codes and scales equal its plain version's bit for bit.
 # The decoder's self_attn_step: its bf16 outputs against the plain step's
 # (cuBLAS products, an f32 softmax), which make the same roundings in
 # another order: a score within an f32 rounding of a bf16 tie may round
@@ -217,12 +221,14 @@ KERNEL_TOL = {"K1": 2e-2, "K1dt": 2e-2, "K2": 5e-4, "K2G": 5e-4, "K3": 1e-5,
               "K3+mins": 1e-5, "K4": 5e-4, "K5": 5e-4, "K6": 2e-2,
               "K7": 1e-5, "ln_cast": 2 ** -7, "bias_cast": 0.0,
               "bias_residual_ln": 2 ** -7, "bias_gelu_cast": 2 ** -7,
-              "bias_residual": 0.0, "self_attn_step": 1e-2}
+              "bias_residual": 0.0, "self_attn_step": 1e-2,
+              "cross_kv_quant": 0.0}
 # the encoder block's row-wise epilogue kernels (ops/encoder_epilogue.py)
 EPILOGUES = ("ln_cast", "bias_cast", "bias_residual_ln", "bias_gelu_cast",
              "bias_residual")
 # the batch cells' encode: 256 windows of 1,500 rows
-EPILOGUE_ROWS = 256 * 1500
+XKV_WINDOWS = 256
+EPILOGUE_ROWS = XKV_WINDOWS * 1500
 # the batch cells' decode step: 256 rows over a cache of 72 prompt slots
 # (n_max_text_ctx 64 carried), 220 tokens and one (parallel/batch.py
 # `_prompt_bucket`, decode/loop.py)
@@ -440,7 +446,8 @@ def path_shapes() -> dict:
     also at the serving batch with large-v3's heads split over two "model"
     ranks (the phase "mesh"); the encoder's epilogues (rows, width) at the
     batch cells' 256 windows of large-v3 (bias_cast with its q and v
-    pairs: (rows, width, 2)).  A shape that a main path launches and this
+    pairs: (rows, width, 2)), and cross_kv_quant (B, Ta, D, H) at the
+    same windows and large-v3's decoder heads.  A shape that a main path launches and this
     list lacks is checked after the paths (check_launched)."""
     from whisper_tpu_torch.models.whisper import MODEL_DIMS, WhisperConfig
     from whisper_tpu_torch.ops.encoder_attention import BLOCK_Q
@@ -507,7 +514,10 @@ def path_shapes() -> dict:
             # the decoder's self-attention over its cache (B, H, Dh, C)
             "self_attn_step": [(STEP_ROWS, big.n_text_head,
                                 big.n_text_state // big.n_text_head,
-                                STEP_CACHE)]}
+                                STEP_CACHE)],
+            # one decoder layer's cross-K/V of the batch cells' windows
+            "cross_kv_quant": [(XKV_WINDOWS, big.n_audio_ctx,
+                                big.n_text_state, big.n_text_head)]}
 
 
 def step_pad(B: int) -> list[int]:
@@ -576,6 +586,13 @@ def work(key, shape) -> tuple[int, int, str]:
         nbytes = (H * Dh * keys * 2 * 2 + B * D * 2 * (3 + 2 + 2 + 1)
                   + 2 * D * 4 + B * 8)
         ops, kind = 4 * H * Dh * keys, "f32"
+    elif key == "cross_kv_quant":
+        # K and V: bf16 rows in, int8 codes and f32 scales out, V's f32
+        # bias; an element's abs, max, product, rint and clamp, and V's
+        # bias add
+        B, Ta, D, H = shape
+        nbytes = 2 * B * Ta * (D * (2 + 1) + H * 4) + D * 4
+        ops, kind = B * Ta * D * (6 + 7), "f32"
     else:
         raise KeyError(key)
     return nbytes, ops, kind
@@ -725,6 +742,15 @@ def kernel_cases(gen):
         pad = torch.tensor(step_pad(B), device="cuda")
         return [qkv, randn(D), randn(D), *caches, C - 1, C, pad, H], None
 
+    def xkv(B, Ta, D, H):
+        # a layer's two projection outputs at the spread of cross-K/V, and
+        # V's bias
+        return [bf16(B, Ta, D) * 8, bf16(B, Ta, D) * 8, randn(D), H], None
+
+    def flat(fn):
+        # ((K codes, K scales), (V codes, V scales)) -> a 4-tuple
+        return lambda *a: tuple(t for pair in fn(*a) for t in pair)
+
     def self_attn_plain(qkv, *rest):
         # the kernel and its plain version write q and v into qkv: the
         # plain one, which runs first, works on a copy
@@ -758,6 +784,8 @@ def kernel_cases(gen):
                       getattr(ee, f"{key}_ref"), epilogue(key))
     cases["self_attn_step"] = ("decoder self_attn_step", da.self_attn_step,
                                self_attn_plain, self_attn)
+    cases["cross_kv_quant"] = ("cross_kv_quant", flat(xa.cross_kv_quant),
+                               flat(xa.cross_kv_quant_ref), xkv)
     dense_of = {"K2": xattn_dense, "K2G": xattn_dense, "K3": k3_dense,
                 "K3+mins": k3_dense, "K5": xattn_dense}
     return cases, dense_of
@@ -867,6 +895,9 @@ def launch_shape(entry: str, args) -> tuple[str, tuple]:
         return "bias_cast", (args[5], args[6], args[4])  # rows, D, pairs
     if entry == "wtt_self_attn_step":
         return "self_attn_step", tuple(args[7:11])       # B, H, Dh, C
+    if entry == "wtt_cross_kv_quant":
+        B, H, Ta = args[7:10]
+        return "cross_kv_quant", (B, Ta, H * 64, H)
     rows_at = {"wtt_ln_cast": 4, "wtt_bias_residual_ln": 7,
                "wtt_bias_gelu_cast": 2, "wtt_bias_residual": 4}
     if entry in rows_at:
@@ -1046,7 +1077,8 @@ def counters() -> dict:
             "K5": (xa.cross_attention_decode_q8,),
             "K6": (ea.encoder_attention_btd,), "K7": (mp._mel_blocks,),
             **{k: (getattr(ee, k),) for k in EPILOGUES},
-            "self_attn_step": (da.self_attn_step,)}
+            "self_attn_step": (da.self_attn_step,),
+            "cross_kv_quant": (xa.cross_kv_quant,)}
 
 
 def reset_counts() -> None:
@@ -3540,7 +3572,7 @@ def main() -> int:
         "path B": lambda: run_full("path B", small, "pallas",
                                    ("K1", "K3", "K3+mins", "K4"), card_line),
         "transcribe": lambda: serve(card_line, big, "transcribe",
-                                    ("K1", "K2")),
+                                    ("K1", "K2", "cross_kv_quant")),
         "transcribe q4": lambda: serve(card_line, big_q4, "transcribe q4",
                                        ("K1",)),
         "path C q8": lambda: run_full("path C q8", big_file, "einsum_q8",
@@ -3600,7 +3632,7 @@ def main() -> int:
     check_launched(gen, res)
     draws = check_draws(card_line)
     keys = ("K1", "K2", "K2G", "K3", "K4", "K5", "K6", "K7", *EPILOGUES,
-            "self_attn_step")
+            "self_attn_step", "cross_kv_quant")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in keys}
     log(f"kernel launches, all paths: {launches}")
     log("kernel launches by path: " + json.dumps(
@@ -3657,6 +3689,8 @@ def main() -> int:
           for key in EPILOGUES),
         entry("self_attn_step", "self_attn_step", "self_attn_step.cu",
               "none: the decode step is one XLA program on the TPU"),
+        entry("cross_kv_quant", "cross_kv_quant", "cross_kv_quant.cu",
+              "none: XLA fused quantize_kv_bhdt under jit"),
     ]
     for k in kernels:
         if k["launches"] <= 0:

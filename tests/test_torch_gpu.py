@@ -1597,3 +1597,134 @@ def test_self_attn_step_refuses_on_card(gen):
         with pytest.raises(RuntimeError):
             library().call("wtt_self_attn_step", *ptrs, *shape, 0.125,
                            stream)
+
+
+# one decoder layer's cross-K/V to int8 (ops/cross_attention.py
+# `cross_kv_quant`): (B, Ta, H) of a few windows, of audio_ctx 750 and of
+# the batch cells' 256 windows, at large-v3's 20 heads and at the 10 a rank
+# of a two-rank tensor-parallel mesh; and 5 heads (a four-rank mesh: the
+# kernel's last group of 2 heads holds one) at a ragged Ta
+XKV_CASES = [(B, Ta, H) for B, Ta in ((4, 1500), (3, 750), (256, 1500))
+             for H in (20, 10)] + [(2, 37, 5)]
+
+
+def _xkv_rows(gen, B, Ta, H):
+    """bf16 projection rows k, v (B, Ta, H * 64) and V's f32 bias, with
+    all-zero segments (position 3 of head 0 of both) and segments whose
+    largest magnitude is 127 (position 5 of head 1 of both), whose codes
+    are their values rounded half to even; V's heads 0 and 1 have no
+    bias."""
+    D = H * 64
+    k, v = ((torch.randn(B, Ta, D, generator=gen, device="cuda") * 2)
+            .to(torch.bfloat16) for _ in range(2))
+    bias = (torch.randn(D, generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16).float()
+    bias[:128] = 0
+    ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5] * 8,
+                        dtype=torch.bfloat16, device="cuda")
+    k[:, 5, 64:128] = ties
+    v[:, 5, 64:128] = ties
+    k[:, 3, :64] = 0
+    v[:, 3, :64] = 0
+    return k, v, bias
+
+
+@pytest.mark.parametrize("B,Ta,H", XKV_CASES)
+def test_cross_kv_quant_matches_plain_on_card(gen, B, Ta, H):
+    """The kernel's codes and scales against its plain version's, equal
+    bit for bit (Ta 750 and 37 take its byte stores); one launch for K and
+    V; into `out` when given, as cross_kv_q8 passes a layer's slots."""
+    k, v, bias = _xkv_rows(gen, B, Ta, H)
+    n = xa.cross_kv_quant.launches
+    got = xa.cross_kv_quant(k, v, bias, H)
+    torch.cuda.synchronize()
+    assert xa.cross_kv_quant.launches == n + 1
+    want = xa.cross_kv_quant_ref(k, v, bias, H)
+    for (gq, gs), (wq, ws) in zip(got, want):
+        assert gq.shape == (B, H, 64, Ta) and gq.dtype == torch.int8
+        assert gs.shape == (B, H, Ta) and gs.dtype == torch.float32
+        assert torch.equal(gq, wq) and torch.equal(gs, ws)
+    del got
+    stacks = [torch.full((2, B, H, 64, Ta), 7, dtype=torch.int8,
+                         device="cuda") if i % 2 == 0 else
+              torch.full((2, B, H, Ta), -1.0, device="cuda")
+              for i in range(4)]
+    xa.cross_kv_quant(k, v, bias, H, out=tuple(s[1] for s in stacks))
+    torch.cuda.synchronize()
+    for s, w in zip(stacks, (t for pair in want for t in pair)):
+        assert torch.equal(s[1], w)
+        assert (s[0] == (7 if s.dtype == torch.int8 else -1)).all()
+
+
+def test_cross_kv_q8_fused_on_card(gen, monkeypatch):
+    """cross_kv_q8 at large-v3's widths over its 32 decoder layers, B 2,
+    V's bias nonzero: the fused path (one cross_kv_quant a layer,
+    `cross_kv_fused` counted once, 32) gives the plain path's stacks bit
+    for bit (`_on_card` patched off)."""
+    from whisper_tpu_torch.weights.convert import random_params
+    dims = list(wm.MODEL_DIMS["large-v3"])
+    dims[4] = 1
+    cfg = wm.WhisperConfig(*dims)
+    params = random_params(cfg, seed=5, dtype=torch.bfloat16, device="cuda")
+    L, D = cfg.n_text_layer, cfg.n_text_state
+    params["decoder"]["blocks"]["xv_b"] = torch.randn(
+        L, D, generator=gen, device="cuda") * 0.5
+    enc = torch.randn(2, cfg.n_audio_ctx, D, generator=gen, device="cuda")
+    n = xa.cross_kv_quant.launches
+    TRACE.drain()
+    TRACE.enable()
+    try:
+        with torch.no_grad():
+            fused = wm.cross_kv_q8(params, enc, cfg.n_text_head)
+            torch.cuda.synchronize()
+    finally:
+        TRACE.disable()
+        recs = TRACE.drain()
+    assert xa.cross_kv_quant.launches - n == L
+    assert [r.value for r in recs if r.name == "cross_kv_fused"] == [L]
+    monkeypatch.setattr(wm, "_on_card", lambda x: False)
+    with torch.no_grad():
+        plain = wm.cross_kv_q8(params, enc, cfg.n_text_head)
+    assert xa.cross_kv_quant.launches - n == L
+    for (fq, fs), (pq, ps) in zip(fused, plain):
+        assert fq.shape == (L, 2, cfg.n_text_head, 64, cfg.n_audio_ctx)
+        assert torch.equal(fq, pq) and torch.equal(fs, ps)
+
+
+def test_cross_kv_quant_refuses_on_card(gen):
+    """A non-contiguous, f32, misshapen or misaligned operand raises before
+    a launch; the C entry point refuses misaligned rows, and the
+    wrapper's launch check raises on it."""
+    from whisper_tpu_torch.ops._build import library
+    B, Ta, H = 2, 40, 2
+    k, v, bias = _xkv_rows(gen, B, Ta, H)
+    odd = torch.zeros(k.numel() + 1, dtype=torch.bfloat16,
+                      device="cuda")[1:].view(k.shape)
+    codes = torch.empty(B, H, 64, Ta, dtype=torch.int8, device="cuda")
+    scales = torch.empty(B, H, Ta, device="cuda")
+    n = xa.cross_kv_quant.launches
+    for args, kw in (
+            ((k.float(), v, bias, H), {}),                          # f32
+            ((k, v.float(), bias, H), {}),
+            ((k, v, bias.to(torch.bfloat16), H), {}),
+            ((k.transpose(0, 1).contiguous().transpose(0, 1), v, bias, H),
+             {}),                                                # contiguity
+            ((k, v, bias, 3), {}),                                  # heads
+            ((k, v[:, :-1], bias, H), {}),                          # shape
+            ((odd, v, bias, H), {}),                                # alignment
+            ((k, v, bias, H), {"out": (codes, scales, codes.float(),
+                                       scales)}),
+            ((k, v, bias, H), {"out": (codes.transpose(-1, -2), scales,
+                                       codes, scales)})):
+        with pytest.raises(ValueError):
+            xa.cross_kv_quant(*args, **kw)
+    assert xa.cross_kv_quant.launches == n
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError):
+        library().call("wtt_cross_kv_quant", odd.data_ptr(), v.data_ptr(),
+                       bias.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                       codes.data_ptr(), scales.data_ptr(), B, H, Ta, stream)
+    with pytest.raises(RuntimeError):
+        library().call("wtt_cross_kv_quant", k.data_ptr(), v.data_ptr(),
+                       bias.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                       codes.data_ptr(), scales.data_ptr(), 0, H, Ta, stream)

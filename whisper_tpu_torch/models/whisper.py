@@ -13,8 +13,11 @@ Kernels: the encoder's self-attention runs through K1 (`attn_impl`
 between an encoder block's GEMMs through ops/encoder_epilogue.py
 (`_fused_epilogues`); on the card in bf16 a decode step's layers through
 those epilogues and one self-attention kernel over the KV cache
-(ops/decoder_attention.py, `_fused_decoder`); block-quantized decoder
-weights through K3 (ops/quantized.py); the decode step's cross-attention
+(ops/decoder_attention.py, `_fused_decoder`); on the card in bf16 the
+int8 cross-KV of `cross_kv_q8` through one quantizing pass a layer
+(`cross_kv_quant` of ops/cross_attention.py, `_fused_cross_kv`);
+block-quantized decoder weights through K3 (ops/quantized.py); the decode
+step's cross-attention
 through K2 on "q8e" and "q8dt", K4 on ("bhtd", K/V) and K5 on {"q", "s"}
 (ops/cross_attention.py).  The "q8i" and "q4e" steps and the dense einsum
 are plain torch, as whisper_tpu leaves them to XLA.  `*_interpret`
@@ -38,11 +41,11 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-from ..ops.cross_attention import (cross_attention_decode,
+from ..ops.cross_attention import (DH, cross_attention_decode,
                                    cross_attention_decode_q8,
                                    cross_attention_decode_q8dt,
-                                   quantize_kv_bhdt, quantize_kv_bhdt_q4,
-                                   unpack_q4_bhdt)
+                                   cross_kv_quant, quantize_kv_bhdt,
+                                   quantize_kv_bhdt_q4, unpack_q4_bhdt)
 from ..ops.encoder_attention import (BLOCK_Q, encoder_attention,
                                      encoder_attention_btd,
                                      encoder_attention_btd_ref,
@@ -509,12 +512,52 @@ def cross_kv(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
     return kc, vc
 
 
+def _fused_cross_kv(params, enc_out, n_head: int, compute_dtype,
+                    enc_layout: str) -> bool:
+    """Whether cross_kv_q8 quantizes each layer through cross_kv_quant:
+    enc_out on a CUDA card in the (B, Ta, D) layout, bf16 compute, dense
+    xk/xv matrices and heads DH wide (every Whisper).  Otherwise it runs
+    the plain torch sequence; both give the same bits."""
+    blocks = params["decoder"]["blocks"]
+    return (_on_card(enc_out) and compute_dtype == torch.bfloat16
+            and enc_layout == "btd"
+            and all(isinstance(blocks[k], torch.Tensor)
+                    for k in ("xk_w", "xv_w"))
+            and blocks["xk_w"].shape[-1] == n_head * DH)
+
+
+def _cross_kv_q8_fused(params, enc_out, n_head: int):
+    """cross_kv_q8 on the card: each layer's two bf16 products, then one
+    launch writes their codes and scales into the layer's slots of the
+    (L, ...) stacks.  H: this rank's heads under tensor parallelism."""
+    blocks = params["decoder"]["blocks"]
+    H = _local_heads(blocks["xk_w"], n_head)
+    layers = _layers(blocks)
+    cd = torch.bfloat16
+    x = enc_out.to(cd)
+    B, Ta, _ = x.shape
+    L = len(layers)
+    codes = [torch.empty((L, B, H, DH, Ta), dtype=torch.int8,
+                         device=x.device) for _ in range(2)]
+    scales = [torch.empty((L, B, H, Ta), dtype=torch.float32,
+                          device=x.device) for _ in range(2)]
+    for l, blk in enumerate(layers):
+        cross_kv_quant(F.linear(x, blk["xk_w"].to(cd)),
+                       F.linear(x, blk["xv_w"].to(cd)), blk["xv_b"].float(),
+                       H, out=(codes[0][l], scales[0][l], codes[1][l],
+                               scales[1][l]))
+    TRACE.count("cross_kv_fused", L)
+    return (codes[0], scales[0]), (codes[1], scales[1])
+
+
 def cross_kv_q8(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
                 enc_layout: str = "btd"):
     """enc_out -> ((L, B, H, Dh, Ta) int8 codes, (L, B, H, Ta) f32 scales)
     for K and for V.  Each layer is projected and quantized before the
     next, so the bf16 (L, B, H, Dh, Ta) stack never exists in device
-    memory."""
+    memory; on the card in bf16 in one pass a layer (`_fused_cross_kv`)."""
+    if _fused_cross_kv(params, enc_out, n_head, compute_dtype, enc_layout):
+        return _cross_kv_q8_fused(params, enc_out, n_head)
     proj = _make_cross_proj(params, enc_out, n_head, compute_dtype,
                             enc_layout)
     kq, ks, vq, vs = _stack_layers(

@@ -72,6 +72,8 @@ SIGNATURES = {
     "wtt_bias_gelu_cast": [_P, _P, _I, _I, _P],
     # x, y, bias, x_out, rows, D, stream
     "wtt_bias_residual": [_P, _P, _P, _P, _I, _I, _P],
+    # k, v, v_bias, k_codes, k_scales, v_codes, v_scales, B, H, Ta, stream
+    "wtt_cross_kv_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # qkv, q_b, v_b, k_cache, v_cache, pad_len (or 0), out, B, H, Dh, C,
     # cache_index, kv_len, scale, stream
     "wtt_self_attn_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -1,6 +1,13 @@
 """Single-query cross-attention kernels and the per-position int8
 quantizer of their K/V.
 
+`cross_kv_quant` (csrc/cross_kv_quant.cu) makes one decoder layer's int8
+cross-K/V for K2 in one pass: from the two bf16 projection outputs
+(B, Ta, D), V's bias, to codes (B, H, Dh, Ta) and scales (B, H, Ta), the
+bits `quantize_kv_bhdt` gives.  It replaces no TPU kernel: XLA fused that
+quantizer under jit.  `cross_kv_quant_ref` is the torch sequence it
+replaces, which the CPU takes.
+
 K2 replaces whisper_tpu/ops/cross_attention.py
 `cross_attention_decode_q8dt` / `_xattn_kernel_q8dt`: per (batch, head),
 logits = (q . k_q) * k_s * Dh^-1/2, an f32 softmax, weights w * v_s
@@ -96,6 +103,70 @@ def quantize_kv_bhdt_q4(k: torch.Tensor):
     q, scale = _quantize(k, -2, -8, 7)
     q = (q.to(torch.int8) + 8).to(torch.uint8)
     return q[..., 0::2, :] | (q[..., 1::2, :] << 4), scale[..., 0, :]
+
+
+def cross_kv_quant_ref(k, v, v_bias, n_head: int):
+    """Plain version of cross_kv_quant, the torch sequence
+    models/whisper.py ran without it: k, v (B, Ta, D) projection rows in
+    the compute dtype (v before its bias), v_bias (D,) -> ((K codes, K
+    scales), (V codes, V scales)) as quantize_kv_bhdt gives them on the
+    (B, H, Dh, Ta) head split, V = f32(v) + v_bias rounded once to v's
+    dtype."""
+    def bhdt(y):
+        B, Ta, D = y.shape
+        return y.reshape(B, Ta, n_head, D // n_head).permute(0, 2, 3, 1)
+    vb = torch.add(v, v_bias.float(), out=torch.empty(
+        v.shape, dtype=torch.float32, device=v.device)).to(v.dtype)
+    return quantize_kv_bhdt(bhdt(k)), quantize_kv_bhdt(bhdt(vb))
+
+
+def cross_kv_quant(k, v, v_bias, n_head: int, out=None):
+    """One decoder layer's cross-K/V from its projection rows to int8: k, v
+    (B, Ta, D) as `F.linear` returns them (v without its bias), v_bias (D,)
+    -> ((K codes (B, H, Dh, Ta) int8, K scales (B, H, Ta) f32), (V codes,
+    V scales)), the bits of cross_kv_quant_ref, written into out = (K
+    codes, K scales, V codes, V scales) when it is given (e.g. layer l's
+    slots of cross_kv_q8's stacks), else into new tensors.
+
+    CPU tensors take the plain version.  CUDA tensors go through the
+    kernel, in one launch for K and V, which takes bf16 rows and heads DH
+    wide, every tensor contiguous, the rows and the f32 bias 16-byte
+    aligned; anything else raises."""
+    B, Ta, D = k.shape
+    H = n_head
+    if k.device.type == "cpu":
+        (kq, ks), (vq, vs) = cross_kv_quant_ref(k, v, v_bias, n_head)
+        if out is None:
+            return (kq, ks), (vq, vs)
+        for dst, src in zip(out, (kq, ks, vq, vs)):
+            dst.copy_(src)
+        return (out[0], out[1]), (out[2], out[3])
+    if k.device.type != "cuda":
+        raise ValueError(f"cross_kv_quant: unsupported device {k.device}")
+    if D != H * DH:
+        raise ValueError(f"cross_kv_quant: rows {D} wide for {H} heads; the "
+                         f"kernel takes heads {DH} wide")
+    if out is None:
+        out = tuple(torch.empty(shape, dtype=dtype, device=k.device)
+                    for _ in range(2)
+                    for shape, dtype in (((B, H, DH, Ta), torch.int8),
+                                         ((B, H, Ta), torch.float32)))
+    expect = {"k": (k, (B, Ta, D), torch.bfloat16, 16),
+              "v": (v, (B, Ta, D), torch.bfloat16, 16),
+              "v_bias": (v_bias, (D,), torch.float32, 16)}
+    for name, x in zip(("k_codes", "k_scales", "v_codes", "v_scales"), out):
+        expect[name] = ((x, (B, H, DH, Ta), torch.int8, 1) if "codes" in name
+                        else (x, (B, H, Ta), torch.float32, 4))
+    _check_operands("cross_kv_quant", k.device, expect)
+    from ._build import library
+    library().call("wtt_cross_kv_quant", k.data_ptr(), v.data_ptr(),
+                   v_bias.data_ptr(), *(x.data_ptr() for x in out), B, H, Ta,
+                   torch._C._cuda_getCurrentRawStream(k.get_device()))
+    cross_kv_quant.launches += 1
+    return (out[0], out[1]), (out[2], out[3])
+
+
+cross_kv_quant.launches = 0
 
 
 def unpack_q4_bhdt(packed: torch.Tensor, dtype=torch.bfloat16):
@@ -200,24 +271,29 @@ def cross_attention_decode_q8_ref(q, k_q, k_s, v_q, v_s):
     return torch.matmul(wv, v_q.float())
 
 
+def _check_operands(fn_name, device, tensors):
+    """Shape, dtype, device, contiguity and alignment of every operand:
+    name -> (tensor, shape, dtype, alignment in bytes)."""
+    for name, (x, shape, dtype, align) in tensors.items():
+        if (tuple(x.shape) != shape or x.dtype != dtype
+                or x.device != device):
+            raise ValueError(
+                f"{fn_name}: {name} is {tuple(x.shape)} {x.dtype} on "
+                f"{x.device}, expected {shape} {dtype} on {device}")
+        if not x.is_contiguous() or x.data_ptr() % align:
+            raise ValueError(f"{fn_name}: {name} must be contiguous and "
+                             f"{align}-byte aligned")
+
+
 def _check(fn_name, q, tensors):
-    """Shape, dtype, device, contiguity and alignment of every operand of
-    K4/K5 (name -> (tensor, shape, dtype, alignment in bytes: 16 where the
-    kernel reads 8 elements at once, 4 for the per-position scales));
-    q must be (B, H, 1, DH) bf16."""
+    """The operands of K4/K5 (alignment 16 where the kernel reads 8
+    elements at once, 4 for the per-position scales); q must be (B, H, 1,
+    DH) bf16."""
     B, H, one, Dh = q.shape
     if one != 1 or Dh != DH:
         raise ValueError(f"{fn_name}: q must be (B, H, 1, {DH}), got "
                          f"{tuple(q.shape)}")
-    for name, (x, shape, dtype, align) in tensors.items():
-        if (tuple(x.shape) != shape or x.dtype != dtype
-                or x.device != q.device):
-            raise ValueError(
-                f"{fn_name}: {name} is {tuple(x.shape)} {x.dtype} on "
-                f"{x.device}, expected {shape} {dtype} on {q.device}")
-        if not x.is_contiguous() or x.data_ptr() % align:
-            raise ValueError(f"{fn_name}: {name} must be contiguous and "
-                             f"{align}-byte aligned")
+    _check_operands(fn_name, q.device, tensors)
 
 
 def _cluster_size(bh: int, ta: int) -> int:
