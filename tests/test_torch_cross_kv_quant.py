@@ -3,10 +3,11 @@ bit for bit, the sequence cross_kv_q8 ran without it (`_make_cross_proj`,
 then `quantize_kv_bhdt` on K and on V) and whisper_tpu's quantize_kv_bhdt,
 on bf16 rows with planted ties and all-zero segments, V's bias, 20 and 10
 heads, Ta 1500 and 750; the wrapper takes the plain version on the CPU and
-launches nothing; and cross_kv_q8 takes the fused path exactly when its
-input is on a card (patched here), the compute dtype is bf16, the layout
-(B, Ta, D), the xk/xv matrices dense and the heads 64 wide, counting
-`cross_kv_fused` once a call.  The kernel itself is compared with the
+launches nothing; and models/whisper.py's one rule (`_kernels`) gives
+cross_kv_q8 the fused path exactly when its input is on a card (patched
+here), the compute dtype is bf16, the layout (B, Ta, D), the xk/xv
+matrices dense and the heads 64 wide, counting `cross_kv_fused` once a
+call.  The kernel itself is compared with the
 plain version on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
 
 import numpy as np

@@ -1,14 +1,14 @@
 """The decode step's fused layers on the CPU: `self_attn_step_ref`
-(ops/decoder_attention.py) is, bit for bit, the sequence the plain step
-runs for it (the q/v bias adds, the cache column writes, the mask and
+(ops/decoder_attention.py) is, bit for bit, the torch sequence written out
+here (the q/v bias adds, the cache column writes, the mask and
 `_cross_attention`), in float32 and in bfloat16; its wrapper takes it on
-the CPU and launches nothing; and `decode_step` takes the fused layers
-exactly when its activations are on a card, the compute dtype and the
-cache are bf16, the matrices are dense and there is no tensor-parallel
-mesh (held with the card test patched and the wrappers recorded), with
-the same logits and cache as the plain step.  The kernels themselves are
-compared with these plain versions on the card (tests/test_torch_gpu.py,
-chip_smoke.py)."""
+the CPU and launches nothing; and models/whisper.py's one rule
+(`_kernels`) gives `decode_step` the kernels exactly when its activations
+are on a card, the compute dtype and the cache are bf16, the matrices are
+dense, the widths fit and there is no tensor-parallel mesh (held with the
+card test patched and the wrappers recorded), with the same logits and
+cache as the plain step.  The kernels themselves are compared with these
+plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
 
 import gc
 
@@ -54,9 +54,12 @@ def _plain_mask(C, kv_len, pad_len):
 @pytest.mark.parametrize("padded", [False, True], ids=["nopad", "pad"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_ref_is_the_steps_sequence(dtype, padded, kv_len):
-    """The plain step's own calls (`_linear` with its bias, the cache
-    writes, `_cross_attention` under the mask) against `self_attn_step_ref`
-    on the q/k/v GEMMs side by side: output, q, v and both caches."""
+    """The step's torch sequence written out (each GEMM in the compute
+    dtype, the q/v biases in f32 with one rounding, the cache writes,
+    `_cross_attention` under the mask) against `self_attn_step_ref` on the
+    q/k/v GEMMs side by side: output, q, v and both caches.  Handed the
+    step's mask, or the GEMMs in f32 with the compute dtype (K3's
+    products), it gives the same bits."""
     cd = dtype
     B, H, Dh, C = 3, 4, 16, 12
     D = H * Dh
@@ -69,24 +72,33 @@ def test_ref_is_the_steps_sequence(dtype, padded, kv_len):
            else None)
     ci = kv_len - 1
 
-    q = wm._split_heads(wm._linear(ln, Ws[0], q_b, cd, cd), H)
-    k = wm._split_heads(wm._linear(ln, Ws[1], None, cd, cd), H)
-    v = wm._split_heads(wm._linear(ln, Ws[2], v_b, cd, cd), H)
+    def linear(W, b=None):
+        y = F.linear(ln, W)
+        if b is not None:
+            y = torch.add(y, b, out=torch.empty(y.shape, dtype=cd))
+        return wm._split_heads(y, H)
+
+    q, k, v = linear(Ws[0], q_b), linear(Ws[1]), linear(Ws[2], v_b)
     kk, vv = (c.clone() for c in caches)
     kk[:, :, :, ci] = k[:, 0].to(kk.dtype)
     vv[:, :, :, ci] = v[:, 0].to(vv.dtype)
     want = wm._cross_attention(q, kk, vv, cd,
                                mask=_plain_mask(C, kv_len, pad)).to(cd)
 
-    qkv = torch.cat([F.linear(ln[:, 0], W) for W in Ws], dim=-1)
-    kc, vc = (c.clone() for c in caches)
-    got = da.self_attn_step_ref(qkv, q_b, v_b, kc, vc, ci, kv_len, pad, H)
-    _eq(got, want[:, 0])
-    _eq(kc, kk)
-    _eq(vc, vv)
-    _eq(qkv[:, :D], q.reshape(B, D))
-    _eq(qkv[:, 2 * D:], v.reshape(B, D))
-    _eq(da.step_mask(C, kv_len, pad, "cpu"), _plain_mask(C, kv_len, pad))
+    mask = da.step_mask(C, kv_len, pad, "cpu")
+    _eq(mask, _plain_mask(C, kv_len, pad))
+    products = torch.cat([F.linear(ln[:, 0], W) for W in Ws], dim=-1)
+    for qkv, kw in ((products.clone(), {}),
+                    (products.clone(), {"mask": mask}),
+                    (products.float(), {"dtype": cd})):
+        kc, vc = (c.clone() for c in caches)
+        got = da.self_attn_step_ref(qkv, q_b, v_b, kc, vc, ci, kv_len, pad,
+                                    H, **kw)
+        _eq(got, want[:, 0])
+        _eq(kc, kk)
+        _eq(vc, vv)
+        _eq(qkv[:, :D], q.reshape(B, D).to(qkv.dtype))
+        _eq(qkv[:, 2 * D:], v.reshape(B, D).to(qkv.dtype))
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_only():
@@ -184,11 +196,12 @@ def _step(params, cfg, cross, group, cd=torch.bfloat16, tp=None,
     ("dense", 1), ("q8e", 1), ("q8e", 2), ("q8i", 1), ("q8i", 2),
     ("q4e", 1), ("bhtd", 1), ("dict", 1)])
 def test_decode_step_dispatch_rule(model, monkeypatch, form, group):
-    """Fused exactly on the card (patched), in bf16, with dense matrices, a
-    bf16 cache and no mesh: each epilogue a layer (ln_cast once a step;
-    no bias_cast before the q8i step, which quantizes an f32 q) and no
-    `_linear`, `_layernorm` or `_gelu`; the same logits and cache, bit for
-    bit, as the plain step, in every cross mode.  f32 compute, a
+    """The one rule: fused exactly on the card (patched), in bf16, with
+    dense matrices, a bf16 cache and no mesh: each epilogue a layer
+    (ln_cast once a step; no bias_cast before the q8i step, which
+    quantizes an f32 q) and no `_linear`, `_layernorm` or `_gelu`; the
+    same logits and cache, bit for bit, as the plain step, in every cross
+    mode.  f32 compute, a
     block-quantized matrix, a mesh, or the CPU itself keep the plain
     sequence."""
     cfg, params = model
@@ -226,33 +239,59 @@ def test_decode_step_dispatch_rule(model, monkeypatch, form, group):
 
 
 def test_fused_rule_reads_the_cache_and_widths(model, monkeypatch):
-    """The predicate itself: False on the CPU; on the (patched) card False
-    for an f32 cache, a non-contiguous cache, heads wider than the kernel
-    takes, f32 compute or a mesh."""
+    """The one rule as decode_step asks it (`decoder_fused` counted, its
+    layers, when it says kernels): no on the CPU; on the (patched) card
+    yes, and no for an f32 cache, a non-contiguous cache, heads wider than
+    the kernel takes, f32 compute or a mesh."""
+    from whisper_tpu_torch.utils.trace import TRACE
     cfg, params = model
-    blocks = params["decoder"]["blocks"]
-    x = torch.zeros(2, 1, cfg.n_text_state)
-    kv = {n: torch.zeros(3, 2, 4, 16, 8, dtype=torch.bfloat16)
-          for n in ("k", "v")}
     bf16 = torch.bfloat16
-    assert not wm._fused_decoder(x, blocks, kv, bf16, None)
+
+    def kernels(params, cfg, cache_dtype=bf16, cd=bf16, tp=None,
+                strided=False):
+        L, H = cfg.n_text_layer, cfg.n_text_head
+        Dh = cfg.n_text_state // H
+        cache = {n: torch.zeros(L, 2, H, Dh, 16, dtype=cache_dtype)
+                 for n in ("k", "v")}
+        cache = {n: c[..., ::2] if strided else c[..., :8].contiguous()
+                 for n, c in cache.items()}
+        kc, vc = (torch.randn(L, 2, H, Dh, 24, generator=_gen(i)).to(cd)
+                  for i in range(2))
+        if tp is not None:
+            params = type("Sharded", (dict,), {})(params)
+            params.mesh = tp
+        TRACE.drain()
+        TRACE.enable()
+        try:
+            wm.decode_step(params, torch.tensor([5, 7]), torch.tensor([3, 4]),
+                           4, cache, kc, vc, kv_len=5, n_head=H,
+                           pad_len=torch.tensor([0, 2]), compute_dtype=cd)
+        finally:
+            TRACE.disable()
+            recs = TRACE.drain()
+        counts = [r.value for r in recs if r.name == "decoder_fused"]
+        assert counts in ([], [L])
+        return counts == [L]
+
+    assert not kernels(params, cfg)
     monkeypatch.setattr(wm, "_on_card", lambda x: True)
-    assert wm._fused_decoder(x, blocks, kv, bf16, None)
-    assert not wm._fused_decoder(x, blocks, kv, torch.float32, None)
-    assert not wm._fused_decoder(x, blocks, kv, bf16, _Mesh())
-    assert not wm._fused_decoder(
-        x, blocks, dict(kv, v=kv["v"].float()), bf16, None)
-    assert not wm._fused_decoder(
-        x, blocks, dict(kv, k=kv["k"].transpose(0, 1)), bf16, None)
-    wide = {n: torch.zeros(3, 2, 1, 128, 8, dtype=bf16) for n in ("k", "v")}
-    assert not wm._fused_decoder(x, blocks, wide, bf16, None)    # Dh 128
+    assert kernels(params, cfg)
+    assert not kernels(params, cfg, cd=torch.float32)
+    assert not kernels(params, cfg, tp=_Mesh())
+    assert not kernels(params, cfg, cache_dtype=torch.float32)
+    assert not kernels(params, cfg, strided=True)
+    # 256 wide in 2 heads: Dh 128
+    wide = wm.WhisperConfig(128, 24, 64, 4, 2, 32, 256, 2, 3, 80)
+    assert not kernels(random_params(wide, seed=3, dtype=bf16, device="cpu"),
+                       wide)
 
 
 def test_fused_layers_are_built_once_a_decoder():
     """The layers' weights are cached for the stacked blocks they came
     from: the same list while nothing changes; rebuilt when a block is
     written in place or replaced; gone with the params.  The matrices are
-    (in, out) views, q/k/v the three weights stacked, the vectors f32."""
+    (in, out) views, q/k/v the three weights stacked, the vectors f32,
+    the same names in every layer."""
     cfg = wm.WhisperConfig(*TINY)
     params = random_params(cfg, seed=4, dtype=torch.bfloat16, device="cpu")
     blocks = params["decoder"]["blocks"]
@@ -264,8 +303,8 @@ def test_fused_layers_are_built_once_a_decoder():
     _eq(layers[1]["qkv_w"].t(), torch.cat([blocks[k][1] for k in
                                            ("q_w", "k_w", "v_w")]))
     _eq(layers[2]["mlp0_w"].t(), blocks["mlp0_w"][2])
-    assert layers[0]["exit_ln_w"] is layers[1]["attn_ln_w"]
-    assert "exit_ln_w" not in layers[-1]
+    assert all(blk.keys() == layers[0].keys() for blk in layers)
+    assert not {"q_w", "k_w", "v_w"} & layers[0].keys()
     assert all(layers[0][k].dtype == torch.float32 and layers[0][k].shape
                == (D,) for k in ("q_b", "attn_ln_w", "mlp_ln_b"))
     blocks["o_b"].add_(0.0)                 # written in place

@@ -1,6 +1,7 @@
 """whisper_tpu_torch's DTW token timestamps against whisper_tpu's: the numpy
 helpers and presets exactly; decode_prompt_cross_qk in dense, q8 and q4
-cross-KV forms (logits and the captured cross-attention within 1e-5);
+cross-KV forms (logits and the captured cross-attention within 1e-5; its
+logits decode_prompt's bit for bit, in f32 and bf16);
 `full` with DTW (n_top_most 2, and a custom head list), and the batched
 DTW pass of BatchTranscriber, t_dtw equal token for token.  A t_dtw that
 differs must come from a DTW step that was a tie within 1e-6 on whisper_tpu's
@@ -80,8 +81,9 @@ def test_backtrace_and_median_filter_equal(shape):
 
 # ---- decode_prompt_cross_qk ------------------------------------------------
 
-@pytest.mark.parametrize("form", ["dense", "q8", "q4"])
-def test_decode_prompt_cross_qk_matches(model_path, form):
+def _cross_qk_inputs(model_path, form):
+    """Both contexts, whisper_tpu's cross-KV of one random mel for 2 rows in
+    `form` on each side, a head selection and 40 random tokens."""
     jctx, tctx = _contexts(model_path)
     cfg = tctx.config
     rng = np.random.RandomState(3)
@@ -102,6 +104,13 @@ def test_decode_prompt_cross_qk_matches(model_path, form):
     aheads = [(0, 1), (2, 3), (2, 0), (1, 2)]
     sel = tdtw.head_select_matrix(aheads, cfg.n_text_layer, cfg.n_text_head)
     toks = rng.randint(0, 50000, size=(2, 40))   # n_text_ctx is 48
+    return jctx, tctx, t_kv, j_kv, sel, toks
+
+
+@pytest.mark.parametrize("form", ["dense", "q8", "q4"])
+def test_decode_prompt_cross_qk_matches(model_path, form):
+    jctx, tctx, t_kv, j_kv, sel, toks = _cross_qk_inputs(model_path, form)
+    cfg = tctx.config
     T = toks.shape[1]
     got_lg, got_qk = twm.decode_prompt_cross_qk(
         tctx.params, torch.from_numpy(toks), torch.arange(T), *t_kv,
@@ -116,6 +125,36 @@ def test_decode_prompt_cross_qk_matches(model_path, form):
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(got_qk.numpy(), np.asarray(want_qk),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", ["dense", "q8", "q4"])
+def test_decode_prompt_cross_qk_is_decode_prompts_pass(model_path, form,
+                                                       dtype):
+    """decode_prompt_cross_qk runs decode_prompt's pass with the
+    cross-attention weights captured (their values against whisper_tpu's
+    are the test above's): its logits are decode_prompt's bit for bit in
+    every cross-KV form and compute dtype, and each selected map is a
+    softmax row over the audio frames."""
+    _, tctx, t_kv, _, sel, toks = _cross_qk_inputs(model_path, form)
+    cfg = tctx.config
+    T = toks.shape[1]
+    args = (tctx.params, torch.from_numpy(toks), torch.arange(T), *t_kv)
+    kw = dict(self_mask=twm.make_causal_mask(T), compute_dtype=dtype)
+    with torch.no_grad():
+        lg, qk = twm.decode_prompt_cross_qk(*args, cfg.n_text_head, sel,
+                                            **kw)
+        want, _, _ = twm.decode_prompt(*args, cfg.n_text_head, **kw)
+    assert lg.dtype == want.dtype == torch.float32
+    assert torch.equal(lg, want)
+    assert qk.dtype == torch.float32
+    assert qk.shape == (cfg.n_text_layer, 2, 2, T, cfg.n_audio_ctx)
+    used = torch.from_numpy(sel).sum(-1) > 0                 # (L, S)
+    sums = qk.sum(-1).permute(0, 2, 1, 3)[used]              # (n, B, T)
+    torch.testing.assert_close(sums, torch.ones_like(sums), atol=1e-5,
+                               rtol=0)
+    assert not qk.permute(0, 2, 1, 3, 4)[~used].any()
 
 
 # ---- t_dtw end to end ------------------------------------------------------

@@ -1,12 +1,13 @@
 """The encoder block's row-wise epilogues (ops/encoder_epilogue.py) on the
-CPU: each plain version is, bit for bit, the torch sequence the block runs
-without the kernels, in float32 and in bfloat16; the wrappers take their
-plain versions on the CPU and launch nothing; and `_encoder_block` takes
-the fused sequence exactly when its activations are on a card, the compute
-dtype is bf16, its matrices are dense and there is no tensor-parallel mesh
-(held here with the card test patched and the wrappers recorded).  The
-kernels themselves are compared with these plain versions on the card
-(tests/test_torch_gpu.py, chip_smoke.py)."""
+CPU: each plain version is, bit for bit, the torch sequence written out
+here (the GEMM in the compute dtype, the bias in f32, one rounding), in
+float32 and in bfloat16; the wrappers take their plain versions on the CPU
+and launch nothing; and models/whisper.py's one rule (`_kernels`) gives an
+encoder block the kernels exactly when its activations are on a card, the
+compute dtype is bf16, its matrices are dense and there is no
+tensor-parallel mesh (held here with the card test patched and the
+wrappers recorded).  The kernels themselves are compared with these plain
+versions on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
 
 import pytest
 
@@ -54,37 +55,52 @@ def _eq(got, want):
     assert torch.equal(got, want)
 
 
+def _layernorm(x, w, b):
+    return F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(),
+                        1e-5)
+
+
+def _linear(a, W, b, cd, out_dtype=torch.float32):
+    """a @ W.T in the compute dtype, plus b in f32, rounded once."""
+    y = F.linear(a.to(cd), W.to(cd))
+    return torch.add(y, b.float(), out=torch.empty(y.shape, dtype=out_dtype))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_plain_version_is_the_blocks_sequence(kernel, dtype):
-    """Each `*_ref` against the block's own torch sequence (models/whisper.py
-    `_layernorm`, `_linear`, `_gelu`), fed the same GEMM output."""
+    """Each `*_ref` against the block's torch sequence written out here,
+    fed the same GEMM output; bias_cast_ref also rounds an f32 product
+    (K3's, an all-reduce's) to the compute dtype it is given."""
     cd = dtype
     x, a, W, W4, b, b4, lw, lb = _inputs(dtype)
     if kernel == "ln_cast":
-        _eq(ee.ln_cast_ref(x, lw, lb, cd), wm._layernorm(x, lw, lb).to(cd))
+        _eq(ee.ln_cast_ref(x, lw, lb, cd), _layernorm(x, lw, lb).to(cd))
     elif kernel == "bias_cast":
-        ln = wm._layernorm(x, lw, lb).to(cd)
+        ln = _layernorm(x, lw, lb).to(cd)
         y0, y1 = (F.linear(ln, w.to(cd)) for w in (W, W.T.contiguous()))
         got = ee.bias_cast_ref((y0, b), (y1, b * 2))
-        _eq(got[0], wm._linear(ln, W, b, cd, cd))
-        _eq(got[1], wm._linear(ln, W.T.contiguous(), b * 2, cd, cd))
+        _eq(got[0], _linear(ln, W, b, cd, cd))
+        _eq(got[1], _linear(ln, W.T.contiguous(), b * 2, cd, cd))
+        y32 = torch.randn(ln.shape, generator=_gen(2))
+        got, = ee.bias_cast_ref((y32, b), dtype=cd)
+        _eq(got, (y32 + b).to(cd))
     elif kernel == "bias_residual_ln":
         y = F.linear(a.to(cd), W.to(cd))
         x2, ln = ee.bias_residual_ln_ref(x, y, b, lw, lb, cd)
-        want = x + wm._linear(a, W, b, cd)
+        want = x + _linear(a, W, b, cd)
         _eq(x2, want)
-        _eq(ln, wm._layernorm(want, lw, lb).to(cd))
+        _eq(ln, _layernorm(want, lw, lb).to(cd))
     elif kernel == "bias_gelu_cast":
         ln = ee.ln_cast_ref(x, lw, lb, cd)
         y = F.linear(ln, W4.to(cd))
         _eq(ee.bias_gelu_cast_ref(y, b4, cd),
-            wm._gelu(wm._linear(ln, W4, b4, cd)).to(cd))
+            F.gelu(_linear(ln, W4, b4, cd), approximate="tanh").to(cd))
     else:
         h = torch.randn(x.shape[0], 4 * x.shape[1], generator=_gen(1))
         y = F.linear(h.to(cd), W4.T.contiguous().to(cd))
         _eq(ee.bias_residual_ref(x, y, b),
-            x + wm._linear(h, W4.T.contiguous(), b, cd))
+            x + _linear(h, W4.T.contiguous(), b, cd))
 
 
 def _launches():
@@ -122,7 +138,7 @@ def block():
     cfg = wm.WhisperConfig(*TINY)
     params = random_params(cfg, seed=3, dtype=torch.bfloat16, device="cpu")
     x = torch.randn(2, cfg.n_audio_ctx, cfg.n_audio_state, generator=_gen(4))
-    return params, wm._layers(params["encoder"]["blocks"])[0], x
+    return params, params["encoder"]["blocks"], x
 
 
 class _Recorder:
@@ -154,26 +170,27 @@ class _Mesh:
 @pytest.mark.parametrize("impl", ["einsum", "pallas", "pallas_btd",
                                   "pallas_pf"])
 def test_block_dispatch_rule(block, monkeypatch, impl):
-    """Fused exactly on the card (patched), in bf16, dense, with no mesh:
-    one call of each wrapper a layer, the same bits as the plain
-    sequence; f32 compute, a block-quantized matrix or a mesh keep the
-    plain sequence, and so does the CPU itself."""
-    params, blk, x = block
-    if impl == "einsum" or impl == "pallas":
-        def run(blk, cd, tp=None):
-            return wm._encoder_block(x, blk, 4, cd, impl, tp)
-    else:
-        fn = wm._PADDED_BLOCKS[impl][0]
-        xp = F.pad(x, (0, 0, 0, 8))
+    """The one rule's ops: the kernels exactly on the card (patched), in
+    bf16, dense, with no mesh: one call of each wrapper a layer, the same
+    bits as the plain sequence; f32 compute, a block-quantized matrix or a
+    mesh keep the plain versions, and so does the CPU itself."""
+    params, blocks, x = block
+    xp = F.pad(x, (0, 0, 0, 8))
 
-        def run(blk, cd, tp=None):
-            return fn(xp, blk, 4, cd, t_valid=x.shape[1], tp=tp)
+    def run(blocks, cd, tp=None):
+        ops = wm._ops(wm._kernels(x, blocks, wm._ENCODER_MATRICES, cd, tp,
+                                  "encoder_fused"), cd)
+        blk = wm._layers(blocks)[0]
+        if impl == "einsum" or impl == "pallas":
+            return wm._encoder_block(x, blk, 4, cd, ops, impl, tp)
+        return wm._PADDED_BLOCKS[impl][0](xp, blk, 4, cd, ops,
+                                          t_valid=x.shape[1], tp=tp)
 
     rec = _Recorder(monkeypatch)
-    plain = run(blk, torch.bfloat16)
+    plain = run(blocks, torch.bfloat16)
     assert sum(rec.calls.values()) == 0               # the CPU
     monkeypatch.setattr(wm, "_on_card", lambda x: True)
-    fused = run(blk, torch.bfloat16)
+    fused = run(blocks, torch.bfloat16)
     assert rec.calls == {"ln_cast": 0 if impl == "pallas_pf" else 1,
                          "bias_cast": 0 if impl == "pallas_pf" else 1,
                          "bias_residual_ln": 1, "bias_gelu_cast": 1,
@@ -181,15 +198,16 @@ def test_block_dispatch_rule(block, monkeypatch, impl):
     _eq(fused, plain)
 
     n = dict(rec.calls)
-    run(blk, torch.float32)
-    # a block-quantized mlp0 ({"q": (K, N) int8 codes, "s": (K/32, N)})
-    D = x.shape[-1]
-    packed = dict(blk, mlp0_w={
-        "q": torch.randint(-8, 8, (D, 4 * D), dtype=torch.int8,
+    run(blocks, torch.float32)
+    # a block-quantized mlp0 ({"q": (L, K, N) int8 codes, "s": (L, K/32,
+    # N)})
+    L, D = blocks["q_w"].shape[0], x.shape[-1]
+    packed = dict(blocks, mlp0_w={
+        "q": torch.randint(-8, 8, (L, D, 4 * D), dtype=torch.int8,
                            generator=_gen(5)),
-        "s": torch.full((D // 32, 4 * D), 1e-2)})
+        "s": torch.full((L, D // 32, 4 * D), 1e-2)})
     run(packed, torch.bfloat16)
-    run(blk, torch.bfloat16, _Mesh())
+    run(blocks, torch.bfloat16, _Mesh())
     assert rec.calls == n
 
 

@@ -333,14 +333,18 @@ def test_k3_rounds_x_itself(gen, K, N, M, mins):
 @pytest.mark.parametrize("M", [1, 4, 232])
 def test_linear_packed_passes_x_uncast(gen, M):
     """`_linear` over a packed weight hands x to K3 uncast: the same bits
-    as K3 on x cast to the compute dtype first, plus the bias."""
+    as K3 on x cast to the compute dtype first, and the bias added by the
+    epilogue's plain version then gives the same sum."""
+    from whisper_tpu_torch.ops import encoder_epilogue as ee
     codes, scales, offs = _packed(gen, 768, 3072, True)
     x = torch.randn(M, 1, 768, generator=gen, device="cuda")
     b = torch.randn(3072, generator=gen, device="cuda")
     w = {"q": codes, "s": scales, "m": offs}
     for cd in (torch.bfloat16, torch.float32):
-        got = wm._linear(x, w, b, cd)
+        got = wm._linear(x, w, cd)
         y = qm.quantized_matmul(x[:, 0].to(cd), codes, scales, offs)
+        assert torch.equal(got, y[:, None])
+        got, = ee.bias_cast_ref((got, b), dtype=torch.float32)
         assert torch.equal(got, (y + b)[:, None])
 
 
@@ -743,13 +747,15 @@ def test_attention_kernel_is_deterministic(gen, entry):
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_linear_bias_add_rounds_once_on_card(gen, out_dtype):
-    """The encoder's projections: the bf16 product widened, plus the f32
-    bias, rounded once to out_dtype in the add, bit for bit what a
-    separate widening, add and cast give."""
+    """The plain block's projections (`_linear`, then bias_cast_ref): the
+    bf16 product widened, plus the f32 bias, rounded once to out_dtype in
+    the add, bit for bit what a separate widening, add and cast give."""
+    from whisper_tpu_torch.ops import encoder_epilogue as ee
     x = torch.randn(300, 256, generator=gen, device="cuda")
     w = _bf16_randn(gen, 384, 256)
     b = torch.randn(384, generator=gen, device="cuda")
-    got = wm._linear(x, w, b, torch.bfloat16, out_dtype)
+    got, = ee.bias_cast_ref((wm._linear(x, w, torch.bfloat16), b),
+                            dtype=out_dtype)
     y = torch.nn.functional.linear(x.to(torch.bfloat16), w)
     assert got.dtype == out_dtype
     assert torch.equal(got, (y.float() + b).to(out_dtype))
@@ -1321,11 +1327,11 @@ def test_epilogue_kernels_match_plain_on_card(gen, kernel, D):
 def test_encode_fused_epilogues_on_card(gen, monkeypatch):
     """One encode at large-v3's widths (1280, 20 heads, 128 mels) cut to 4
     layers, B 2: the fused sequence against the plain one on the card
-    (`_on_card` patched off), within TOL (bf16 with one-ulp layernorm
-    differences carried through 4 layers; it read 5.3e-3 on an H100 80GB
-    HBM3); each kernel launched once
-    a layer, and neither `_linear` nor the plain GELU or layernorm run in
-    the blocks."""
+    (`_on_card` patched off, so the one rule `_kernels` says plain), within
+    TOL (bf16 with one-ulp layernorm differences carried through 4 layers;
+    it read 5.3e-3 on an H100 80GB HBM3); each kernel launched once a
+    layer, the six products a layer through `_linear` either way, and
+    neither the plain GELU nor the plain layernorm run in the blocks."""
     from whisper_tpu_torch.ops import encoder_epilogue as ee
     from whisper_tpu_torch.weights.convert import random_params
     dims = list(wm.MODEL_DIMS["large-v3"])
@@ -1349,10 +1355,12 @@ def test_encode_fused_epilogues_on_card(gen, monkeypatch):
         assert {k: getattr(ee, k).launches - n[k] for k in names} == \
             dict.fromkeys(names, cfg.n_audio_layer)
         # the conv stem's two GELUs and ln_post
-        assert calls == {"_linear": 0, "_gelu": 2, "_layernorm": 1}
+        assert calls == {"_linear": 6 * cfg.n_audio_layer, "_gelu": 2,
+                         "_layernorm": 1}
         monkeypatch.setattr(wm, "_on_card", lambda x: False)
         plain = wm.encode(params, mel, n_head=cfg.n_audio_head)
-    assert calls["_linear"] == 6 * cfg.n_audio_layer
+    assert calls == {"_linear": 12 * cfg.n_audio_layer, "_gelu": 4,
+                     "_layernorm": 2}
     err = _rel_err(fused, plain)
     print(f"encode fused vs plain, large-v3 widths x 4 layers: rel {err:.3e}")
     assert err <= TOL
@@ -1479,7 +1487,8 @@ def test_self_attn_step_matches_plain_on_card(gen, B, padded):
 def test_decode_step_fused_on_card(gen, monkeypatch):
     """large-v3's decoder (32 layers, 1280 wide, 20 heads) at B 16 over
     int8 cross-KV (K2): a 68-token prompt (pads 0-4), then 10 steps fused
-    and plain (`_on_card` patched off) from the same cache, teacher-forced
+    and plain (`_on_card` patched off, so the one rule `_kernels` says
+    plain) from the same cache, teacher-forced
     with the same tokens: the logits within TOL of the plain ones at every
     step (bf16 with one-ulp layernorm and rounding-flip differences
     through 32 layers; the reading is printed); each kernel launched once

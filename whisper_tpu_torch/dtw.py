@@ -227,13 +227,12 @@ def dtw_stamp_segments(ctx, qk_row, aheads, T: int, sot_len: int, seek: int,
 def dtw_cross_qk(ctx, toks: np.ndarray, kc, vc, sel: np.ndarray):
     """Teacher-forced cross-QK capture for a (B, T_pad) token batch ->
     (L, B, S, T_pad, Ta) float32 numpy.  The quantized cross modes' untagged
-    (codes, scales) pairs are tagged "q8" / "q4" first, as whisper_tpu's
-    jitted capture tags them."""
+    (codes, scales) pairs are tagged "q8" / "q4" first, as the prompt pass
+    tags them (decode/loop.py prompt_cross_kv) and whisper_tpu's jitted
+    capture does."""
+    from .decode.loop import prompt_cross_kv
     from .models import whisper as wm
-    if not isinstance(kc, torch.Tensor):
-        tag = "q4" if ctx.cross_mode == "einsum_q4" else "q8"
-        kc = (tag,) + tuple(kc)
-        vc = (tag,) + tuple(vc)
+    kc, vc = prompt_cross_kv(ctx.cross_mode, kc, vc)
     T = toks.shape[1]
     dev = ctx.device
     with torch.no_grad():

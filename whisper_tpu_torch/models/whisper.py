@@ -9,15 +9,17 @@ its output to bf16 before the cast: the bf16 parity bounds cover that.
 
 Kernels: the encoder's self-attention runs through K1 (`attn_impl`
 "pallas", "pallas_dt", "pallas_pf", "flash") or K6 ("pallas_btd")
-(ops/encoder_attention.py), and on the card in bf16 the elementwise passes
-between an encoder block's GEMMs through ops/encoder_epilogue.py
-(`_fused_epilogues`); on the card in bf16 a decode step's layers through
-those epilogues and one self-attention kernel over the KV cache
-(ops/decoder_attention.py, `_fused_decoder`); on the card in bf16 the
-int8 cross-KV of `cross_kv_q8` through one quantizing pass a layer
-(`cross_kv_quant` of ops/cross_attention.py, `_fused_cross_kv`);
-block-quantized decoder weights through K3 (ops/quantized.py); the decode
-step's cross-attention
+(ops/encoder_attention.py).  One rule, `_kernels`, decides for an encode,
+a decode step and a `cross_kv_q8` call whether the hand-written kernels
+run or their plain versions, which make the same roundings: the kernels on
+the card in bf16 with dense matrices and no mesh.  Then the elementwise
+passes between the GEMMs of an encoder block and of a decoder layer go
+through the row-wise epilogues of ops/encoder_epilogue.py (`_ops`), a
+decode step's self-attention through one kernel over its KV cache
+(ops/decoder_attention.py), and the int8 cross-KV of `cross_kv_q8` through
+one quantizing pass a layer (`cross_kv_quant` of ops/cross_attention.py).
+Block-quantized decoder weights go through K3 (ops/quantized.py); the
+decode step's cross-attention
 through K2 on "q8e" and "q8dt", K4 on ("bhtd", K/V) and K5 on {"q", "s"}
 (ops/cross_attention.py).  The "q8i" and "q4e" steps and the dense einsum
 are plain torch, as whisper_tpu leaves them to XLA.  `*_interpret`
@@ -36,6 +38,8 @@ without a mesh, or on a mesh of one "model" rank, run no collective.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
 import weakref
 
 import torch
@@ -51,9 +55,13 @@ from ..ops.encoder_attention import (BLOCK_Q, encoder_attention,
                                      encoder_attention_btd_ref,
                                      encoder_attention_ref, self_attention,
                                      self_attention_ref)
-from ..ops.decoder_attention import MAX_DH, self_attn_step, step_mask
-from ..ops.encoder_epilogue import (MAX_LN_WIDTH, bias_cast, bias_gelu_cast,
-                                    bias_residual, bias_residual_ln, ln_cast)
+from ..ops.decoder_attention import (MAX_DH, self_attn_step,
+                                     self_attn_step_ref, step_mask)
+from ..ops.encoder_epilogue import (MAX_LN_WIDTH, bias_cast, bias_cast_ref,
+                                    bias_gelu_cast, bias_gelu_cast_ref,
+                                    bias_residual, bias_residual_ln,
+                                    bias_residual_ln_ref, bias_residual_ref,
+                                    ln_cast, ln_cast_ref)
 from ..ops.quantized import quantized_matmul
 from ..utils.trace import TRACE
 
@@ -140,32 +148,22 @@ def _partial_f32(x, w, compute_dtype):
     return F.linear(x.to(compute_dtype).float(), w.to(compute_dtype).float())
 
 
-def _linear(x, w, b=None, compute_dtype=torch.bfloat16,
-            out_dtype=torch.float32, tp=None):
-    """x @ w.T (+ b) -> out_dtype: the product in the compute dtype, plus
-    the bias in float32, rounded once to out_dtype.  out_dtype = the
-    compute dtype gives what a following `.float().to(compute_dtype)`
-    would, in one kernel (the bias add casts on its way out).  tp: the
-    mesh of a row-parallel w (this rank's in-features): the f32 partial
-    products are summed over "model" before the bias."""
+def _linear(x, w, compute_dtype=torch.bfloat16, tp=None):
+    """x @ w.T, the product alone (its bias add is an epilogue op's): in
+    the compute dtype for a dense w; in f32 from K3 for a block-quantized
+    one; for a row-parallel w under tp (this rank's in-features) the f32
+    partial products summed over "model"."""
     if tp is not None:
-        y = tp.all_reduce(_partial_f32(x, w, compute_dtype))
-    elif isinstance(w, dict):
+        return tp.all_reduce(_partial_f32(x, w, compute_dtype))
+    if isinstance(w, dict):
         # block-quantized weight {"q": (K, N) int8, "s": (K/32, N)[, "m"]}
         # -> K3, which rounds x to bf16 itself whatever the compute dtype
         # (so x goes in uncast: a cast to bf16 or f32 first changes no bit)
-        # and returns f32
         shape = x.shape
         y = quantized_matmul(x.reshape(-1, shape[-1]), w["q"], w["s"],
                              w.get("m"))
-        y = y.reshape(shape[:-1] + (w["q"].shape[-1],))
-    else:
-        y = F.linear(x.to(compute_dtype), w.to(compute_dtype))
-    if b is None:
-        return y.to(out_dtype)
-    # float32 sum of the (exact) widened product and bias, then one rounding
-    return torch.add(y, b.float(), out=torch.empty(
-        y.shape, dtype=out_dtype, device=y.device))
+        return y.reshape(shape[:-1] + (w["q"].shape[-1],))
+    return F.linear(x.to(compute_dtype), w.to(compute_dtype))
 
 
 def _gelu(x):
@@ -233,56 +231,68 @@ def _on_card(x) -> bool:
     return x.device.type == "cuda"
 
 
-def _fused_epilogues(x, blk, compute_dtype, tp) -> bool:
-    """Whether an encoder block runs the passes between its GEMMs through
-    the row-wise kernels of ops/encoder_epilogue.py: activations on a CUDA
-    card, bf16 compute, dense matrices and no tensor-parallel mesh (whose
-    o and mlp2 outputs are all-reduced f32 partial sums).  Otherwise the
-    block runs the plain torch sequence; both make the same roundings."""
-    return (_on_card(x) and compute_dtype == torch.bfloat16 and tp is None
-            and all(isinstance(blk[k], torch.Tensor)
-                    for k in _ENCODER_MATRICES))
+def _kernels(x, blocks, matrices, compute_dtype, tp, counter: str,
+             takes: bool = True) -> bool:
+    """The one kernel-or-plain rule of an encode, a decode step and a
+    cross_kv_q8 call: the hand-written kernels for activations x on a CUDA
+    card, bf16 compute, the stacked `blocks`' `matrices` dense and no
+    tensor-parallel mesh tp (whose row-parallel products are all-reduced
+    f32 partial sums), where `takes`: the caller's widths, layout and
+    cache as its kernels take them.  Otherwise the plain versions, which
+    make the same roundings.  A yes is counted under `counter`, as the
+    blocks' layers."""
+    use = (takes and _on_card(x) and compute_dtype == torch.bfloat16
+           and tp is None
+           and all(isinstance(blocks[k], torch.Tensor) for k in matrices))
+    if use:
+        TRACE.count(counter, blocks[matrices[0]].shape[0])
+    return use
 
 
-def _qkv(x, blk, cd, fused: bool):
+def _ops(kernels: bool, compute_dtype):
+    """The five epilogue ops of ops/encoder_epilogue.py: the kernels, or
+    their plain versions rounding to the compute dtype."""
+    if kernels:
+        return types.SimpleNamespace(
+            ln_cast=ln_cast, bias_cast=bias_cast,
+            bias_residual_ln=bias_residual_ln, bias_gelu_cast=bias_gelu_cast,
+            bias_residual=bias_residual)
+    cd = compute_dtype
+    return types.SimpleNamespace(
+        ln_cast=functools.partial(ln_cast_ref, dtype=cd),
+        bias_cast=functools.partial(bias_cast_ref, dtype=cd),
+        bias_residual_ln=functools.partial(bias_residual_ln_ref, dtype=cd),
+        bias_gelu_cast=functools.partial(bias_gelu_cast_ref, dtype=cd),
+        bias_residual=bias_residual_ref)
+
+
+def _qkv(x, blk, cd, ops):
     """The block's entry: the attention layernorm, rounded to the compute
     dtype once for the three projections, whose results come out in it
     (every attention impl casts q/k/v to it first) -> (B, T, D) each."""
-    if fused:
-        ln = ln_cast(x, blk["attn_ln_w"].float(), blk["attn_ln_b"].float())
-        q, k, v = (F.linear(ln, blk[w].to(cd)) for w in ("q_w", "k_w", "v_w"))
-        q, v = bias_cast((q, blk["q_b"].float()), (v, blk["v_b"].float()))
-        return q, k, v
-    ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"]).to(cd)
-    return (_linear(ln, blk["q_w"], blk["q_b"], cd, cd),
-            _linear(ln, blk["k_w"], None, cd, cd),        # K has no bias
-            _linear(ln, blk["v_w"], blk["v_b"], cd, cd))
+    ln = ops.ln_cast(x, blk["attn_ln_w"].float(), blk["attn_ln_b"].float())
+    q, k, v = (_linear(ln, blk[w], cd) for w in ("q_w", "k_w", "v_w"))
+    q, v = ops.bias_cast((q, blk["q_b"].float()), (v, blk["v_b"].float()))
+    return q, k.to(cd), v                                  # K has no bias
 
 
-def _out_mlp(x, attn, blk, cd, tp, fused: bool):
+def _out_mlp(x, attn, blk, cd, tp, ops):
     """x + the attention's output projection, then + the MLP's: the
     residual stream in f32, each product's operands in the compute
     dtype."""
-    if fused:
-        y = F.linear(attn.to(cd), blk["o_w"].to(cd))
-        x, ln = bias_residual_ln(x, y, blk["o_b"].float(),
-                                 blk["mlp_ln_w"].float(),
-                                 blk["mlp_ln_b"].float())
-        h = bias_gelu_cast(F.linear(ln, blk["mlp0_w"].to(cd)),
+    x, ln = ops.bias_residual_ln(
+        x, _linear(attn, blk["o_w"], cd, tp), blk["o_b"].float(),
+        blk["mlp_ln_w"].float(), blk["mlp_ln_b"].float())
+    h = ops.bias_gelu_cast(_linear(ln, blk["mlp0_w"], cd),
                            blk["mlp0_b"].float())
-        return bias_residual(x, F.linear(h, blk["mlp2_w"].to(cd)),
+    return ops.bias_residual(x, _linear(h, blk["mlp2_w"], cd, tp),
                              blk["mlp2_b"].float())
-    x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
-    ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
-    h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-    return x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
 
 
-def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum",
+def _encoder_block(x, blk, n_head, compute_dtype, ops, attn_impl="einsum",
                    tp=None):
-    fused = _fused_epilogues(x, blk, compute_dtype, tp)
     q, k, v = (_split_heads(t, n_head)
-               for t in _qkv(x, blk, compute_dtype, fused))
+               for t in _qkv(x, blk, compute_dtype, ops))
     if attn_impl == "pallas":
         attn = self_attention(q, k, v, compute_dtype)
     elif attn_impl == "pallas_interpret":
@@ -293,7 +303,7 @@ def _encoder_block(x, blk, n_head, compute_dtype, attn_impl="einsum",
         attn = _attention(q, k, v, compute_dtype=compute_dtype)
     else:
         raise ValueError(f"unknown encoder attn_impl {attn_impl!r}")
-    return _out_mlp(x, attn, blk, compute_dtype, tp, fused)
+    return _out_mlp(x, attn, blk, compute_dtype, tp, ops)
 
 
 def _layernorm_dt(x, w, b, eps: float = 1e-5):
@@ -314,13 +324,14 @@ def _linear_dt(x, w, b=None, compute_dtype=torch.bfloat16, tp=None):
     return y
 
 
-def _encoder_block_dt(x, blk, n_head, compute_dtype, t_valid: int,
+def _encoder_block_dt(x, blk, n_head, compute_dtype, ops, t_valid: int,
                       interpret: bool = False, tp=None):
     """Encoder layer on (B, D, Tp) channels-first activations: the QKV
     projections emit (B, D, Tp), the head split to (B, H, Dh, Tp) is a
     reshape, and K1's Dh-major entry reads that layout as it lies.  Pad
     columns past t_valid carry garbage, are masked as keys and are sliced
-    off by encode()."""
+    off by encode().  Its own plain sequence, channels first: ops is
+    unused."""
     B, _, Tp = x.shape
     attn_fn = encoder_attention_ref if interpret else encoder_attention
     ln = _layernorm_dt(x, blk["attn_ln_w"], blk["attn_ln_b"])
@@ -340,7 +351,7 @@ def _encoder_block_dt(x, blk, n_head, compute_dtype, t_valid: int,
                           tp=tp)
 
 
-def _encoder_block_pf(x, blk, n_head, compute_dtype, t_valid: int,
+def _encoder_block_pf(x, blk, n_head, compute_dtype, ops, t_valid: int,
                       interpret: bool = False, tp=None):
     """Projection-fused encoder layer: the residual stays (B, Tp, D), the
     QKV projections emit K1's (B, H, Dh, Tp) directly, and the output
@@ -357,20 +368,18 @@ def _encoder_block_pf(x, blk, n_head, compute_dtype, t_valid: int,
     attn = attn_fn(proj_ht(blk["q_w"], blk["q_b"]), proj_ht(blk["k_w"], None),
                    proj_ht(blk["v_w"], blk["v_b"]), t_valid)
     return _out_mlp(x, attn.reshape(B, -1, Tp).transpose(1, 2), blk,
-                    compute_dtype, tp,
-                    _fused_epilogues(x, blk, compute_dtype, tp))
+                    compute_dtype, tp, ops)
 
 
-def _encoder_block_btd(x, blk, n_head, compute_dtype, t_valid: int,
+def _encoder_block_btd(x, blk, n_head, compute_dtype, ops, t_valid: int,
                        interpret: bool = False, tp=None):
     """Transpose-free encoder layer: K6 reads the projections' natural
     (B, Tp, D) output, each head the Dh-wide column slice of a row."""
     attn_fn = encoder_attention_btd_ref if interpret else \
         encoder_attention_btd
-    fused = _fused_epilogues(x, blk, compute_dtype, tp)
-    q, k, v = _qkv(x, blk, compute_dtype, fused)
+    q, k, v = _qkv(x, blk, compute_dtype, ops)
     attn = attn_fn(q, k, v, n_head, t_valid)
-    return _out_mlp(x, attn, blk, compute_dtype, tp, fused)
+    return _out_mlp(x, attn, blk, compute_dtype, tp, ops)
 
 
 # padded whole-stack variants: impl -> (block fn, channels first)
@@ -422,9 +431,9 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
     layers = _layers(enc["blocks"])
     tp = _model_axis(params)
     n_head = _local_heads(enc["blocks"]["q_w"], n_head)
-    if base != "pallas_dt" and _fused_epilogues(x, layers[0], compute_dtype,
-                                                tp):
-        TRACE.count("encoder_fused", len(layers))
+    ops = _ops(_kernels(x, enc["blocks"], _ENCODER_MATRICES, compute_dtype,
+                        tp, "encoder_fused", takes=base != "pallas_dt"),
+               compute_dtype)
 
     if base in _PADDED_BLOCKS:
         block_fn, channels_first = _PADDED_BLOCKS[base]
@@ -434,7 +443,7 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
         if channels_first:
             x = x.transpose(1, 2)                           # (B, D, Tp)
         for blk in layers:
-            x = block_fn(x, blk, n_head, compute_dtype, t_valid=n_ctx,
+            x = block_fn(x, blk, n_head, compute_dtype, ops, t_valid=n_ctx,
                          interpret=interpret, tp=tp)
         if channels_first:
             x = x[..., :n_ctx]
@@ -444,7 +453,8 @@ def encode(params, mel, n_head: int, compute_dtype=torch.bfloat16,
         return _layernorm(x[:, :n_ctx], enc["ln_post_w"], enc["ln_post_b"])
 
     for blk in layers:
-        x = _encoder_block(x, blk, n_head, compute_dtype, attn_impl, tp)
+        x = _encoder_block(x, blk, n_head, compute_dtype, ops, attn_impl,
+                           tp)
     return _layernorm(x, enc["ln_post_w"], enc["ln_post_b"])
 
 
@@ -475,8 +485,9 @@ def _make_cross_proj(params, enc_out, n_head: int, compute_dtype,
         raise ValueError(f"unknown enc_layout {enc_layout!r}")
 
     def proj(blk):
-        k = _linear(enc_out, blk["xk_w"], None, cd)
-        v = _linear(enc_out, blk["xv_w"], blk["xv_b"], cd)
+        k = _linear(enc_out, blk["xk_w"], cd)
+        v, = bias_cast_ref((_linear(enc_out, blk["xv_w"], cd), blk["xv_b"]),
+                           dtype=torch.float32)
         # (B, Ta, H, Dh) -> (B, H, Dh, Ta)
         return (_split_heads(k, n_head).permute(0, 2, 3, 1).to(cd),
                 _split_heads(v, n_head).permute(0, 2, 3, 1).to(cd))
@@ -512,20 +523,6 @@ def cross_kv(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
     return kc, vc
 
 
-def _fused_cross_kv(params, enc_out, n_head: int, compute_dtype,
-                    enc_layout: str) -> bool:
-    """Whether cross_kv_q8 quantizes each layer through cross_kv_quant:
-    enc_out on a CUDA card in the (B, Ta, D) layout, bf16 compute, dense
-    xk/xv matrices and heads DH wide (every Whisper).  Otherwise it runs
-    the plain torch sequence; both give the same bits."""
-    blocks = params["decoder"]["blocks"]
-    return (_on_card(enc_out) and compute_dtype == torch.bfloat16
-            and enc_layout == "btd"
-            and all(isinstance(blocks[k], torch.Tensor)
-                    for k in ("xk_w", "xv_w"))
-            and blocks["xk_w"].shape[-1] == n_head * DH)
-
-
 def _cross_kv_q8_fused(params, enc_out, n_head: int):
     """cross_kv_q8 on the card: each layer's two bf16 products, then one
     launch writes their codes and scales into the layer's slots of the
@@ -542,11 +539,10 @@ def _cross_kv_q8_fused(params, enc_out, n_head: int):
     scales = [torch.empty((L, B, H, Ta), dtype=torch.float32,
                           device=x.device) for _ in range(2)]
     for l, blk in enumerate(layers):
-        cross_kv_quant(F.linear(x, blk["xk_w"].to(cd)),
-                       F.linear(x, blk["xv_w"].to(cd)), blk["xv_b"].float(),
+        cross_kv_quant(_linear(x, blk["xk_w"], cd),
+                       _linear(x, blk["xv_w"], cd), blk["xv_b"].float(),
                        H, out=(codes[0][l], scales[0][l], codes[1][l],
                                scales[1][l]))
-    TRACE.count("cross_kv_fused", L)
     return (codes[0], scales[0]), (codes[1], scales[1])
 
 
@@ -555,8 +551,13 @@ def cross_kv_q8(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
     """enc_out -> ((L, B, H, Dh, Ta) int8 codes, (L, B, H, Ta) f32 scales)
     for K and for V.  Each layer is projected and quantized before the
     next, so the bf16 (L, B, H, Dh, Ta) stack never exists in device
-    memory; on the card in bf16 in one pass a layer (`_fused_cross_kv`)."""
-    if _fused_cross_kv(params, enc_out, n_head, compute_dtype, enc_layout):
+    memory.  Where `_kernels` says so, in one pass a layer: the kernel
+    takes the (B, Ta, D) layout and heads DH wide (every Whisper); the
+    mesh is not asked, as xk and xv are column-parallel."""
+    if _kernels(enc_out, params["decoder"]["blocks"], ("xk_w", "xv_w"),
+                compute_dtype, None, "cross_kv_fused",
+                takes=(enc_layout == "btd"
+                       and enc_out.shape[-1] == n_head * DH)):
         return _cross_kv_q8_fused(params, enc_out, n_head)
     proj = _make_cross_proj(params, enc_out, n_head, compute_dtype,
                             enc_layout)
@@ -579,15 +580,18 @@ def cross_kv_q4(params, enc_out, n_head: int, compute_dtype=torch.bfloat16,
     return (kq, ks), (vq, vs)
 
 
-def _cross_attention(xq, kc, vc, compute_dtype, mask=None):
+def _cross_attention(xq, kc, vc, compute_dtype, mask=None, keep=None):
     """Attention with keys/values in (B, H, Dh, T) layout;
-    xq (B, Tq, H, Dh).  Returns merged (B, Tq, D)."""
+    xq (B, Tq, H, Dh).  Returns merged (B, Tq, D).  keep: called with the
+    f32 softmax weights (B, H, Tq, T) (DTW's alignment signal)."""
     dh = xq.shape[-1]
     qh = xq.to(compute_dtype).transpose(1, 2)               # (B, H, Tq, Dh)
     qk = torch.matmul(qh, kc.to(compute_dtype)).float() * (dh ** -0.5)
     if mask is not None:
         qk = qk + mask
     w = torch.softmax(qk, dim=-1)
+    if keep is not None:
+        keep(w)
     out = torch.matmul(w.to(compute_dtype),
                        vc.to(compute_dtype).transpose(-1, -2)).float()
     return _merge_heads(out.transpose(1, 2))
@@ -633,6 +637,92 @@ def _logits(x, tok_emb, compute_dtype, tp):
     return logits if tp is None else tp.all_gather(logits, dim=-1)
 
 
+def _plain_mm(compute_dtype, tp):
+    """The plain decoder layer's products (a, w) -> a @ w.T: `_linear` for
+    the column-parallel q, xq and mlp0, and for the row-parallel o, xo and
+    mlp2 `_linear` all-reduced under tp."""
+    return (functools.partial(_linear, compute_dtype=compute_dtype),
+            functools.partial(_linear, compute_dtype=compute_dtype, tp=tp))
+
+
+def _exit_norms(dec, layers) -> list:
+    """Each layer's exit layernorm (w, b): the next layer's entry one, the
+    last layer's the decoder's final one."""
+    return ([(nxt["attn_ln_w"], nxt["attn_ln_b"]) for nxt in layers[1:]]
+            + [(dec["ln_w"].float(), dec["ln_b"].float())])
+
+
+def _decoder_layer(x, ln, blk, ops, mm, self_attn, cross_attn, exit_ln,
+                   q_f32: bool = False):
+    """One decoder layer from its entry layernorm ln (the compute dtype):
+    the self-attention and o, the cross-attention and xo, then the MLP,
+    each product's epilogue an op of `ops` (the residual stream in f32),
+    the last one carrying the exit layernorm exit_ln (w, b) -> (x, that
+    layernorm).  mm: the products (a, w) by a column-parallel and by a
+    row-parallel matrix of blk; self_attn(ln) and cross_attn(q) are the
+    caller's attentions.  q_f32: q gets its bias in f32 with no rounding
+    (the q8i step quantizes an f32 q)."""
+    col, row = mm
+    x, ln = ops.bias_residual_ln(x, row(self_attn(ln), blk["o_w"]),
+                                 blk["o_b"], blk["xattn_ln_w"],
+                                 blk["xattn_ln_b"])
+    q = (col(ln, blk["xq_w"]), blk["xq_b"])
+    q, = (bias_cast_ref(q, dtype=torch.float32) if q_f32
+          else ops.bias_cast(q))
+    x, ln = ops.bias_residual_ln(x, row(cross_attn(q), blk["xo_w"]),
+                                 blk["xo_b"], blk["mlp_ln_w"],
+                                 blk["mlp_ln_b"])
+    h = ops.bias_gelu_cast(col(ln, blk["mlp0_w"]), blk["mlp0_b"])
+    return ops.bias_residual_ln(x, row(h, blk["mlp2_w"]), blk["mlp2_b"],
+                                *exit_ln)
+
+
+def _prompt_pass(params, tokens, positions, k_cross, v_cross, n_head: int,
+                 self_mask, compute_dtype, entry: str, keep=None):
+    """The decoder on a token block, for decode_prompt and
+    decode_prompt_cross_qk (`entry`, for errors): the plain versions on
+    every device.  keep(l, w): layer l's cross-attention weights.
+    -> (logits (B, T, n_vocab), each layer's k and v (B, T, H, Dh) f32)."""
+    tagged = isinstance(k_cross, tuple)
+    if tagged and k_cross[0] not in ("q8", "q4", "q4e"):
+        raise ValueError(f"{entry}: unknown cross-KV tag {k_cross[0]!r}")
+    dec = params["decoder"]
+    layers = _layers(dec["blocks"])
+    nh = _local_heads(dec["blocks"]["q_w"], n_head)
+    cd = compute_dtype
+    tp = _model_axis(params)
+    ops, mm = _ops(False, cd), _plain_mm(cd, tp)
+    ks, vs = [], []
+
+    def self_attn(blk, ln):
+        q, k, v = (_linear(ln, blk[w], cd) for w in ("q_w", "k_w", "v_w"))
+        # the pass returns its keys and values in f32
+        q, v = bias_cast_ref((q, blk["q_b"]), (v, blk["v_b"]),
+                             dtype=torch.float32)
+        q, k, v = (_split_heads(t, nh) for t in (q, k.float(), v))
+        ks.append(k)
+        vs.append(v)
+        return _attention(q, k, v, self_mask, cd)
+
+    def cross_attn(l, kc, vc, q):
+        return _cross_attention(_split_heads(q, nh), kc, vc, cd,
+                                keep=keep and functools.partial(keep, l))
+
+    x = _embed(dec, tokens, positions, tp)
+    ln = ops.ln_cast(x, layers[0]["attn_ln_w"], layers[0]["attn_ln_b"])
+    for l, (blk, exit_ln) in enumerate(zip(layers, _exit_norms(dec, layers))):
+        if tagged:
+            kc = _dequant(k_cross[0], k_cross[1][l], k_cross[2][l], cd)
+            vc = _dequant(v_cross[0], v_cross[1][l], v_cross[2][l], cd)
+        else:
+            kc, vc = k_cross[l], v_cross[l]
+        x, ln = _decoder_layer(x, ln, blk, ops, mm,
+                               functools.partial(self_attn, blk),
+                               functools.partial(cross_attn, l, kc, vc),
+                               exit_ln)
+    return _logits(ln, dec["tok_emb"], cd, tp), ks, vs
+
+
 def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
                   self_mask=None, compute_dtype=torch.bfloat16):
     """Parallel decode of a token block (prompt processing).
@@ -645,46 +735,10 @@ def decode_prompt(params, tokens, positions, k_cross, v_cross, n_head: int,
     self_mask: additive mask broadcastable to (B, 1, T, T) (float32), or None
     Returns (logits (B, T, n_vocab), k_self (L, B, T, H, Dh), v_self).
     """
-    tagged = isinstance(k_cross, tuple)
-    if tagged and k_cross[0] not in ("q8", "q4", "q4e"):
-        raise ValueError(f"decode_prompt: unknown cross-KV tag "
-                         f"{k_cross[0]!r}")
-    dec = params["decoder"]
-    blocks = dec["blocks"]
-    nh = _local_heads(blocks["q_w"], n_head)
-    cd = compute_dtype
-    tp = _model_axis(params)
-
-    x = _embed(dec, tokens, positions, tp)
-    ks_out, vs_out = [], []
-    for l, blk in enumerate(_layers(blocks)):
-        if tagged:
-            kc = _dequant(k_cross[0], k_cross[1][l], k_cross[2][l], cd)
-            vc = _dequant(v_cross[0], v_cross[1][l], v_cross[2][l], cd)
-        else:
-            kc, vc = k_cross[l], v_cross[l]
-
-        ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
-        q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd), nh)
-        k = _split_heads(_linear(ln, blk["k_w"], None, cd), nh)
-        v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], cd), nh)
-        attn = _attention(q, k, v, self_mask, cd)
-        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
-
-        ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
-        xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
-        attn = _cross_attention(xq, kc, vc, cd)
-        x = x + _linear(attn, blk["xo_w"], blk["xo_b"], cd, tp=tp)
-
-        ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
-        h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
-        ks_out.append(k)
-        vs_out.append(v)
-
-    x = _layernorm(x, dec["ln_w"], dec["ln_b"])
-    logits = _logits(x, dec["tok_emb"], cd, tp)
-    return logits, torch.stack(ks_out), torch.stack(vs_out)
+    logits, ks, vs = _prompt_pass(params, tokens, positions, k_cross,
+                                  v_cross, n_head, self_mask, compute_dtype,
+                                  "decode_prompt")
+    return logits, torch.stack(ks), torch.stack(vs)
 
 
 def decode_prompt_cross_qk(params, tokens, positions, k_cross, v_cross,
@@ -697,63 +751,30 @@ def decode_prompt_cross_qk(params, tokens, positions, k_cross, v_cross,
     head_select: (L, S, H) float32 one-hot rows selecting <= S heads a
     layer (zero rows: unused slots), so deep models capture S maps a layer
     rather than H.  k_cross/v_cross: dense (L, B, H, Dh, Ta), or tagged
-    ("q8" / "q4", codes, scales), dequantized a layer at a time as
-    decode_prompt does.  The linears are decode_prompt's (K3 at M = B*T
-    over packed weights); the cross-attention softmax is explicit, in f32
-    over the compute-dtype QK, as whisper_tpu's.  Under tensor
-    parallelism each rank selects from its own heads, and an all-reduce
-    over "model" brings every selected (global) head's weights to every
-    rank, exactly (one rank holds each head, the others add zeros).
+    ("q8" / "q4", codes, scales), dequantized a layer at a time.  The pass
+    is decode_prompt's (K3 at M = B*T over packed weights), its
+    cross-attention softmax in f32 over the compute-dtype QK, as
+    whisper_tpu's.  Under tensor parallelism each rank selects from its
+    own heads, and an all-reduce over "model" brings every selected
+    (global) head's weights to every rank, exactly (one rank holds each
+    head, the others add zeros).
     Returns (logits (B, T, V), qk_sel (L, B, S, T, Ta) float32).
     """
-    tagged = isinstance(k_cross, tuple)
-    if tagged and k_cross[0] not in ("q8", "q4", "q4e"):
-        raise ValueError(f"decode_prompt_cross_qk: unknown cross-KV tag "
-                         f"{k_cross[0]!r}")
-    dec = params["decoder"]
-    nh = _local_heads(dec["blocks"]["q_w"], n_head)
-    cd = compute_dtype
+    nh = _local_heads(params["decoder"]["blocks"]["q_w"], n_head)
     tp = _model_axis(params)
     head_select = torch.as_tensor(head_select, dtype=torch.float32,
                                   device=tokens.device)
     if tp is not None:
         head_select = head_select[..., tp.model_rank * nh:
                                   (tp.model_rank + 1) * nh]
-
-    x = _embed(dec, tokens, positions, tp)
     qk_all = []
-    for l, blk in enumerate(_layers(dec["blocks"])):
-        if tagged:
-            kc = _dequant(k_cross[0], k_cross[1][l], k_cross[2][l], cd)
-            vc = _dequant(v_cross[0], v_cross[1][l], v_cross[2][l], cd)
-        else:
-            kc, vc = k_cross[l].to(cd), v_cross[l].to(cd)
 
-        ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
-        q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd), nh)
-        k = _split_heads(_linear(ln, blk["k_w"], None, cd), nh)
-        v = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], cd), nh)
-        attn = _attention(q, k, v, self_mask, cd)
-        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
-
-        ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
-        xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
-        # the cross attention with its softmax explicit, so that the
-        # weights can be captured
-        dh = xq.shape[-1]
-        qk = torch.matmul(xq.to(cd).transpose(1, 2), kc).float() * (dh ** -0.5)
-        w = torch.softmax(qk, dim=-1)                       # (B, H, T, Ta)
+    def keep(l, w):                                       # (B, H, T, Ta)
         qk_all.append(torch.einsum("bhta,sh->bsta", w, head_select[l]))
-        out = torch.matmul(w.to(cd), vc.transpose(-1, -2)).float()
-        x = x + _linear(_merge_heads(out.transpose(1, 2)), blk["xo_w"],
-                        blk["xo_b"], cd, tp=tp)
 
-        ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
-        h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
-
-    x = _layernorm(x, dec["ln_w"], dec["ln_b"])
-    logits = _logits(x, dec["tok_emb"], cd, tp)
+    logits = _prompt_pass(params, tokens, positions, k_cross, v_cross,
+                          n_head, self_mask, compute_dtype,
+                          "decode_prompt_cross_qk", keep)[0]
     qk_sel = torch.stack(qk_all)
     return logits, qk_sel if tp is None else tp.all_reduce(qk_sel)
 
@@ -881,40 +902,21 @@ _DECODER_MATRICES = ("q_w", "k_w", "v_w", "o_w", "xq_w", "xo_w", "mlp0_w",
                      "mlp2_w")
 
 
-def _fused_decoder(x, blocks, kv_self, compute_dtype, tp) -> bool:
-    """Whether a decode step runs its layers through the kernels: the
-    self-attention over the cache (ops/decoder_attention.py) and the
-    row-wise epilogues between the GEMMs (ops/encoder_epilogue.py).  The
-    rule of `_fused_epilogues` on the decoder's matrices, with a cache in
-    the compute dtype and widths the kernels take; otherwise the step runs
-    the plain torch sequence, which makes the same roundings."""
-    D = x.shape[-1]
-    kk, vv = kv_self["k"], kv_self["v"]
-    return (_on_card(x) and compute_dtype == torch.bfloat16 and tp is None
-            and D % 8 == 0 and D <= MAX_LN_WIDTH and kk.shape[-2] <= MAX_DH
-            and all(c.dtype == compute_dtype and c.is_contiguous()
-                    for c in (kk, vv))
-            and all(isinstance(blocks[k], torch.Tensor)
-                    for k in _DECODER_MATRICES))
-
-
 # id of a decoder's stacked q_w -> (weak references to its stacked blocks,
 # their versions, the fused step's layers); see _fused_layers
 _FUSED_LAYERS: dict[int, tuple] = {}
 
 
 def _fused_layers(blocks: dict, compute_dtype) -> list[dict]:
-    """The fused decode step's weights a layer, built once a decoder: the
+    """The kernel step's weights a layer, built once a decoder: the
     matrices in the compute dtype as (in, out) views for torch.mm on 2-D
     rows (less host time a GEMM than F.linear on (B, 1, D)), q/k/v
     concatenated into one (D, 3D) matrix for one GEMM (a copy: 32 x 3 x
-    1280^2 bf16, 315 MB, at large-v3), the biases and layernorm weights in
-    f32 as the kernels take them, and each layer's exit layernorm (the
-    next layer's attention layernorm; the last layer's is the decoder's,
-    read a step).  Rebuilt when a stacked block is replaced or written in
-    place.  The layers hold detached views, which keep the weights'
-    storage but not the stacked tensors alive, so the entry goes with its
-    q_w."""
+    1280^2 bf16, 315 MB, at large-v3), and the biases and layernorm
+    weights in f32 as the kernels take them.  Rebuilt when a stacked block
+    is replaced or written in place.  The layers hold detached views,
+    which keep the weights' storage but not the stacked tensors alive, so
+    the entry goes with its q_w."""
     srcs = tuple(blocks.values())
     key = id(blocks["q_w"])
     versions = tuple(t._version for t in srcs)
@@ -933,52 +935,10 @@ def _fused_layers(blocks: dict, compute_dtype) -> list[dict]:
     layers = [{**{k: v[l].detach().t() for k, v in mats.items()},
                **{k: v[l].detach() for k, v in vecs.items()}}
               for l in range(blocks["q_w"].shape[0])]
-    for blk, nxt in zip(layers, layers[1:]):
-        blk["exit_ln_w"], blk["exit_ln_b"] = nxt["attn_ln_w"], nxt["attn_ln_b"]
     _FUSED_LAYERS[key] = (tuple(weakref.ref(t) for t in srcs), versions,
                           layers)
     weakref.finalize(blocks["q_w"], _FUSED_LAYERS.pop, key, None)
     return layers
-
-
-def _decode_layers_fused(x, dec, layers, kk, vv, cache_index, kv_len,
-                         pad_len, k_cross, v_cross, nh, group, cd):
-    """decode_step's layers on the card, on (B, D) rows: per layer the
-    q/k/v GEMM, the self-attention kernel (bias adds, cache writes,
-    attention over the valid keys), then each GEMM's epilogue, the
-    residual stream in f32 and every GEMM's input in bf16; each layer's
-    last epilogue computes the next layer's entry layernorm -> the
-    decoder's final layernorm of x, bf16 (B, D)."""
-    B = x.shape[0]
-    if pad_len is not None:      # as the kernel reads it
-        pad_len = pad_len.to(torch.long).contiguous()
-    ln = ln_cast(x, layers[0]["attn_ln_w"], layers[0]["attn_ln_b"])
-    final = (dec["ln_w"].float(), dec["ln_b"].float())
-    for blk, k_l, v_l, kc_l, vc_l in zip(layers, kk.unbind(0), vv.unbind(0),
-                                         _cross_layers(k_cross),
-                                         _cross_layers(v_cross)):
-        attn = self_attn_step(torch.mm(ln, blk["qkv_w"]), blk["q_b"],
-                              blk["v_b"], k_l, v_l, cache_index, kv_len,
-                              pad_len, nh)
-        x, ln = bias_residual_ln(x, torch.mm(attn, blk["o_w"]), blk["o_b"],
-                                 blk["xattn_ln_w"], blk["xattn_ln_b"])
-        xq = torch.mm(ln, blk["xq_w"])
-        if isinstance(kc_l, tuple) and kc_l[0] == "q8i":
-            # the q8i step quantizes q from f32, as `_linear` leaves it
-            xq = torch.add(xq, blk["xq_b"])
-        else:       # every other step rounds q to bf16 first
-            xq, = bias_cast((xq, blk["xq_b"]))
-        # (S*K, D) -> (S, K, H, Dh): a stream's beams as queries
-        attn = _cross_attn_step(xq.reshape(B // group, group, nh, -1),
-                                kc_l, vc_l, cd)
-        y = torch.mm(attn.reshape(B, -1).to(cd), blk["xo_w"])
-        x, ln = bias_residual_ln(x, y, blk["xo_b"], blk["mlp_ln_w"],
-                                 blk["mlp_ln_b"])
-        h = bias_gelu_cast(torch.mm(ln, blk["mlp0_w"]), blk["mlp0_b"])
-        x, ln = bias_residual_ln(x, torch.mm(h, blk["mlp2_w"]), blk["mlp2_b"],
-                                 *(blk["exit_ln_w"], blk["exit_ln_b"])
-                                 if "exit_ln_w" in blk else final)
-    return ln
 
 
 def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
@@ -1001,6 +961,12 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
         row, so nothing is tiled in device memory.  The einsum, "q8e" (K2
         with G = K queries in bf16) and "q8dt", "q8i" and "q4e" take
         group > 1; K4 and K5 take one query.
+    Where `_kernels` says so, the layers run on their kernels: the
+    self-attention kernel, which takes rows D a multiple of 8 up to
+    MAX_LN_WIDTH, heads up to MAX_DH and a contiguous cache in the compute
+    dtype, on one GEMM over `_fused_layers`' concatenated q/k/v, and the
+    epilogues.  Otherwise the plain versions, with the mask built once a
+    step.
     Returns (logits (B, n_vocab), kv_self).
     """
     dec = params["decoder"]
@@ -1009,50 +975,51 @@ def decode_step(params, tokens, pos_ids, cache_index, kv_self, k_cross,
     cd = compute_dtype
     tp = _model_axis(params)
     kk, vv = kv_self["k"], kv_self["v"]
-    C = kk.shape[-1]
-    dev = kk.device
+    x = _embed(dec, tokens, pos_ids, tp)                    # (B, D) rows
+    B, D = x.shape
+    kernels = _kernels(
+        x, blocks, _DECODER_MATRICES, cd, tp, "decoder_fused",
+        takes=(D % 8 == 0 and D <= MAX_LN_WIDTH and kk.shape[-2] <= MAX_DH
+               and all(c.dtype == cd and c.is_contiguous()
+                       for c in (kk, vv))))
+    if kernels:
+        # torch.mm on `_fused_layers`' (in, out) views of bf16 rows
+        layers, mm = _fused_layers(blocks, cd), (torch.mm, torch.mm)
+        if pad_len is not None:      # as the kernel reads it
+            pad_len = pad_len.to(torch.long).contiguous()
 
-    x = _embed(dec, tokens, pos_ids, tp)
-    if _fused_decoder(x, blocks, kv_self, cd, tp):
-        layers = _fused_layers(blocks, cd)
-        TRACE.count("decoder_fused", len(layers))
-        ln = _decode_layers_fused(x, dec, layers, kk, vv, cache_index,
-                                  kv_len, pad_len, k_cross, v_cross, nh,
-                                  group, cd)
-        return _logits(ln, dec["tok_emb"], cd, tp), kv_self
-    x = x[:, None, :]
+        def self_attn(blk, k_l, v_l, ln):
+            return self_attn_step(torch.mm(ln, blk["qkv_w"]), blk["q_b"],
+                                  blk["v_b"], k_l, v_l, cache_index, kv_len,
+                                  pad_len, nh)
+    else:
+        layers, mm = _layers(blocks), _plain_mm(cd, tp)
+        # over the cache columns: valid iff pad_len <= idx < kv_len
+        mask = step_mask(kk.shape[-1], kv_len, pad_len, kk.device)
 
-    # attention mask over cache positions: valid iff pad_len <= idx < kv_len
-    attn_mask = step_mask(C, kv_len, pad_len, dev)
+        def self_attn(blk, k_l, v_l, ln):
+            qkv = torch.cat([_linear(ln, blk[w], cd)
+                             for w in ("q_w", "k_w", "v_w")], dim=-1)
+            return self_attn_step_ref(qkv, blk["q_b"], blk["v_b"], k_l, v_l,
+                                      cache_index, kv_len, pad_len, nh,
+                                      mask=mask, dtype=cd)
 
-    for l, (blk, kc_l, vc_l) in enumerate(zip(
-            _layers(blocks), _cross_layers(k_cross), _cross_layers(v_cross))):
-        ln = _layernorm(x, blk["attn_ln_w"], blk["attn_ln_b"])
-        q = _split_heads(_linear(ln, blk["q_w"], blk["q_b"], cd), nh)
-        k_new = _split_heads(_linear(ln, blk["k_w"], None, cd), nh)
-        v_new = _split_heads(_linear(ln, blk["v_w"], blk["v_b"], cd), nh)
-        kk[l, :, :, :, cache_index] = k_new[:, 0].to(kk.dtype)
-        vv[l, :, :, :, cache_index] = v_new[:, 0].to(vv.dtype)
+    def cross_attn(kc_l, vc_l, q):
+        # (S*K, D) -> (S, K, H, Dh): a stream's beams as queries
+        return _cross_attn_step(q.reshape(B // group, group, nh, -1), kc_l,
+                                vc_l, cd).reshape(B, -1).to(cd)
 
-        attn = _cross_attention(q, kk[l], vv[l], cd, mask=attn_mask)
-        x = x + _linear(attn, blk["o_w"], blk["o_b"], cd, tp=tp)
-
-        ln = _layernorm(x, blk["xattn_ln_w"], blk["xattn_ln_b"])
-        xq = _split_heads(_linear(ln, blk["xq_w"], blk["xq_b"], cd), nh)
-        # (S*K, 1, H, Dh) -> (S, K, H, Dh): a stream's beams as queries
-        attn = _cross_attn_step(
-            xq.reshape(xq.shape[0] // group, group, nh, xq.shape[-1]),
-            kc_l, vc_l, cd)
-        x = x + _linear(attn.reshape(x.shape[0], 1, -1), blk["xo_w"],
-                        blk["xo_b"], cd, tp=tp)
-
-        ln = _layernorm(x, blk["mlp_ln_w"], blk["mlp_ln_b"])
-        h = _gelu(_linear(ln, blk["mlp0_w"], blk["mlp0_b"], cd))
-        x = x + _linear(h, blk["mlp2_w"], blk["mlp2_b"], cd, tp=tp)
-
-    x = _layernorm(x, dec["ln_w"], dec["ln_b"])
-    logits = _logits(x[:, 0], dec["tok_emb"], cd, tp)
-    return logits, {"k": kk, "v": vv}
+    ops = _ops(kernels, cd)
+    q_f32 = isinstance(k_cross, tuple) and k_cross[0] == "q8i"
+    ln = ops.ln_cast(x, layers[0]["attn_ln_w"], layers[0]["attn_ln_b"])
+    for blk, exit_ln, k_l, v_l, kc_l, vc_l in zip(
+            layers, _exit_norms(dec, layers), kk.unbind(0), vv.unbind(0),
+            _cross_layers(k_cross), _cross_layers(v_cross)):
+        x, ln = _decoder_layer(x, ln, blk, ops, mm,
+                               functools.partial(self_attn, blk, k_l, v_l),
+                               functools.partial(cross_attn, kc_l, vc_l),
+                               exit_ln, q_f32)
+    return _logits(ln, dec["tok_emb"], cd, tp), kv_self
 
 
 def make_causal_mask(t: int, offset: int = 0, device=None) -> torch.Tensor:

@@ -46,14 +46,17 @@ def step_mask(C: int, kv_len: int, pad_len, device) -> torch.Tensor:
 
 
 def self_attn_step_ref(qkv, q_b, v_b, k_cache, v_cache, cache_index: int,
-                       kv_len: int, pad_len, n_head: int):
-    """The plain step's sequence: qkv (B, 3D) in the compute dtype (the q,
-    k and v GEMM outputs side by side), q_b/v_b (D,); q and v get their
-    biases in f32 and one rounding (written back into qkv, as the kernel
+                       kv_len: int, pad_len, n_head: int, mask=None,
+                       dtype=None):
+    """The plain step's sequence: qkv (B, 3D) (the q, k and v GEMM outputs
+    side by side) in the compute dtype `dtype` (qkv's when None), or in
+    f32 from K3; q_b/v_b (D,); q and v get their biases in f32 and one
+    rounding to the compute dtype (written back into qkv, as the kernel
     does), k and v go into column cache_index of k_cache/v_cache (B, H,
-    Dh, C), and the query attends over the masked cache in the compute
-    dtype with an f32 softmax -> (B, D) in the compute dtype."""
-    cd = qkv.dtype
+    Dh, C), and the query attends over the cache under `mask` (step_mask's,
+    built here when None) in the compute dtype with an f32 softmax -> (B,
+    D) in the compute dtype."""
+    cd = dtype or qkv.dtype
     B, D = qkv.shape[0], qkv.shape[-1] // 3
     dh = D // n_head
     for part, bias in ((slice(0, D), q_b), (slice(2 * D, 3 * D), v_b)):
@@ -64,8 +67,9 @@ def self_attn_step_ref(qkv, q_b, v_b, k_cache, v_cache, cache_index: int,
                for i in range(3))
     k_cache[..., cache_index] = k[:, 0].to(k_cache.dtype)
     v_cache[..., cache_index] = v[:, 0].to(v_cache.dtype)
-    mask = step_mask(k_cache.shape[-1], kv_len, pad_len, qkv.device)
-    qh = q.transpose(1, 2)                                  # (B, H, 1, Dh)
+    if mask is None:
+        mask = step_mask(k_cache.shape[-1], kv_len, pad_len, qkv.device)
+    qh = q.transpose(1, 2).to(cd)                           # (B, H, 1, Dh)
     qk = torch.matmul(qh, k_cache.to(cd)).float() * (dh ** -0.5) + mask
     w = torch.softmax(qk, dim=-1)
     out = torch.matmul(w.to(cd), v_cache.to(cd).transpose(-1, -2)).float()

@@ -5,7 +5,9 @@ They replace no TPU kernel: XLA fused these passes on the TPU.  Under
 PyTorch each bias add, layernorm, GELU, residual add and cast is a kernel
 of its own writing a float32 intermediate; these read the bf16 GEMM output
 once and write only what the next GEMM or the residual stream needs.  Per
-layer (models/whisper.py `_encoder_block`):
+encoder layer (models/whisper.py `_qkv`, `_out_mlp`; a decoder layer takes
+ln_cast once a step and bias_residual_ln after each of its three residual
+GEMMs, `_decoder_layer`):
 
     ln_cast           bf16 LN(x)                      block entry
     bias_cast         q, v = bf16(f32(q|v) + b)       after the q/k/v GEMMs
@@ -14,12 +16,13 @@ layer (models/whisper.py `_encoder_block`):
     bias_residual     x' = x + (f32(y) + b)           after mlp2
 
 Each `*_ref` is the torch sequence the block runs without the kernels, in
-any dtype: the CPU takes it, and the card's tests compare the kernels with
-it.  CUDA tensors go through the kernels, which take f32 rows x, bf16 GEMM
-outputs y, f32 biases and layernorm weights, every tensor contiguous and
-16-byte aligned, a row width D that is a multiple of 8 (at most 2048 for
-the layernorms); anything else raises.  `bias_cast` and `bias_gelu_cast`
-write into y and return it.
+any dtype: models/whisper.py `_ops` binds them to the compute dtype where
+its rule (`_kernels`) says plain, and the card's tests compare the kernels
+with them.  CUDA tensors go through the kernels, which take f32 rows x,
+bf16 GEMM outputs y, f32 biases and layernorm weights, every tensor
+contiguous and 16-byte aligned, a row width D that is a multiple of 8 (at
+most 2048 for the layernorms); anything else raises.  `bias_cast` and
+`bias_gelu_cast` write into y and return it.
 """
 
 from __future__ import annotations
@@ -34,8 +37,7 @@ MAX_LN_WIDTH = 2048     # the layernorm kernels keep a row in registers
 
 
 def _bias_add(y, b, dtype):
-    """f32(y) + f32(b), rounded once to dtype (models/whisper.py `_linear`'s
-    bias add)."""
+    """f32(y) + f32(b), rounded once to dtype."""
     return torch.add(y, b.float(), out=torch.empty(y.shape, dtype=dtype,
                                                    device=y.device))
 
@@ -49,9 +51,11 @@ def ln_cast_ref(x, w, b, dtype=torch.bfloat16, eps: float = EPS):
     return _layernorm(x, w, b, eps).to(dtype)
 
 
-def bias_cast_ref(*pairs):
-    """For each (y, b): f32(y) + b rounded to y's dtype -> a tuple."""
-    return tuple(_bias_add(y, b, y.dtype) for y, b in pairs)
+def bias_cast_ref(*pairs, dtype=None):
+    """For each (y, b): f32(y) + b rounded to dtype (y's when None) -> a
+    tuple.  A K3 or all-reduced product comes in f32 and rounds to the
+    compute dtype here."""
+    return tuple(_bias_add(y, b, dtype or y.dtype) for y, b in pairs)
 
 
 def bias_residual_ln_ref(x, y, bias, w, b, dtype=torch.bfloat16,
