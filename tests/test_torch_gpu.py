@@ -964,6 +964,53 @@ def test_continuous_batcher_on_card(gen, device_mel):
         assert eng._pool.is_cuda and len(eng._pool_free) == eng.max_active
 
 
+def test_transcribe_stages_pcm_through_pinned_memory(gen):
+    """Two back-to-back transcribe calls on one device_mel transcriber with
+    different inputs (f32 streams over 4 rows, then int16 over 2): each
+    call's resident stack goes through the one pinned staging buffer
+    (`pcm_staged` once a call, with the stack's bytes), and every segment
+    equals that of the same calls with RESIDENT_BYTES = 0, which upload
+    each iteration's windows."""
+    dims = (51864, 32, 128, 2, 2, 48, 128, 2, 2, 80)
+    ctx = WhisperContext.from_random(dims=dims, seed=1, device="cuda")
+    p = full_default_params()
+    p.print_progress = False
+    p.language = "en"
+    p.temperature_inc = 0.0
+    p.no_timestamps = True
+    p.max_tokens = 8
+    rng = np.random.RandomState(0)
+    calls = [[(rng.randn(16000 * s) * 0.1).astype(np.float32)
+              for s in (12, 40, 3)],
+             [(rng.randn(16000 * s) * 0.1 * 32768).clip(-32768, 32767)
+              .astype(np.int16) for s in (35, 9)]]
+    bt = BatchTranscriber(ctx, batch_size=2, params=p, device_mel=True)
+    streamed = BatchTranscriber(ctx, batch_size=2, params=p, device_mel=True)
+    streamed.RESIDENT_BYTES = 0
+    TRACE.drain()
+    TRACE.enable()
+    try:
+        got = [bt.transcribe(calls[0])]
+        ptr = bt._stage.data_ptr()
+        got.append(bt.transcribe(calls[1]))
+        torch.cuda.synchronize()
+        staged = [r.value for r in TRACE.drain() if r.name == "pcm_staged"]
+        want = [streamed.transcribe(x) for x in calls]
+        assert not [r for r in TRACE.drain() if r.name == "pcm_staged"]
+    finally:
+        TRACE.disable()
+        TRACE.drain()
+    assert bt._stage.is_pinned() and bt._stage.data_ptr() == ptr
+    # 4 f32 rows, then 2 int16 rows, of 90 s (40 s and its 30 s of
+    # padding rounded up to 30 s multiples; 35 s likewise)
+    assert staged == [4 * 90 * 16000 * 4, 2 * 90 * 16000 * 2]
+    for g, w in zip(got, want):
+        assert all(g)
+        assert ([[(s.t0, s.t1, [t.id for t in s.tokens]) for s in x]
+                 for x in g] == [[(s.t0, s.t1, [t.id for t in s.tokens])
+                                  for s in x] for x in w])
+
+
 def test_server_round_trip_on_card(gen, tmp_path):
     """The port's server in this process over a small q5_0 file on the card
     with --batch 2 (K1 and K3): a json and a verbose_json request answer

@@ -46,19 +46,38 @@ def pad_audio(samples: np.ndarray) -> tuple[np.ndarray, int, int]:
     int16 input stays int16 (the batched device-mel path keeps s16 PCM
     packed until after the on-device window slice); everything else is f32.
     """
-    n_samples = len(samples)
-    stage_1_pad = SAMPLE_RATE * CHUNK_SIZE      # 480000
-    stage_2_pad = N_FFT // 2                    # 200
-
     dtype = np.int16 if samples.dtype == np.int16 else np.float32
-    padded = np.zeros(n_samples + stage_1_pad + 2 * stage_2_pad, dtype=dtype)
-    padded[stage_2_pad:stage_2_pad + n_samples] = samples
-    # reflective pad at the beginning: samples[1..200] reversed
-    padded[:stage_2_pad] = samples[1:1 + stage_2_pad][::-1]
-
+    padded = np.empty(padded_length(len(samples)), dtype=dtype)
+    pad_audio_into(samples, padded)
     n_len = (len(padded) - N_FFT) // HOP_LENGTH
-    n_len_org = 1 + (n_samples + stage_2_pad - N_FFT) // HOP_LENGTH
-    return padded, n_len, n_len_org
+    return padded, n_len, frames_org(len(samples))
+
+
+def padded_length(n_samples: int) -> int:
+    """pad_audio's length: N_FFT // 2 reflected samples ahead of the
+    samples, 30 s and N_FFT // 2 zeros after them."""
+    return n_samples + SAMPLE_RATE * CHUNK_SIZE + N_FFT
+
+
+def frames_org(n_samples: int) -> int:
+    """pad_audio's n_len_org: the frames covering n_samples of real audio."""
+    return 1 + (n_samples + N_FFT // 2 - N_FFT) // HOP_LENGTH
+
+
+def pad_audio_into(samples: np.ndarray, out: np.ndarray) -> None:
+    """Write pad_audio's padding of samples into out (at least
+    padded_length long; zeros to its end): samples[1..200] reversed, the
+    samples, zeros.  int16 samples into a float out are scaled by 1/32768,
+    as the device mel reads int16 PCM."""
+    head = N_FFT // 2
+    n = len(samples)
+    if samples.dtype == np.int16 and out.dtype != np.int16:
+        np.divide(samples[head:0:-1], 32768.0, out=out[:head])
+        np.divide(samples, 32768.0, out=out[head:head + n])
+    else:
+        out[:head] = samples[head:0:-1]
+        out[head:head + n] = samples
+    out[head + n:] = 0
 
 
 def _mel_from_padded_np(padded: np.ndarray, n_len: int,

@@ -49,10 +49,12 @@ whisper_tpu's engine fails every job.
 from __future__ import annotations
 
 import hashlib
+import os
 import queue
 import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -60,10 +62,11 @@ import torch
 from ..api import (FullParams, SamplingStrategy, Segment, WhisperContext,
                    WhisperState, _ladder, _rank_window_candidates,
                    full_default_params, window_rng)
-from ..audio.mel import (log_mel_spectrogram, log_mel_spectrogram_torch,
-                         pad_audio)
+from ..audio.mel import (frames_org, log_mel_spectrogram,
+                         log_mel_spectrogram_torch, pad_audio,
+                         pad_audio_into, padded_length)
 from ..constants import (CHUNK_SIZE, HOP_LENGTH, MAX_DECODERS, N_FFT,
-                         TICKS_PER_SECOND)
+                         SAMPLE_RATE, TICKS_PER_SECOND)
 from ..decode.filters import FilterOptions
 from ..decode.loop import DELTA_MIN, prompt_cross_kv
 from ..dtw import (dtw_aheads_select, dtw_cross_qk, dtw_pad_tokens,
@@ -149,10 +152,31 @@ def _auto_lang(p: FullParams) -> bool:
     return p.language in (None, "", "auto") or p.detect_language
 
 
+def _device_pcm(pcm) -> np.ndarray:
+    """A stream as the device mel takes it: int16 stays packed until after
+    the window slice on the device, anything else is f32; too short for
+    the reflect pad, it is zero-extended like silence."""
+    arr = np.asarray(pcm)
+    if arr.dtype != np.int16:
+        arr = np.asarray(arr, np.float32)
+    if len(arr) < 1 + N_FFT // 2:
+        arr = np.pad(arr, (0, 1 + N_FFT // 2 - len(arr)))
+    return arr
+
+
+# threads that write the resident stack's rows (numpy's copies release the
+# interpreter lock): 256 x 90 s int16 rows took 0.19-0.21 s on one thread
+# of an 8-core H100 host, 0.07 s on 4 and 0.045-0.05 s on 8
+_FILL_THREADS = min(8, len(os.sched_getaffinity(0))
+                    if hasattr(os, "sched_getaffinity")
+                    else os.cpu_count() or 1)
+
+
 class StreamState(WhisperState):
     """Per-stream sliding-window session: a WhisperState plus window
     scheduling fields.  `mel` is the host log-mel (device_mel=False), or
-    `pcm_padded` the padded PCM the device turns into log-mel; `pcm_row`
+    `pcm_padded` the padded PCM the device turns into log-mel (None when
+    the stream's row of transcribe's resident stack holds it); `pcm_row`
     is the stream's row of a resident PCM pool (ContinuousBatcher)."""
 
     def __init__(self, mel, seek: int, seek_end: int):
@@ -211,6 +235,10 @@ class BatchTranscriber:
         self.n_windows = 0
         self.n_retried_windows = 0
         self.last_states: list[StreamState] = []
+        # transcribe's reused host buffer for the resident PCM stack (pinned
+        # on the card), and the event of its last copy to the device
+        self._stage: torch.Tensor | None = None
+        self._staged = None
         # finished windows awaiting the batched DTW cross-QK pass
         # (ctx.dtw_token_timestamps): (st, i_seg, n_new, seek, n_frames,
         # the stream's index into `states`)
@@ -340,24 +368,20 @@ class BatchTranscriber:
 
     # -- stream scheduling -------------------------------------------------
 
-    def _make_stream(self, pcm) -> StreamState:
+    def _make_stream(self, pcm, arr=None) -> StreamState:
         """Host-side per-stream prep: the log-mel (or the padded PCM for
         device_mel), the signal energy for token timestamps, and window
-        scheduling fields."""
+        scheduling fields.  arr: the stream's `_device_pcm` when its row
+        of transcribe's resident stack is its padded PCM (no copy here)."""
         p = self.params
         if self.device_mel:
             # the device computes the mel; the host only pads (reflect
-            # head, 30 s zero tail).  int16 stays packed until after the
-            # window slice on the device
-            arr = np.asarray(pcm)
-            if arr.dtype != np.int16:
-                arr = arr.astype(np.float32)
-            if len(arr) < 1 + N_FFT // 2:
-                # too short for the reflect pad; zero-extend like silence
-                arr = np.pad(arr, (0, 1 + N_FFT // 2 - len(arr)))
-            padded, _, n_len_org = pad_audio(arr)
+            # head, 30 s zero tail)
             st = StreamState(None, 0, 0)
-            st.pcm_padded = padded
+            if arr is None:
+                st.pcm_padded, _, n_len_org = pad_audio(_device_pcm(pcm))
+            else:
+                n_len_org = frames_org(len(arr))
         else:
             mel, n_len_org = log_mel_spectrogram(np.asarray(pcm),
                                                  self.ctx.filters)
@@ -378,25 +402,67 @@ class BatchTranscriber:
             st.done = True
         return st
 
-    def _upload_pcm(self, states) -> torch.Tensor:
-        """Every stream's padded PCM in one device tensor (rows padded to
-        a batch multiple, length to a 30 s multiple); int16 when every
-        stream is int16."""
+    def _resident_pcm(self, streams) -> list[np.ndarray] | None:
+        """Each stream's `_device_pcm` when transcribe keeps the call's
+        padded PCM resident on the device (device_mel, no mesh: each rank
+        cuts its own rows, and the padded streams within RESIDENT_BYTES),
+        else None."""
+        if not (self.device_mel and self.mesh is None and len(streams)):
+            return None
+        arrs = [_device_pcm(pcm) for pcm in streams]
+        if sum(padded_length(len(a)) * a.itemsize for a in arrs) \
+                > self.RESIDENT_BYTES:
+            return None
+        return arrs
+
+    def _upload_pcm(self, arrs) -> torch.Tensor:
+        """The streams' padded PCM in one device tensor (rows padded to a
+        batch multiple, length to a 30 s multiple); int16 when every
+        stream is int16, else f32.  Each row is written once
+        (pad_audio_into) into the reused staging buffer, which one
+        asynchronous copy takes to the device."""
         with TRACE.span("upload") as sp:
-            s_max = max(len(st.pcm_padded) for st in states)
-            gran = 16000 * CHUNK_SIZE
+            gran = SAMPLE_RATE * CHUNK_SIZE
+            s_max = max(padded_length(len(a)) for a in arrs)
             s_max = -(-s_max // gran) * gran
-            n_rows = -(-len(states) // self.B) * self.B
-            all_i16 = all(st.pcm_padded.dtype == np.int16 for st in states)
-            stack = np.zeros((n_rows, s_max),
-                             np.int16 if all_i16 else np.float32)
-            for i, st in enumerate(states):
-                row = st.pcm_padded
-                if not all_i16 and row.dtype == np.int16:
-                    row = row.astype(np.float32) / 32768.0
-                stack[i, :len(row)] = row
+            n_rows = -(-len(arrs) // self.B) * self.B
+            dtype = (np.int16 if all(a.dtype == np.int16 for a in arrs)
+                     else np.float32)
+            host = self._staging((n_rows, s_max), dtype)
+            stack = host.numpy()
+
+            def fill(rows):
+                for i in rows:
+                    pad_audio_into(arrs[i], stack[i])
+
+            k = min(_FILL_THREADS, len(arrs))
+            with ThreadPoolExecutor(k) as ex:
+                list(ex.map(fill, [range(j, len(arrs), k) for j in range(k)]))
+            stack[len(arrs):] = 0
             sp.value = stack.nbytes
-            return torch.from_numpy(stack).to(self.ctx.device)
+            dev = self.ctx.device
+            if dev.type != "cuda":
+                return host     # read in place until the next call refills it
+            pcm_dev = host.to(dev, non_blocking=True)
+            self._staged = torch.cuda.Event()
+            self._staged.record(torch.cuda.current_stream(dev))
+            TRACE.count("pcm_staged", stack.nbytes)
+            return pcm_dev
+
+    def _staging(self, shape, dtype) -> torch.Tensor:
+        """A (shape) dtype view of the transcriber's reused host buffer:
+        pinned for a CUDA device, grown when a call needs more, and handed
+        out only once its last copy to the device has ended."""
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        if self._staged is not None:
+            self._staged.synchronize()
+        if self._stage is None or self._stage.numel() < nbytes:
+            self._stage = None
+            self._stage = torch.empty(
+                nbytes, dtype=torch.uint8,
+                pin_memory=self.ctx.device.type == "cuda")
+        tdtype = torch.int16 if dtype == np.int16 else torch.float32
+        return self._stage[:nbytes].view(tdtype).view(shape)
 
     # the resident PCM stack of transcribe() stays under this many bytes;
     # past it each iteration uploads its windows
@@ -407,13 +473,11 @@ class BatchTranscriber:
         languages among them) are left in `last_states`."""
         with TRACE.span("transcribe", len(streams)):
             with TRACE.span("prep", len(streams)):
-                states = [self._make_stream(pcm) for pcm in streams]
-            pcm_dev = None
-            # no resident stack under a mesh: each rank cuts its own rows
-            if (self.device_mel and self.mesh is None and states and sum(
-                    st.pcm_padded.nbytes for st in states)
-                    <= self.RESIDENT_BYTES):
-                pcm_dev = self._upload_pcm(states)
+                arrs = self._resident_pcm(streams)
+                states = [self._make_stream(
+                    pcm, None if arrs is None else arrs[i])
+                    for i, pcm in enumerate(streams)]
+            pcm_dev = None if arrs is None else self._upload_pcm(arrs)
 
             while True:
                 active = [i for i, st in enumerate(states) if not st.done]
