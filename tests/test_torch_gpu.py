@@ -1784,3 +1784,132 @@ def test_cross_kv_quant_refuses_on_card(gen):
         library().call("wtt_cross_kv_quant", k.data_ptr(), v.data_ptr(),
                        bias.data_ptr(), codes.data_ptr(), scales.data_ptr(),
                        codes.data_ptr(), scales.data_ptr(), 0, H, Ta, stream)
+
+
+def _omni_small():
+    """Uni-MoE-2.0-Omni's language model at a small width: d 256, 8 query
+    and 2 KV heads of 32 channels, 2 layers, 4 routed + 2 shared + 1 null
+    experts, vocabulary 1024; the encoder at width 128 (K1's 64-channel
+    heads)."""
+    from whisper_tpu_torch.models import uni_moe_omni as omni
+    cfg = omni.OmniConfig(
+        n_vocab=1024, d_model=256, n_layer=2, n_head=8, n_kv_head=2,
+        head_dim=32, routed_ffn=384, shared_ffn=96, n_audio_tokens=20,
+        audio_state=128, prompt_head=(1, 2, 3), prompt_tail=(4, 5),
+        eos=1024)
+    enc = wm.WhisperConfig(512, 1500, 128, 2, 2, 448, 128, 2, 2, 128)
+    return omni, cfg, enc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_uni_moe_omni_prefill_and_step_on_card(gen, dtype):
+    """The audio-LLM's prefill and greedy steps through the cache on the
+    card against the same code on the CPU in float32: bit-near in float32
+    (TF32 off; summation order only), within bf16 rounding in bf16, where
+    the CPU run is handed nothing (both route by their own probabilities,
+    and a routing flip at this width moves the logits past the bound only
+    within ~1e-2 of a boundary, which the planted seed avoids)."""
+    from whisper_tpu_torch.weights.convert import param_shapes
+    omni, cfg, enc = _omni_small()
+    cpu = omni.random_params(param_shapes(enc)["encoder"], cfg, seed=4,
+                             dtype=torch.float32, scale=0.05)
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else
+                v.to("cuda", dtype if v.dtype == torch.float32 and
+                     k in omni.WEIGHT_KEYS else v.dtype)
+                for k, v in tree.items()}
+    card = to(cpu)
+    audio = torch.randn(3, 20, 256, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for params, dev, dt in ((cpu, "cpu", torch.float32),
+                            (card, "cuda", dtype)):
+        routes = []
+        cache = omni.new_cache(cfg, 3, cfg.prompt_len + 8, dev, dt)
+        with torch.no_grad():
+            ids, lps = omni.greedy(params, cfg, audio.to(dev), cache, 8,
+                                   routes)
+        outs.append((ids, lps, [k.cpu() for k, _ in routes]))
+    (ids0, lp0, k0), (ids1, lp1, k1) = outs
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(k0, k1))
+    if dtype == torch.float32:
+        assert torch.equal(ids0, ids1) and flips == 0
+        assert float((lp0 - lp1).abs().max()) < 1e-4
+    else:
+        # the first token's log-probability is the best one's on both
+        # sides, whichever token that is
+        assert flips <= 0.01 * sum(len(k) for k in k0)
+        assert float((lp0[:, 0] - lp1[:, 0]).abs().max()) < 5e-2
+
+
+def test_uni_moe_omni_step_graphs_give_the_eager_bits(gen):
+    """The one-token step as CUDA graphs (`_StepGraphs`) against the same
+    step run op by op on one card, bf16: the same tokens,
+    log-probabilities, kept sets and router probabilities bit for bit,
+    over two rounds on one cache (the graphs built once, at its first
+    step)."""
+    from whisper_tpu_torch.weights.convert import param_shapes
+    omni, cfg, enc = _omni_small()
+    params = omni.random_params(param_shapes(enc)["encoder"], cfg, seed=6,
+                                dtype=torch.bfloat16, device="cuda",
+                                scale=0.05)
+    audio = torch.randn(2, 4, 20, 256, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(2))
+    runs = {}
+    for graphs in (False, True):
+        cache = omni.new_cache(cfg, 4, cfg.prompt_len + 8, "cuda")
+        if not graphs:
+            cache["graphs"] = False         # the steps op by op
+        for rnd in range(2):
+            routes = []
+            with torch.no_grad():
+                ids, lps = omni.greedy(params, cfg, audio[rnd], cache, 8,
+                                       routes)
+            runs[graphs, rnd] = (ids, lps, [k.cpu() for k, _ in routes],
+                                 [p.cpu() for _, p in routes])
+        built = cache["graphs"]
+        assert isinstance(built, omni._StepGraphs) == graphs
+    for rnd in range(2):
+        eager, graphed = runs[False, rnd], runs[True, rnd]
+        assert torch.equal(eager[0], graphed[0])
+        assert torch.equal(eager[1], graphed[1])
+        assert len(eager[2]) == len(graphed[2]) == cfg.n_layer * 8
+        assert all(torch.equal(a, b) for a, b in zip(eager[2], graphed[2]))
+        assert all(torch.equal(a, b) for a, b in zip(eager[3], graphed[3]))
+
+
+def test_uni_moe_omni_transcribe_on_card(gen):
+    """BatchTranscriber on an AudioLLMContext on the card, bf16, with the
+    tracer on: one segment a window of max_tokens tokens, the `moe` spans'
+    device time read, and the counters' sums consistent."""
+    from whisper_tpu_torch.api import AudioLLMContext
+    from whisper_tpu_torch.weights.convert import param_shapes
+    omni, cfg, enc = _omni_small()
+    params = omni.random_params(param_shapes(enc)["encoder"], cfg, seed=5,
+                                dtype=torch.bfloat16, device="cuda",
+                                scale=0.05)
+    ctx = AudioLLMContext(enc, cfg, params, device="cuda")
+    p = full_default_params()
+    p.no_timestamps, p.temperature_inc, p.max_tokens = True, 0.0, 6
+    p.print_progress = False
+    bt = BatchTranscriber(ctx, batch_size=4, params=p, device_mel=True)
+    bt.warmup(pcm_dtype=np.int16)
+    rng = np.random.default_rng(0)
+    streams = [(rng.standard_normal(16000 * 45) * 3000).astype(np.int16)
+               for _ in range(4)]
+    TRACE.drain()
+    TRACE.enable()
+    try:
+        out = bt.transcribe(streams)
+    finally:
+        TRACE.disable()
+    s = TRACE.summary()
+    TRACE.drain()
+    assert [len(segs) for segs in out] == [2] * 4
+    assert all(len(seg.tokens) == 6 for segs in out for seg in segs)
+    assert s["llm_prefill"]["count"] == 2 and s["llm_step"]["count"] == 10
+    assert s["moe"]["count"] == 2 * 12 and s["moe"]["stream_seconds"] > 0
+    assert s["moe_tokens"]["value"] == 2 * 2 * 4 * (cfg.prompt_len + 5)
+    assert s["moe_tokens"]["value"] <= s["moe_routed"]["value"] + \
+        s["moe_null"]["value"] <= 2 * s["moe_tokens"]["value"]

@@ -1136,6 +1136,40 @@ for _f in ("mel", "mel_n_len_org", "lang_id_state", "no_speech_prob",
 del _f
 
 
+class AudioLLMContext:
+    """An audio language model's weights and settings on one torch device:
+    Whisper's encoder as its audio tower (`config`: a WhisperConfig whose
+    encoder fields count; params["encoder"]), a connector and a language
+    model that transcribes (`llm`: models/uni_moe_omni.OmniConfig;
+    params["connector"], params["llm"]).  parallel/batch.BatchTranscriber
+    transcribes on it, greedy, one segment of token ids a 30 s window;
+    whisper-server, `full` and the continuous engine take WhisperContexts
+    only."""
+
+    mesh = None
+
+    def __init__(self, config: WhisperConfig, llm, params: dict,
+                 filters=None, device="cuda",
+                 compute_dtype=torch.bfloat16):
+        device = resolve_device(device)
+        if device.type == "cuda":
+            full_f32_matmuls()     # the router is float32, not TF32
+        self.config = config
+        self.llm = llm
+        self.params = params
+        self.filters = np.asarray(
+            mel_filterbank(config.n_mels) if filters is None else filters,
+            np.float32)
+        self.device = device
+        self.compute_dtype = compute_dtype
+
+    @staticmethod
+    def token_str(tid: int) -> str:
+        """No tokenizer ships with the model here: a token reads as its
+        id."""
+        return f"<|{tid}|>"
+
+
 def _leaves(tree):
     for val in tree.values():
         if isinstance(val, dict):

@@ -27,6 +27,10 @@ rebatching only the failed rows, with best_of candidates a stream at
 t > 0 drawn from per-row keys (`window_rng`), so a window's candidates do
 not depend on its slot or its batch.  Beam search decodes S streams x K
 beams as rows of one batch against S cross-KV rows (decode/beam.py).
+On an audio-LLM context (api.AudioLLMContext: Whisper's encoder feeding
+the language model of models/uni_moe_omni.py) the same staging, device
+mel and batched encode feed `_iterate_llm`: the window's audio tokens,
+a prefill and greedy steps, one segment of token ids a window.
 With the context's dtw_token_timestamps, an iteration's finished windows
 share one teacher-forced cross-QK re-decode per DTW_QK_ROWS rows, and the
 host stamps each row's tokens (dtw.py).  Grammars and logits-filter
@@ -49,6 +53,7 @@ whisper_tpu's engine fails every job.
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 import queue
 import threading
@@ -59,9 +64,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..api import (FullParams, SamplingStrategy, Segment, WhisperContext,
-                   WhisperState, _ladder, _rank_window_candidates,
-                   full_default_params, window_rng)
+from ..api import (AudioLLMContext, FullParams, SamplingStrategy, Segment,
+                   TokenData, WhisperContext, WhisperState, _ladder,
+                   _rank_window_candidates, full_default_params, window_rng)
 from ..audio.mel import (frames_org, log_mel_spectrogram,
                          log_mel_spectrogram_torch, pad_audio,
                          pad_audio_into, padded_length)
@@ -72,6 +77,7 @@ from ..decode.loop import DELTA_MIN, prompt_cross_kv
 from ..dtw import (dtw_aheads_select, dtw_cross_qk, dtw_pad_tokens,
                    dtw_stamp_segments, dtw_token_sequence)
 from ..languages import lang_id as _lang_id, lang_str
+from ..models import uni_moe_omni as omni
 from ..models import whisper as wm
 from ..timestamps import get_signal_energy
 from ..utils.logging import log_error, log_info
@@ -110,6 +116,9 @@ def _cross_fn_for(cross_mode: str):
 def _check_supported(ctx: WhisperContext, p: FullParams, mesh,
                      batch_size: int) -> None:
     """Refuse what the batch cannot decode, with the reason."""
+    if isinstance(ctx, AudioLLMContext):
+        _check_llm_supported(p, mesh)
+        return
     if mesh is not None:
         # imported here: `python -m whisper_tpu_torch.parallel.mesh` runs
         # that module as __main__, which the package import must not load
@@ -145,6 +154,33 @@ def _check_supported(ctx: WhisperContext, p: FullParams, mesh,
                 f"rows decode as coupled rows of one batch")
     if not _auto_lang(p) and _lang_id(p.language) < 0:
         raise ValueError(f"unknown language {p.language!r}")
+
+
+def _check_llm_supported(p: FullParams, mesh) -> None:
+    """Refuse what an audio-LLM context's windows have no meaning for: it
+    decodes each 30 s window greedily to token ids, on one device, with
+    no text carried between windows."""
+    refused = {
+        "a device mesh": mesh is not None,
+        "timestamps (no_timestamps must be set)": not p.no_timestamps,
+        "token timestamps and DTW": p.token_timestamps,
+        "beam search": p.strategy == SamplingStrategy.BEAM_SEARCH,
+        "sampling and the temperature ladder (temperature and "
+        "temperature_inc must be 0)": p.temperature > 0
+        or p.temperature_inc > 0,
+        "language detection": _auto_lang(p),
+        "carried prompts (initial_prompt, prompt_tokens, no_context "
+        "off)": bool(p.initial_prompt or p.prompt_tokens)
+        or not p.no_context,
+        "grammars and logits filters": p.grammar_rules is not None
+        or p.logits_filter_callback is not None,
+        "an unbounded window (max_tokens must be > 0)": p.max_tokens <= 0,
+    }
+    for what, asked in refused.items():
+        if asked:
+            raise ValueError(f"an audio-LLM context transcribes greedy "
+                             f"windows of token ids: {what} is not "
+                             "supported")
 
 
 def _auto_lang(p: FullParams) -> bool:
@@ -215,6 +251,9 @@ class BatchTranscriber:
         self.params = params or full_default_params()
         p = self.params
         _check_supported(ctx, p, mesh, batch_size)
+        # an audio-LLM context's language model (its windows decode through
+        # _iterate_llm), None for a WhisperContext
+        self.llm = ctx.llm if isinstance(ctx, AudioLLMContext) else None
         if mesh is not None and ctx.mesh is not mesh:
             from .mesh import shard_params
             ctx.params = shard_params(ctx.params, mesh)
@@ -246,8 +285,14 @@ class BatchTranscriber:
         # the template prompt (pad rows, warmup, bucket sizing); an
         # auto-language stream gets a copy with its detected language token,
         # of the same length
-        self.prompt_init = self._prompt_init_for(
-            0 if self.auto_lang else _lang_id(p.language))
+        self.prompt_init = [] if self.llm is not None else \
+            self._prompt_init_for(0 if self.auto_lang
+                                  else _lang_id(p.language))
+        # the language model's KV cache, made at its first window; and
+        # when a dict, each window's routing, {(stream index, seek): (kept
+        # experts (T, L, top_k) int8, router probabilities (T, L, E + N0))}
+        self._kv: dict | None = None
+        self.routes: dict | None = None
 
     def _prompt_init_for(self, lang_id: int) -> list[int]:
         """[sot, lang?, task?, not?] (reference: whisper.cpp:5627-5651)."""
@@ -280,6 +325,8 @@ class BatchTranscriber:
                 mel = mel[:, :2 * n_ctx]
             enc = wm.encode(ctx.params, mel, n_head=ctx.config.n_audio_head,
                             compute_dtype=ctx.compute_dtype)
+            if self.llm is not None:
+                return omni.connect(ctx.params, enc, self.llm)
             return _cross_fn_for(ctx.cross_mode)(
                 ctx.params, enc, n_head=ctx.config.n_text_head,
                 compute_dtype=ctx.compute_dtype)
@@ -479,11 +526,12 @@ class BatchTranscriber:
                     for i, pcm in enumerate(streams)]
             pcm_dev = None if arrs is None else self._upload_pcm(arrs)
 
+            iterate = self._iterate if self.llm is None else self._iterate_llm
             while True:
                 active = [i for i, st in enumerate(states) if not st.done]
                 if not active:
                     break
-                self._iterate(states, active[:self.B], pcm_dev)
+                iterate(states, active[:self.B], pcm_dev)
 
         self.last_states = states
         return [st.result_all for st in states]
@@ -576,6 +624,69 @@ class BatchTranscriber:
                 kc = vc = None
                 tiled_cache.clear()
                 self._run_dtw_jobs(states, pcm_dev)
+
+    def _iterate_llm(self, states, batch, pcm_dev=None) -> None:
+        """One batched window iteration on an audio-LLM context: encode
+        every stream's current window, pool and project it to audio
+        tokens, transcribe greedily through the language model, emit one
+        segment a window (the token ids before eos, each with its
+        log-probability) and move every seek 30 s on."""
+        with TRACE.span("iterate", len(batch)):
+            B = len(batch)
+            audio = self._encode_slots(
+                states, list(batch) + [None] * (self.B - B), pcm_dev)
+            routes = [] if self.routes is not None else None
+            ids, lps = self._llm_decode(audio, routes)
+            if routes is not None:
+                kept, probs = self._window_routes(routes, ids.shape[1])
+            eos = self.llm.eos
+            with TRACE.span("finish", B):
+                for r, si in enumerate(batch):
+                    st = states[si]
+                    row = ids[r].tolist()
+                    n = row.index(eos) if eos in row else len(row)
+                    toks = [TokenData(t, t, math.exp(lp), lp, 0.0, 0.0)
+                            for t, lp in zip(row[:n], lps[r, :n].tolist())]
+                    text = "".join(map(AudioLLMContext.token_str, row[:n]))
+                    t1 = min(st.seek + TICKS_PER_SECOND * CHUNK_SIZE,
+                             st.seek_end)
+                    st.result_all.append(Segment(st.seek, t1, text, 0.0,
+                                                 toks))
+                    if routes is not None:
+                        self.routes[(si, st.seek)] = (kept[r], probs[r])
+                    st.seek += TICKS_PER_SECOND * CHUNK_SIZE
+                    if st.seek + DELTA_MIN >= st.seek_end:
+                        st.done = True
+            self.n_windows += B
+
+    def _llm_decode(self, audio, routes=None):
+        """Greedy transcripts of the batch's audio tokens (B, n, d) ->
+        (ids, log-probabilities), each (B, n_tokens) on the host."""
+        cfg = self.llm
+        if self._kv is None:
+            self._kv = omni.new_cache(
+                cfg, self.B, cfg.prompt_len + self.params.max_tokens,
+                self.ctx.device, self.ctx.compute_dtype)
+        with torch.no_grad():
+            return omni.greedy(self.ctx.params, cfg, audio, self._kv,
+                               self.params.max_tokens, routes)
+
+    def _window_routes(self, routes, n_tokens: int):
+        """The MoE calls' records of one window round (the prefill's
+        layers, then each step's) -> (kept (B, T, L, top_k), probabilities
+        (B, T, L, E + N0)) on the host, T the positions computed."""
+        L = self.llm.n_layer
+        T = self.llm.prompt_len
+        out = []
+        for part in (0, 1):
+            rows = [torch.stack([c[part].view(self.B, T, -1)
+                                 for c in routes[:L]], dim=2)]
+            if n_tokens > 1:
+                steps = torch.stack([c[part] for c in routes[L:]])
+                rows.append(steps.view(n_tokens - 1, L, self.B, -1).permute(
+                    2, 0, 1, 3))
+            out.append(torch.cat(rows, dim=1).cpu().numpy())
+        return out
 
     def _finish_groups(self, states, batch, groups, out, n_cand, last):
         """Rank each group's n_cand candidate rows of `out` and emit the
@@ -812,7 +923,7 @@ class BatchTranscriber:
                         chunk = chunk.astype(np.float32) / 32768.0
                     windows[row, :len(chunk)] = chunk
             else:
-                windows = np.zeros((nB, 2 * n_ctx, ctx.hparams.n_mels),
+                windows = np.zeros((nB, 2 * n_ctx, ctx.config.n_mels),
                                    np.float32)
                 for row, si in enumerate(slot_streams):
                     if si is None:
@@ -903,12 +1014,17 @@ class BatchTranscriber:
             windows = np.zeros((self.B, 2 * n_ctx * HOP_LENGTH + N_FFT),
                                pcm_dtype)
         else:
-            windows = np.zeros((self.B, 2 * n_ctx, ctx.hparams.n_mels),
+            windows = np.zeros((self.B, 2 * n_ctx, ctx.config.n_mels),
                                np.float32)
         with TRACE.span("warmup"):
             with TRACE.span("encode", self.B,
                             device=ctx.device.type == "cuda"):
-                kc, vc = self._encode_local(windows)
+                enc = self._encode_local(windows)
+            if self.llm is not None:
+                # a whole window: the prompt and every cache length
+                self._llm_decode(enc)
+                return
+            kc, vc = enc
             bare = list(self.prompt_init)
             cap = min(self.params.n_max_text_ctx, ctx.config.n_text_ctx // 2)
             carried = [ctx.vocab.token_prev] + [0] * cap + bare
@@ -1052,6 +1168,10 @@ class ContinuousBatcher:
                  params: FullParams | None = None, device_mel: bool = False,
                  max_active: int | None = None, warmup: bool = False,
                  conductor=None):
+        if isinstance(ctx, AudioLLMContext):
+            raise ValueError("ContinuousBatcher serves WhisperContexts; "
+                             "an audio-LLM context transcribes through "
+                             "BatchTranscriber.transcribe")
         mesh = ctx.mesh
         if mesh is not None and mesh.n_data > 1:
             raise NotImplementedError(
